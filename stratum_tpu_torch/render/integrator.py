@@ -1,0 +1,452 @@
+"""Wavefront path tracer (counterpart of stratum_tpu/render/integrator.py:
+RenderConfig, trace_path and render_path_with_counts).
+
+One sample per pixel as a dense per-bounce wavefront: intersect, add
+MIS-weighted emission, run NEE from the presampled light tile, sample the
+BSDF, continue with Russian roulette. The reference's ``lax.scan`` over
+bounces is a Python loop here. Bounce 0 traces unsorted (the primary wave
+is tile-coherent); later bounces go through the trace-local sort; every
+bounce's NEE shadow rays are traced in ONE deferred occlusion wave after
+the loop. Integer and hash paths (RNG, tile order, coherent granules) match
+the reference bit for bit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from stratum_tpu_torch.core import math as smath
+from stratum_tpu_torch.core import rng as srng
+from stratum_tpu_torch.ops import block_trace, raysort
+from stratum_tpu_torch.ops.bvh import morton3
+from stratum_tpu_torch.ops.intersect import T_MAX, ray_offset
+from stratum_tpu_torch.render import camera as scamera
+from stratum_tpu_torch.render import lights as slights
+from stratum_tpu_torch.render.shading import (
+    material_from_row,
+    shading_point_from_row,
+    shadow_terminator_factor,
+)
+
+_ENV_DIST = float(np.float32(T_MAX) * np.float32(0.5))
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Render parameters, field for field the reference's RenderConfig.
+
+    TPU schedule knobs that give identical results (``unroll_bounces``,
+    ``ring``, ``gs*``, ``entry_group*``) are accepted and ignored: the CUDA
+    kernel has one schedule. Options that would change what is rendered
+    and are not ported raise NotImplementedError (see
+    :func:`check_supported`)."""
+
+    width: int = 256
+    height: int = 256
+    max_bounces: int = 4
+    use_nee: bool = True
+    use_mis: bool = True
+    unroll_bounces: int = 1
+    rr_depth: int = 2
+    rr_min_beta: float = 0.05
+    slim_carry: bool = False
+    bsdf: str = "lambert"  # "lambert" | "disney"
+    tracer: str = "auto"  # "auto": the block tracer (ops/block_trace.py)
+    alpha_test: bool = False
+    ris_candidates: int = 1
+    sort_rays: bool = True  # trace-local sort of closest waves 1..N
+    indirect_only: bool = False
+    defer_shadows: bool = True  # one occlusion wave after the bounce loop
+    presample_lights: int = 0  # >0: per-frame tile of light samples
+    clamp_indirect: float = 0.0  # >0: luminance clamp on indirect terms
+    shadow_rr: float = 0.0  # >0: Russian roulette on NEE shadow rays
+    debug_path_edges: int = 0
+    coherent_tiles: int = 0  # >0: granule-shared groups of tile rows
+    coherent_block: int = 2048  # lanes per coherence granule
+    entry_group: int = 0
+    entry_group_primary: int = 0
+    entry_group_shadow: int = 0
+    ring: int = -1
+    gs: int = -1
+    gs_primary: int = -2
+    gs_shadow: int = -2
+    gs_gate: int = -1
+    binned_secondary: int = 0
+    binned_shadow: int = 0
+    binned_bounces: int = 0
+    wave_caps: tuple = ()
+
+
+_TRACERS = {
+    "mxu": "the dense MXU tracer",
+    "packet": "the XLA packet tracer",
+    "bvh": "the LBVH tracer",
+    "brute": "the brute-force tracer",
+}
+_ITEM = {  # ROADMAP Queue 1 item that ports each refused option
+    "tracer": "item 1 (Cornell MXU path)",
+    "alpha_test": "item 4 (RIS NEE, alpha_test, wave_caps, media and spheres)",
+    "ris_candidates>1": "item 4 (RIS NEE, alpha_test, wave_caps, media and spheres)",
+    "wave_caps": "item 4 (RIS NEE, alpha_test, wave_caps, media and spheres)",
+    "binned_*": "item 9 (binned with K5)",
+    "slim_carry": "item 3 (render_path_batched / render_path_lanes)",
+    "debug_path_edges": "item 6 (denoise, tonemap, AOVs and sessions)",
+    "indirect_only": "item 5 (light tracing, BDPT, ReSTIR and adaptive)",
+    "use_nee=False": "item 4 (RIS NEE, alpha_test, wave_caps, media and spheres)",
+    "use_mis=False": "item 4 (RIS NEE, alpha_test, wave_caps, media and spheres)",
+}
+
+
+def check_supported(cfg: RenderConfig) -> None:
+    """Raise NotImplementedError for options the port does not run yet."""
+    if cfg.tracer in _TRACERS:
+        raise NotImplementedError(
+            f"tracer={cfg.tracer!r} ({_TRACERS[cfg.tracer]}): ROADMAP Queue 1 "
+            + _ITEM["tracer"]
+        )
+    if cfg.tracer != "auto":
+        raise ValueError(f"unknown tracer {cfg.tracer!r}")
+    if cfg.bsdf not in ("lambert", "disney"):
+        raise ValueError(f"unknown bsdf {cfg.bsdf!r}")
+    refused = {
+        "alpha_test": cfg.alpha_test,
+        "ris_candidates>1": cfg.ris_candidates > 1,
+        "wave_caps": bool(cfg.wave_caps),
+        "binned_*": cfg.binned_secondary or cfg.binned_shadow or cfg.binned_bounces,
+        "slim_carry": cfg.slim_carry,
+        "debug_path_edges": cfg.debug_path_edges > 0,
+        "indirect_only": cfg.indirect_only,
+        "use_nee=False": not cfg.use_nee,
+        "use_mis=False": not cfg.use_mis,
+    }
+    for name, on in refused.items():
+        if on:
+            raise NotImplementedError(f"{name}: ROADMAP Queue 1 {_ITEM[name]}")
+
+
+def mis_power_heuristic(pdf_a, pdf_b):
+    a2 = pdf_a * pdf_a
+    return smath.safe_div(a2, a2 + pdf_b * pdf_b)
+
+
+def _ray_jitter(px, py, seed):
+    st = srng.rng_init(px, py, seed, offset=0)
+    return srng.next_floats(st, 2)
+
+
+def _bsdf_fns(cfg: RenderConfig):
+    if cfg.bsdf == "disney":
+        from stratum_tpu_torch.render import disney
+
+        return disney.disney_eval, disney.disney_sample
+    from stratum_tpu_torch.render import bsdf as sbsdf
+
+    return sbsdf.lambert_eval, sbsdf.lambert_sample
+
+
+def _firefly_clamp(cfg: RenderConfig, term, depth: int, min_depth: int):
+    """Clamp an indirect contribution's luminance to cfg.clamp_indirect."""
+    if cfg.clamp_indirect <= 0 or depth < min_depth:
+        return term
+    lum = smath.luminance(term)
+    scale = torch.where(
+        lum > cfg.clamp_indirect,
+        cfg.clamp_indirect / torch.clamp(lum, min=1e-20),
+        1.0,
+    )
+    return term * scale[..., None]
+
+
+def _shadow_ray_rr(cfg: RenderConfig, contrib, candidate, st):
+    """Russian roulette on NEE shadow rays: survive with probability
+    proportional to the unoccluded luminance, survivors carry 1/p."""
+    if cfg.shadow_rr <= 0:
+        return contrib, candidate, st
+    p = torch.clamp(smath.luminance(contrib) / cfg.shadow_rr, 0.05, 1.0)
+    u, st = srng.next_floats(st, 1)
+    return contrib / p[..., None], candidate & (u[..., 0] < p), st
+
+
+def _trace_fns(scene, cfg: RenderConfig, capture=None):
+    """(closest, closest_unsorted, occluded) on the block tracer. Closest
+    results are resolved by finalize_hit's one payload gather after any
+    unsort. With a ``capture`` dict, every tracer call appends the inputs
+    it hands the block-trace wrapper under "closest" / "occluded"."""
+    fat = scene.fat_bvh
+
+    def record(kind, *rays):
+        if capture is not None:
+            capture.setdefault(kind, []).append(rays)
+
+    def closest_raw(o, d, tm=None):
+        record("closest", o, d, tm)
+        return block_trace.block_closest(fat, o, d, tm)
+
+    def finalized(fn):
+        def g(o, d, tm=None):
+            return block_trace.finalize_hit(scene.slot_payload, o, d, fn(o, d, tm))
+
+        return g
+
+    closest_sorted = closest_raw
+    if cfg.sort_rays:
+        pos = scene.geo.positions
+        closest_sorted = raysort.sorted_closest(
+            closest_raw, pos.amin(dim=0), pos.amax(dim=0)
+        )
+
+    def occluded(o, d, t):
+        record("occluded", o, d, t)
+        return block_trace.block_occluded(fat, o, d, t)
+
+    return finalized(closest_sorted), finalized(closest_raw), occluded
+
+
+def light_tile_for(scene, cfg: RenderConfig, seed, scene_lo, scene_hi):
+    """Per-frame tile of ``presample_lights`` light samples [T, 16]; with
+    coherent_tiles, sorted so consecutive rows are spatially close (area
+    rows by position morton, env rows last by direction morton)."""
+    t_tile = cfg.presample_lights
+    dev = scene.device
+    st_tile = srng.rng_init(
+        torch.arange(t_tile, dtype=torch.int32, device=dev), 0x1EA51E57, seed
+    )
+    ut, _ = srng.next_floats(st_tile, 3)
+    tl = slights.sample_light(scene, ut[..., 0], ut[..., 1], ut[..., 2])
+    tile = torch.cat(
+        [
+            tl.position, tl.normal, tl.radiance, tl.pdf_area[:, None],
+            tl.is_env.to(torch.float32)[:, None],
+            tl.tri.to(torch.float32)[:, None],
+            torch.zeros((t_tile, 4), dtype=torch.float32, device=dev),
+        ],
+        dim=-1,
+    )
+    if cfg.coherent_tiles > 0:
+        if t_tile % cfg.coherent_tiles != 0:
+            raise ValueError("presample_lights must be a multiple of coherent_tiles")
+        q_area = (tl.position - scene_lo) / torch.clamp(scene_hi - scene_lo, min=1e-9)
+        q = torch.where(tl.is_env[:, None], tl.position * 0.5 + 0.5, q_area)
+        key = morton3(torch.clamp(q, 0.0, 1.0)) | (tl.is_env.to(torch.int64) << 31)
+        tile = tile[torch.argsort(key, stable=True)]
+    return tile
+
+
+def light_segment(ls, nee_pos, shadow_origin, scene_lo, scene_hi):
+    """Direction, shadow-segment length, light-side cosine and solid-angle
+    pdf of light samples seen from ``nee_pos``. Env segments are clipped to
+    the scene-bounds exit: nothing can occlude past it, and a T_MAX/2
+    segment would only inflate the tracer's candidate sets."""
+    env3 = ls.is_env[..., None]
+    to_light = torch.where(env3, ls.position, ls.position - nee_pos)
+    dist = torch.where(ls.is_env, _ENV_DIST, smath.length(to_light))
+    wi = torch.where(env3, ls.position, to_light / torch.clamp(dist, min=1e-20)[..., None])
+    cos_l = torch.where(ls.is_env, 1.0, torch.clamp(smath.dot(-wi, ls.normal), min=0.0))
+    g = torch.where(ls.is_env, 1.0, smath.safe_div(cos_l, dist * dist))
+    pdf_w = torch.where(ls.is_env, ls.pdf_area, smath.safe_div(ls.pdf_area, g))
+    inv_wi = torch.where(torch.abs(wi) > 1e-20, 1.0 / wi, torch.sign(wi) * 1e20 + 1e20)
+    t_lohi = (scene_lo[None, :] - shadow_origin) * inv_wi
+    t_hilo = (scene_hi[None, :] - shadow_origin) * inv_wi
+    t_exit = torch.amin(torch.maximum(t_lohi, t_hilo), dim=-1)
+    t_exit = torch.clamp(t_exit, min=0.0) * 1.001 + 1e-3
+    return wi, torch.where(ls.is_env, torch.minimum(dist, t_exit), dist), cos_l, pdf_w
+
+
+def tile_row_sample(light_tile, idx):
+    """LightSampleRecord of presampled tile rows ``idx``."""
+    row = light_tile[idx]
+    return slights.LightSampleRecord(
+        position=row[..., 0:3], normal=row[..., 3:6], radiance=row[..., 6:9],
+        pdf_area=row[..., 9], is_env=row[..., 10] > 0.5,
+        tri=row[..., 11].to(torch.int32),
+    )
+
+
+def _granule_base(cfg: RenderConfig, px, py, seed, depth: int):
+    """Per-lane base row of the coherence granule's tile group: each
+    granule of ``coherent_block`` lanes, keyed by its first lane's pixel,
+    draws one group of ``coherent_tiles`` consecutive tile rows."""
+    nb = cfg.coherent_block
+    n = px.shape[0]
+    n_groups = cfg.presample_lights // cfg.coherent_tiles
+    first_x, first_y = px[::nb], py[::nb]
+    key = torch.stack(
+        [
+            srng.as_u32(first_x), srng.as_u32(first_y),
+            torch.full_like(first_x, srng.u32(depth + seed * 131), dtype=torch.int32),
+            torch.full_like(first_x, 0x1D1E5, dtype=torch.int32),
+        ],
+        dim=-1,
+    )
+    u_grp = srng._bits_to_float(srng.pcg4d(key)[..., 0])
+    base = torch.clamp((u_grp * n_groups).to(torch.int64), max=n_groups - 1)
+    return torch.repeat_interleave(base * cfg.coherent_tiles, nb)[:n]
+
+
+def trace_path(scene, view, cfg: RenderConfig, seed: int, px=None, py=None,
+               capture=None):
+    """One path-traced sample per pixel -> (radiance [N, 3], n_rays int64):
+    n_rays counts closest rays of alive lanes plus NEE shadow rays, like
+    the reference's counters. ``capture``: see :func:`_trace_fns`."""
+    check_supported(cfg)
+    dev = scene.device
+    bsdf_eval, bsdf_sample = _bsdf_fns(cfg)
+    scene_lo = scene.geo.positions.amin(dim=0)
+    scene_hi = scene.geo.positions.amax(dim=0)
+    trace_closest, trace_closest_u, trace_occluded = _trace_fns(scene, cfg, capture)
+    if px is None:
+        px, py = scamera.pixel_grid(cfg.width, cfg.height, dev)
+    jitter, st = _ray_jitter(px, py, seed)
+    origin, direction = scamera.generate_rays(
+        view, px, py, jitter, cfg.width, cfg.height
+    )
+    n = origin.shape[0]
+    f32 = dict(dtype=torch.float32, device=dev)
+    radiance = torch.zeros((n, 3), **f32)
+    beta = torch.ones((n, 3), **f32)
+    alive = torch.ones((n,), dtype=torch.bool, device=dev)
+    prev_pdf_w = torch.full((n,), -1.0, **f32)  # < 0: camera vertex
+    n_rays = torch.zeros((), dtype=torch.int64, device=dev)
+    presample_on = cfg.presample_lights > 0
+    light_tile = (
+        light_tile_for(scene, cfg, seed, scene_lo, scene_hi) if presample_on else None
+    )
+    shadow_parts = []
+
+    for depth in range(cfg.max_bounces + 1):
+        n_rays = n_rays + alive.sum()
+        # dead lanes trace a zero-length segment: no candidates
+        seg_max = torch.where(alive, T_MAX, 0.0)
+        closest_fn = trace_closest_u if depth == 0 else trace_closest
+        hit = closest_fn(origin, direction, seg_max)
+        sp = shading_point_from_row(hit.payload[:, 0:32], hit.tri, hit.bary, direction)
+        mat = material_from_row(hit.payload[:, 64:88])
+        hit_mask = hit.hit
+
+        # escaped rays: environment, MIS against NEE
+        miss = alive & ~hit_mask
+        env_le, env_nee_pdf = slights.env_eval_and_pdf_w_mis(scene, direction)
+        camera_vtx = prev_pdf_w < 0.0
+        w_env = torch.where(camera_vtx, 1.0, mis_power_heuristic(prev_pdf_w, env_nee_pdf))
+        radiance = radiance + torch.where(
+            miss[..., None],
+            _firefly_clamp(cfg, beta * env_le * w_env[..., None], depth, 2),
+            0.0,
+        )
+
+        # emissive hits, MIS against NEE
+        is_emissive = alive & hit_mask & (sp.light >= 0) & sp.front_face
+        dist2 = smath.length_squared(sp.position - origin)
+        cos_light = torch.abs(smath.dot(direction, sp.geom_normal))
+        nee_pdf_area = slights.light_pdf_area(scene, hit.tri, sp.light)
+        nee_pdf_w = smath.safe_div(nee_pdf_area * dist2, cos_light)
+        w_emit = torch.where(camera_vtx, 1.0, mis_power_heuristic(prev_pdf_w, nee_pdf_w))
+        radiance = radiance + torch.where(
+            is_emissive[..., None],
+            _firefly_clamp(cfg, beta * mat.emission * w_emit[..., None], depth, 2),
+            0.0,
+        )
+
+        alive = alive & hit_mask
+        ns = sp.shading_normal
+        wo_local = smath.to_local(-direction, ns)
+        mat = mat._replace(
+            eta=torch.where(sp.front_face, mat.eta, 1.0 / torch.clamp(mat.eta, min=1e-6))
+        )
+        nee_pos = sp.position
+        shadow_origin = ray_offset(sp.position, sp.geom_normal)
+
+        u, st = srng.next_floats(st, 3)
+        if presample_on:
+            ct = cfg.coherent_tiles
+            if ct > 0:
+                idx = _granule_base(cfg, px, py, seed, depth) + torch.clamp(
+                    (u[..., 0] * ct).to(torch.int64), max=ct - 1
+                )
+            else:
+                idx = torch.clamp(
+                    (u[..., 0] * cfg.presample_lights).to(torch.int64),
+                    max=cfg.presample_lights - 1,
+                )
+            ls = tile_row_sample(light_tile, idx)
+        else:
+            ls = slights.sample_light(scene, u[..., 0], u[..., 1], u[..., 2])
+        wi, dist, cos_l, pdf_w = light_segment(
+            ls, nee_pos, shadow_origin, scene_lo, scene_hi
+        )
+        wi_local = smath.to_local(wi, ns)
+        ev = bsdf_eval(mat, wo_local, wi_local)
+        term = shadow_terminator_factor(sp.geom_normal, ns, wi)
+        f = ev.f * (torch.abs(wi_local[..., 2]) * term)[..., None]
+        w_nee = mis_power_heuristic(pdf_w, ev.pdf_fwd)
+        contrib = beta * f * ls.radiance * smath.safe_div(w_nee, pdf_w)[..., None]
+        candidate = (
+            alive & (pdf_w > 1e-12) & (cos_l > 0.0)
+            & (torch.amax(contrib, dim=-1) > 0.0)
+        )
+        contrib = _firefly_clamp(cfg, contrib, depth, 1)
+        contrib, candidate, st = _shadow_ray_rr(cfg, contrib, candidate, st)
+        n_rays = n_rays + candidate.sum()
+        if cfg.defer_shadows:
+            shadow_parts.append((
+                shadow_origin, wi, torch.where(candidate, dist, 0.0),
+                torch.where(candidate[..., None], contrib, 0.0),
+            ))
+        else:
+            occ = trace_occluded(shadow_origin, wi, dist)
+            radiance = radiance + torch.where(
+                (candidate & ~occ)[..., None], contrib, 0.0
+            )
+
+        # BSDF sampling
+        u, st = srng.next_floats(st, 3)
+        bs = bsdf_sample(mat, wo_local, u)
+        new_dir = smath.to_world(bs.wi, ns)
+        term = shadow_terminator_factor(sp.geom_normal, ns, new_dir)
+        throughput = bs.f * smath.safe_div(
+            torch.abs(bs.wi[..., 2]) * term, bs.pdf_fwd
+        )[..., None]
+        new_origin = ray_offset(sp.position, sp.geom_normal * torch.sign(bs.wi[..., 2:3]))
+        pdf_next = bs.pdf_fwd
+        beta = beta * torch.where(alive[..., None], throughput, 1.0)
+        alive = alive & (pdf_next > 1e-12) & (torch.amax(beta, dim=-1) > 0.0)
+        origin = torch.where(alive[..., None], new_origin, origin)
+        direction = torch.where(alive[..., None], new_dir, direction)
+        prev_pdf_w = pdf_next
+
+        # Russian roulette
+        u_rr, st = srng.next_float(st)
+        if depth >= cfg.rr_depth:
+            p_cont = torch.clamp(smath.max3(beta), cfg.rr_min_beta, 1.0)
+            survive = u_rr < p_cont
+            beta = torch.where(survive[..., None], beta / p_cont[..., None], beta)
+            alive = alive & survive
+
+    if shadow_parts:
+        # the deferred shadow wave: every bounce's NEE rays in one pass
+        o_f, w_f, t_f, c_f = (torch.cat(x) for x in zip(*shadow_parts))
+        occ = trace_occluded(o_f, w_f, t_f)
+        hit_contrib = torch.where((~occ & (t_f > 0))[..., None], c_f, 0.0)
+        radiance = radiance + hit_contrib.view(len(shadow_parts), n, 3).sum(dim=0)
+    return radiance, n_rays
+
+
+def render_path_with_counts(scene, view, cfg: RenderConfig, seed: int, capture=None):
+    """One sample per pixel -> (image [H, W, 3], traced-ray count). Pixels
+    are traced in screen tiles of up to 32x64 (``tile_dims``) so ray blocks
+    stay compact; the pixel-keyed RNG makes the result independent of that
+    layout. ``capture`` (a dict) collects the rays of every tracer call, so
+    a caller can replay the waves this sample traced (see
+    :func:`_trace_fns`)."""
+    dev = scene.device
+    dims = scamera.tile_dims(cfg.width, cfg.height)
+    if dims is None:
+        rad, n_rays = trace_path(scene, view, cfg, seed, capture=capture)
+        return rad.reshape(cfg.height, cfg.width, 3), n_rays
+    th, tw = dims
+    px, py = scamera.pixel_grid_tiled(cfg.width, cfg.height, th, tw, dev)
+    rad, n_rays = trace_path(scene, view, cfg, seed, px, py, capture)
+    return scamera.untile_image(rad, cfg.width, cfg.height, th, tw), n_rays

@@ -1,0 +1,256 @@
+"""Device scene schema (counterpart of stratum_tpu/scene/schema.py:43-503):
+struct-of-arrays NamedTuples and the host-side builders. Builders take and
+return numpy; :func:`to_device` moves a finished record onto a torch device.
+Padding and the ``-1`` "no entry" sentinel follow the reference exactly, so
+the packed rows match it column for column.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from stratum_tpu_torch.core.distribution import Dist1D, Dist2D, build_dist1d, build_dist2d
+from stratum_tpu_torch.ops.packet import FatBVH
+
+TRI_PAD = 128
+VERT_PAD = 8
+
+MATERIAL_FLOATS = (
+    "metallic", "roughness", "anisotropic", "subsurface", "clearcoat",
+    "clearcoat_gloss", "transmission", "eta",
+)
+MATERIAL_TEXTURES = (
+    "base_color_tex", "emission_tex", "rough_metal_tex", "normal_tex",
+    "alpha_tex",
+)
+
+
+class GeometrySoA(NamedTuple):
+    """Merged world-space triangle soup."""
+
+    positions: torch.Tensor  # f32 [V, 3]
+    normals: torch.Tensor  # f32 [V, 3]
+    uvs: torch.Tensor  # f32 [V, 2]
+    indices: torch.Tensor  # i32 [T, 3]
+    tri_material: torch.Tensor  # i32 [T] (-1 on padding)
+    tri_light: torch.Tensor  # i32 [T] light row or -1
+    tri_instance: torch.Tensor  # i32 [T]
+    packed_tri: torch.Tensor  # f32 [T, 32] one-gather shading row
+
+
+class DisneyMaterials(NamedTuple):
+    """SoA Disney parameters, one row per unique material."""
+
+    base_color: torch.Tensor  # f32 [M, 3]
+    emission: torch.Tensor  # f32 [M, 3]
+    metallic: torch.Tensor  # f32 [M]
+    roughness: torch.Tensor
+    anisotropic: torch.Tensor
+    subsurface: torch.Tensor
+    clearcoat: torch.Tensor
+    clearcoat_gloss: torch.Tensor
+    transmission: torch.Tensor
+    eta: torch.Tensor
+    base_color_tex: torch.Tensor  # i32 [M] (-1: no texture)
+    emission_tex: torch.Tensor
+    rough_metal_tex: torch.Tensor
+    normal_tex: torch.Tensor
+    alpha_tex: torch.Tensor
+    alpha_cutoff: torch.Tensor  # f32 [M]
+    packed: torch.Tensor  # f32 [M, 24] one-gather row
+
+
+class LightData(NamedTuple):
+    """Emissive-triangle light table and its power distribution."""
+
+    tri_index: torch.Tensor  # i32 [L]
+    area: torch.Tensor  # f32 [L]
+    power: torch.Tensor  # f32 [L]
+    power_dist: Dist1D  # over L
+    num_lights: int  # 0 => no area lights
+    env_probability: float  # P(sample env | sampling a light)
+    packed: torch.Tensor  # f32 [L, 16] p0|e1|e2|Le|area|sel_pdf|tri|type
+
+
+class Environment(NamedTuple):
+    """Equirect environment; a 1x1 image is a constant environment."""
+
+    emission: torch.Tensor  # f32 [He, We, 3]
+    dist: Dist2D  # luminance * sin(theta) importance tables
+    emission_pdf: torch.Tensor  # f32 [He, We, 4] rgb | joint uv pdf
+
+
+class SceneData(NamedTuple):
+    """Everything the path tracer reads."""
+
+    geo: GeometrySoA
+    materials: DisneyMaterials
+    lights: LightData
+    env: Environment
+    fat_bvh: FatBVH
+    # fused per-slot hit payload [L*K, 88] (slot = leaf*K + row): cols 0-31
+    # the slot triangle's packed shading row, 32-61 its a/u/v Plucker
+    # coefficients (col 32 + f*3 + q), 62 the tri id as f32 (-1 padding),
+    # 63 the material's normal-texture id, 64-87 its material row
+    slot_payload: torch.Tensor
+
+    @property
+    def device(self) -> torch.device:
+        return self.geo.positions.device
+
+
+def to_device(tree, device):
+    """numpy leaves of a (nested) NamedTuple -> torch tensors on ``device``;
+    Python scalars stay as they are."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(to_device(x, device) for x in tree))
+    if isinstance(tree, np.ndarray):
+        return torch.tensor(tree, device=device)
+    return tree
+
+
+def _pad_to(n: int, mult: int) -> int:
+    return ((n + mult - 1) // mult) * mult
+
+
+def default_material_arrays(n: int) -> dict:
+    return dict(
+        base_color=np.full((n, 3), 0.8, np.float32),
+        emission=np.zeros((n, 3), np.float32),
+        metallic=np.zeros((n,), np.float32),
+        roughness=np.ones((n,), np.float32),
+        anisotropic=np.zeros((n,), np.float32),
+        subsurface=np.zeros((n,), np.float32),
+        clearcoat=np.zeros((n,), np.float32),
+        clearcoat_gloss=np.ones((n,), np.float32),
+        transmission=np.zeros((n,), np.float32),
+        eta=np.full((n,), 1.5, np.float32),
+        base_color_tex=np.full((n,), -1, np.int32),
+        emission_tex=np.full((n,), -1, np.int32),
+        rough_metal_tex=np.full((n,), -1, np.int32),
+        normal_tex=np.full((n,), -1, np.int32),
+        alpha_tex=np.full((n,), -1, np.int32),
+        alpha_cutoff=np.full((n,), 0.5, np.float32),
+    )
+
+
+def finalize_materials(arrs: dict) -> DisneyMaterials:
+    """Field dict (numpy) -> DisneyMaterials (numpy) with the packed row."""
+    n = arrs["base_color"].shape[0]
+    packed = np.zeros((n, 24), np.float32)
+    packed[:, 0:3] = arrs["base_color"]
+    packed[:, 3:6] = arrs["emission"]
+    for i, f in enumerate(MATERIAL_FLOATS):
+        packed[:, 6 + i] = arrs[f]
+    for i, f in enumerate(MATERIAL_TEXTURES):
+        packed[:, 14 + i] = arrs[f]
+    packed[:, 19] = arrs["alpha_cutoff"]
+    return DisneyMaterials(packed=packed, **arrs)
+
+
+def pack_emission_pdf(emission, dist: Dist2D) -> np.ndarray:
+    joint = np.asarray(dist.marginal.pdf)[:, None] * np.asarray(dist.cond_pdf)
+    return np.concatenate([np.asarray(emission), joint[..., None]], axis=-1)
+
+
+def constant_environment(rgb=(0.0, 0.0, 0.0)) -> Environment:
+    img = np.broadcast_to(np.asarray(rgb, np.float32), (1, 1, 3)).copy()
+    dist = build_dist2d(np.ones((1, 1), np.float32))
+    return Environment(emission=img, dist=dist,
+                       emission_pdf=pack_emission_pdf(img, dist))
+
+
+def build_geometry(positions, normals, uvs, indices, tri_material,
+                   tri_instance=None):
+    """Pad host geometry to the reference's multiples (numpy)."""
+    v = positions.shape[0]
+    t = indices.shape[0]
+    vp = max(_pad_to(v, VERT_PAD), VERT_PAD)
+    tp = max(_pad_to(t, TRI_PAD), TRI_PAD)
+    pos = np.zeros((vp, 3), np.float32)
+    pos[:v] = positions
+    nrm = np.zeros((vp, 3), np.float32)
+    nrm[:v] = normals
+    nrm[v:, 2] = 1.0
+    uv = np.zeros((vp, 2), np.float32)
+    uv[:v] = uvs
+    idx = np.zeros((tp, 3), np.int32)
+    idx[:t] = indices
+    mat = np.full((tp,), -1, np.int32)
+    mat[:t] = tri_material
+    inst = np.zeros((tp,), np.int32)
+    if tri_instance is not None:
+        inst[:t] = tri_instance
+    return pos, nrm, uv, idx, mat, inst
+
+
+def pack_tri_rows(positions, normals, uvs, indices, tri_material, tri_light,
+                  tri_instance):
+    """[T, 32] one-gather shading rows (host numpy)."""
+    p0 = positions[indices[:, 0]]
+    rows = np.zeros((indices.shape[0], 32), np.float32)
+    rows[:, 0:3] = p0
+    rows[:, 3:6] = positions[indices[:, 1]] - p0
+    rows[:, 6:9] = positions[indices[:, 2]] - p0
+    rows[:, 9:12] = normals[indices[:, 0]]
+    rows[:, 12:15] = normals[indices[:, 1]]
+    rows[:, 15:18] = normals[indices[:, 2]]
+    rows[:, 18:20] = uvs[indices[:, 0]]
+    rows[:, 20:22] = uvs[indices[:, 1]]
+    rows[:, 22:24] = uvs[indices[:, 2]]
+    rows[:, 24] = tri_material
+    rows[:, 25] = tri_light
+    rows[:, 26] = tri_instance
+    return rows
+
+
+def triangle_areas(positions, indices):
+    p0 = positions[indices[:, 0]]
+    e1 = positions[indices[:, 1]] - p0
+    e2 = positions[indices[:, 2]] - p0
+    return 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)
+
+
+def build_lights(positions, indices, tri_material, emission,
+                 env_probability: float = 0.0):
+    """Emissive triangles and their power distribution (numpy).
+    Returns (LightData, tri_light[T])."""
+    t = indices.shape[0]
+    tri_light = np.full((t,), -1, np.int32)
+    valid = tri_material >= 0
+    lum = np.zeros((t,), np.float32)
+    lum[valid] = emission[tri_material[valid]].mean(axis=-1)
+    light_tris = np.nonzero(lum > 0.0)[0].astype(np.int32)
+    nl = len(light_tris)
+    npad = max(_pad_to(max(nl, 1), 8), 8)
+    tri_light[light_tris] = np.arange(nl, dtype=np.int32)
+    areas = np.zeros((npad,), np.float32)
+    powers = np.zeros((npad,), np.float32)
+    tri_idx = np.zeros((npad,), np.int32)
+    packed = np.zeros((npad, 16), np.float32)
+    if nl:
+        a = triangle_areas(positions, indices[light_tris])
+        areas[:nl] = a
+        powers[:nl] = lum[light_tris] * a * np.pi
+        tri_idx[:nl] = light_tris
+        p0 = positions[indices[light_tris, 0]]
+        packed[:nl, 0:3] = p0
+        packed[:nl, 3:6] = positions[indices[light_tris, 1]] - p0
+        packed[:nl, 6:9] = positions[indices[light_tris, 2]] - p0
+        packed[:nl, 9:12] = emission[tri_material[light_tris]]
+    weights = powers if powers.sum() > 0 else np.ones((npad,), np.float32)
+    power_dist = build_dist1d(weights)
+    packed[:, 12] = areas
+    packed[:, 13] = power_dist.pdf / npad
+    packed[:, 14] = tri_idx
+    return (
+        LightData(
+            tri_index=tri_idx, area=areas, power=powers, power_dist=power_dist,
+            num_lights=nl, env_probability=float(np.float32(env_probability)),
+            packed=packed,
+        ),
+        tri_light,
+    )

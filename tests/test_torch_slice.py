@@ -1,0 +1,231 @@
+"""The port's main path, ``render_path_with_counts``, against the JAX
+reference on the tiny atrium at 64x32 with the bench configuration (Disney,
+4 bounces, presample 4096, coherent tiles 16; NEE + MIS + RR, sorted closest
+waves, one deferred shadow wave).
+
+The JAX side uses ``tracer="packet"``: "auto" resolves to the dense MXU
+tracer below 16,384 triangles, while "packet" keeps the peel, the sort and
+the deferred wave (integrator.py:383, 704). Both packages get the same scene
+(through the bridge) and the same camera.
+
+Bounds. Paths diverge only where a discrete decision (a near-tie hit, a
+Russian-roulette or lobe draw) lands on the other side of its threshold,
+and one diverged path can move a 2048-pixel image's mean by up to ~1 %.
+Measured on the first run: image means equal to 1e-7 relative, 100 % of
+pixels within 1e-3, n_rays equal, for seeds 0-3. Bounds, with margin for a
+few diverged paths: mean within 2 % relative, >= 97 % of pixels within
+1e-3 (abs + rel), n_rays within 1 %. chip_smoke.py holds the GPU render to
+twice these bounds against tests/golden/torch_atrium_tiny.npz.
+"""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from stratum_tpu.render import camera as jcamera
+from stratum_tpu.render import integrator as jintegrator
+from stratum_tpu.scene import builtin as jbuiltin
+from stratum_tpu.scene import flatten as jflatten
+from stratum_tpu_torch.ops import block_trace
+from stratum_tpu_torch.render import camera, integrator
+from stratum_tpu_torch.scene import bridge, builtin, flatten
+
+torch.set_num_threads(2)
+
+MEAN_REL = 0.02
+PIXEL_SHARE = 0.97
+RAYS_REL = 0.01
+W, H = 64, 32
+BENCH = dict(width=W, height=H, max_bounces=4, bsdf="disney",
+             presample_lights=4096, coherent_tiles=16)
+GOLDEN = Path(__file__).resolve().parent / "golden" / "torch_atrium_tiny.npz"
+
+
+def _agree(img, ref, n, n_ref):
+    img, ref = np.asarray(img), np.asarray(ref)
+    assert np.isfinite(img).all() and img.shape == ref.shape
+    assert abs(img.mean() - ref.mean()) <= MEAN_REL * ref.mean(), (img.mean(), ref.mean())
+    pix = np.all(np.abs(img - ref) <= 1e-3 * (1 + np.abs(ref)), axis=-1).mean()
+    assert pix >= PIXEL_SHARE, pix
+    assert abs(int(n) - int(n_ref)) <= RAYS_REL * int(n_ref), (int(n), int(n_ref))
+
+
+@pytest.fixture(scope="module")
+def case():
+    g = jbuiltin.atrium(columns=1, stacks=6, slices=12)
+    js, _ = jflatten.flatten(g.root)
+    node, cam = jflatten.find_camera(g.root)
+    c2w = np.asarray(node.to_world())
+    return dict(
+        js=js, jview=jcamera.make_view(c2w, cam.fovy, W, H),
+        ps=bridge.scene_from_numpy(bridge.numpy_fields(js), "cpu"),
+        pview=camera.make_view(c2w, cam.fovy, W, H),
+    )
+
+
+def _render_both(case, seed, **cfg):
+    jimg, jn = jintegrator.render_path_with_counts(
+        case["js"], case["jview"], jintegrator.RenderConfig(tracer="packet", **cfg), seed
+    )
+    pimg, pn = integrator.render_path_with_counts(
+        case["ps"], case["pview"], integrator.RenderConfig(**cfg), seed
+    )
+    return pimg.numpy(), pn, np.asarray(jimg), jn
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_bench_config_matches_reference(case, seed):
+    pimg, pn, jimg, jn = _render_both(case, seed, **BENCH)
+    _agree(pimg, jimg, pn, jn)
+    assert pn.dtype == torch.int64 and int(pn) > W * H
+
+
+def test_per_lane_lambert_nee_matches_reference(case):
+    """No light tile (per-lane light sampling) and the Lambertian BSDF."""
+    cfg = dict(width=W, height=H, max_bounces=3, bsdf="lambert")
+    pimg, pn, jimg, jn = _render_both(case, 2, **cfg)
+    _agree(pimg, jimg, pn, jn)
+
+
+@pytest.mark.parametrize("option", [dict(sort_rays=False), dict(defer_shadows=False)])
+def test_trace_options_match_reference(case, option):
+    """The unsorted closest waves and per-bounce (not deferred) shadow rays,
+    both off the bench configuration, against the reference with the same
+    option."""
+    pimg, pn, jimg, jn = _render_both(case, 3, **{**BENCH, **option})
+    _agree(pimg, jimg, pn, jn)
+
+
+def test_port_scene_matches_golden():
+    """The port's own atrium build (no JAX) against the golden reference
+    images, seeds 0-3 (the check chip_smoke.py repeats on the GPU)."""
+    gold = np.load(GOLDEN)
+    scene, _ = flatten.flatten(builtin.atrium(columns=1, stacks=6, slices=12).root)
+    view = camera.make_view(gold["camera_to_world"], float(gold["fovy"]), W, H)
+    cfg = integrator.RenderConfig(**BENCH)
+    for i, seed in enumerate(gold["seeds"]):
+        img, n = integrator.render_path_with_counts(scene, view, cfg, int(seed))
+        _agree(img.numpy(), gold["images"][i], n, gold["n_rays"][i])
+
+
+def test_schedule_knobs_are_ignored_and_options_agree(case):
+    """TPU schedule knobs change nothing; the unsorted tracer gives the same
+    hits (so the same image); immediate shadow rays give the same image up
+    to the order of the radiance sums."""
+    ref, n_ref = integrator.render_path_with_counts(
+        case["ps"], case["pview"], integrator.RenderConfig(**BENCH), 3
+    )
+    knobs = integrator.RenderConfig(ring=1, gs=2, entry_group=4, unroll_bounces=3, **BENCH)
+    img, n = integrator.render_path_with_counts(case["ps"], case["pview"], knobs, 3)
+    assert torch.equal(img, ref) and int(n) == int(n_ref)
+    unsorted = integrator.RenderConfig(sort_rays=False, **BENCH)
+    img, n = integrator.render_path_with_counts(case["ps"], case["pview"], unsorted, 3)
+    assert torch.equal(img, ref) and int(n) == int(n_ref)
+    eager = integrator.RenderConfig(defer_shadows=False, **BENCH)
+    img, n = integrator.render_path_with_counts(case["ps"], case["pview"], eager, 3)
+    torch.testing.assert_close(img, ref, rtol=1e-5, atol=1e-6)
+    assert int(n) == int(n_ref)
+
+
+def test_main_path_uses_the_block_tracer_wrappers(case, monkeypatch):
+    """Every closest wave and the one deferred occlusion wave go through the
+    block-trace wrappers: 5 closest calls and 1 occluded call per sample."""
+    calls = {"closest": 0, "occluded": 0}
+    real_c, real_o = block_trace.block_closest, block_trace.block_occluded
+
+    def closest(*a, **k):
+        calls["closest"] += 1
+        return real_c(*a, **k)
+
+    def occluded(*a, **k):
+        calls["occluded"] += 1
+        return real_o(*a, **k)
+
+    monkeypatch.setattr(block_trace, "block_closest", closest)
+    monkeypatch.setattr(block_trace, "block_occluded", occluded)
+    integrator.render_path_with_counts(
+        case["ps"], case["pview"], integrator.RenderConfig(**BENCH), 0
+    )
+    assert calls == {"closest": 5, "occluded": 1}
+
+
+def test_capture_records_the_traced_waves(case):
+    """``capture`` holds the inputs of every tracer call of a sample: five
+    closest waves of W*H lanes and the one deferred shadow wave of 5*W*H
+    lanes, whose replay through the wrapper gives the same image."""
+    waves = {}
+    img, _ = integrator.render_path_with_counts(
+        case["ps"], case["pview"], integrator.RenderConfig(**BENCH), 0, capture=waves
+    )
+    assert [o.shape[0] for o, _, _ in waves["closest"]] == [W * H] * 5
+    ((o, d, t),) = waves["occluded"]
+    assert o.shape == d.shape == (5 * W * H, 3) and t.shape == (5 * W * H,)
+    assert bool((t[:W * H] > 0).any()) and bool((t == 0).any())  # live and dead lanes
+    ref, _ = integrator.render_path_with_counts(
+        case["ps"], case["pview"], integrator.RenderConfig(**BENCH), 0
+    )
+    assert torch.equal(img, ref)
+    replay = block_trace.block_occluded(case["ps"].fat_bvh, o, d, t)
+    assert torch.equal(replay, block_trace.block_occluded_plain(case["ps"].fat_bvh, o, d, t))
+
+
+def test_profile_layer_split_attributes_the_tracer_calls(case):
+    """The profiling script's layer split on CPU tensors: the wrappers take
+    their plain versions (no prep, no kernel), the layers add up to the
+    sample, and the patched functions are restored afterwards."""
+    from stratum_tpu_torch import profile_sample
+
+    real = block_trace.block_closest, block_trace._prepare, block_trace.finalize_hit
+    split = profile_sample.layer_split(
+        case["ps"], case["pview"], integrator.RenderConfig(**BENCH), 0
+    )
+    assert split["calls"] == {"prep": 0, "kernel": 0, "trace": 6, "finalize_hit": 5}
+    parts = [split[k] for k in ("prep", "kernel", "trace_other", "finalize_hit", "glue")]
+    assert min(parts) >= 0.0 and split["trace_other"] > 0.0
+    assert sum(parts) == pytest.approx(split["sample"], rel=1e-9)
+    assert (block_trace.block_closest, block_trace._prepare, block_trace.finalize_hit) == real
+
+
+@pytest.mark.parametrize("depth", [0, 1, 3])
+def test_clamp_and_shadow_rr_match_reference(depth):
+    """The indirect-luminance clamp and the shadow-ray roulette (off in the
+    bench configuration) against the reference's helpers: same RNG draws,
+    same survivors, same weights."""
+    from stratum_tpu.core import rng as jrng
+
+    rng = np.random.default_rng(depth)
+    contrib = (rng.random((4096, 3), dtype=np.float32) * 4).astype(np.float32)
+    candidate = rng.random(4096) < 0.8
+    px = np.arange(4096, dtype=np.uint32)
+    st_j = jrng.rng_init(px, px // 64, 9, depth)
+    st_p = torch.from_numpy(np.asarray(st_j).view(np.int32).copy())
+    kw = dict(clamp_indirect=1.5, shadow_rr=2.0)
+    cj = jintegrator.RenderConfig(**kw)
+    cp = integrator.RenderConfig(**kw)
+    for min_depth in (1, 2):
+        np.testing.assert_allclose(
+            integrator._firefly_clamp(cp, torch.from_numpy(contrib), depth, min_depth).numpy(),
+            np.asarray(jintegrator._firefly_clamp(cj, contrib, depth, min_depth)),
+            rtol=1e-6,
+        )
+    pc, pk, ps = integrator._shadow_ray_rr(cp, torch.from_numpy(contrib),
+                                           torch.from_numpy(candidate), st_p)
+    jc, jk, js = jintegrator._shadow_ray_rr(cj, contrib, candidate, st_j)
+    np.testing.assert_array_equal(pk.numpy(), np.asarray(jk))
+    np.testing.assert_array_equal(ps.numpy().view(np.uint32), np.asarray(js))
+    np.testing.assert_allclose(pc.numpy(), np.asarray(jc), rtol=1e-6)
+
+
+@pytest.mark.parametrize("option", [
+    dict(tracer="mxu"), dict(tracer="packet"), dict(tracer="bvh"), dict(tracer="brute"),
+    dict(alpha_test=True), dict(ris_candidates=4), dict(wave_caps=(1.0, 0.5)),
+    dict(binned_secondary=8), dict(binned_shadow=8), dict(binned_bounces=1),
+    dict(slim_carry=True), dict(debug_path_edges=2), dict(indirect_only=True),
+    dict(use_nee=False), dict(use_mis=False),
+])
+def test_unported_options_raise(case, option):
+    cfg = integrator.RenderConfig(**{**BENCH, **option})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        integrator.render_path_with_counts(case["ps"], case["pview"], cfg, 0)
