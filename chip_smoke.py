@@ -3,22 +3,36 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one line of results:
+Phases, each printing its results:
 
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build: the CUDA kernels from ``stratum_tpu_torch/csrc`` (nvcc, sm_90a);
-3. kernel against plain version: the block-trace kernel (closest and
+2. build: the CUDA kernels from ``stratum_tpu_torch/csrc`` (one nvcc per
+   source, started together; sm_90a), with ptxas registers and spills;
+3. kernel against plain version: the block-trace kernel (K1 closest, K2
    occluded) against its plain torch version on the full 132,778-triangle
    atrium, on 65,536-ray batches (primary, cosine secondary, shadow rays
    toward presampled lights) and on the waves one 1920x1080 sample of the
    main path hands the wrappers (five closest waves of 2,073,600 lanes, the
-   deferred shadow wave of 10,368,000 lanes), with both times;
+   deferred shadow wave of 10,368,000 lanes), with both times; then K3 (the
+   same kernel at group size 1) on closest wave 1 and the deferred wave,
+   against the same plain results, timed beside K1/K2;
 4. parity: the tiny atrium at 64x32, seeds 0-3, against the JAX reference's
    golden images (tests/golden/torch_atrium_tiny.npz);
 5. main path: ``render_path_with_counts`` on the full atrium at 1920x1080
    with the bench configuration (Disney, 4 bounces, presample 4096,
    coherent tiles 16): 1 warm-up and 4 timed samples; the kernel launch
-   counters are zeroed just before and read just after this phase.
+   counters are zeroed just before and read just after this phase;
+6. the binned path: the same render with ``binned_secondary=8,
+   binned_shadow=8``. One sample's binned waves (4 sorted closest waves,
+   the deferred shadow wave) are replayed: K5 against its plain version on
+   each wave's bins, and the binned results against the block kernel on
+   every lane whose group dropped no pair; the drop counts are printed.
+   Then 1 warm-up and 4 timed samples with the counters zeroed around them;
+7. other configurations: one sample with ``binned_bounces=1`` (image mean
+   within phase 4's bound of phase 5's) and one with ``gs=1``, whose
+   launches are K3's and whose image must equal phase 5's sample at the
+   same seed bit for bit (K1 and K3 both compute exact f32 and keep the
+   lower slot on equal t).
 
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 result line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -32,6 +46,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -53,6 +68,13 @@ PARITY_MEAN_REL = 2 * 0.02
 PARITY_PIXEL_SHARE = 1.0 - 2 * 0.03
 PARITY_RAYS_REL = 2 * 0.01
 BENCH = dict(max_bounces=4, bsdf="disney", presample_lights=4096, coherent_tiles=16)
+BINNED = dict(binned_secondary=8, binned_shadow=8)
+# published peaks of one H100 SXM (NVIDIA data sheet): f32 outside the
+# tensor cores, and HBM3 bandwidth
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_S = 3.35e12
+FLOP_PER_TEST = 80  # one ray-triangle test: 40 FMAs (a, u, v, t_num)
+SLAB_RAYS = 16384  # rays per pass when counting needed triangle tests
 
 
 def _smi() -> str:
@@ -75,6 +97,57 @@ def _timed(fn, reps: int = 1, warmup: bool = True):
     end.record()
     torch.cuda.synchronize()
     return out, start.elapsed_time(end) / reps
+
+
+def _bound(tests: int, nbytes: int):
+    """(least ms, what bounds it): ``tests`` ray-triangle tests at the f32
+    peak, or ``nbytes`` at the memory rate, whichever takes longer."""
+    ops_ms = tests * FLOP_PER_TEST / PEAK_F32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def _leaf_sizes(fat):
+    """Triangles in each leaf (slots past them are padding that holds no
+    triangle and cannot change a result)."""
+    return (fat.leaf_tri >= 0).sum(dim=1)
+
+
+def _needed_tri_tests(fat, o, d, bound, blocked=None):
+    """Ray-triangle tests every front-to-back walk must make, whatever its
+    schedule: for a closest hit, the triangles of every leaf whose slab the
+    ray enters below ``bound`` (a leaf entered before the closest hit may
+    hold a nearer one); for a ray known to be blocked (``blocked``), those
+    of one such leaf, the smallest, since some entered leaf holds the
+    blocker. The least work of a trace of this run's rays."""
+    import torch
+    from stratum_tpu_torch.ops import block_trace
+    from stratum_tpu_torch.ops.packet import safe_inv
+
+    nv = _leaf_sizes(fat)
+    lo, hi = fat.leaf_lo[None], fat.leaf_hi[None]
+    total = 0
+    for s in range(0, o.shape[0], SLAB_RAYS):
+        sl = slice(s, s + SLAB_RAYS)
+        tn, tf = block_trace._leaf_slab(lo, hi, o[sl, None], safe_inv(d[sl, None]))
+        enter = (tn <= tf) & (tn < bound[sl, None])
+        need = torch.where(enter, nv, 0).sum(dim=1)
+        if blocked is not None:
+            least = torch.where(enter, nv, nv.max()).amin(dim=1)
+            need = torch.where(blocked[sl] & enter.any(dim=1), least, need)
+        total += int(need.sum())
+    return total
+
+
+def _block_bytes(fat, prep, occluded: bool) -> int:
+    """Bytes a block-trace launch must move: each input once (rays, t_max,
+    origin, inverse direction, candidate lists, leaf boxes and features),
+    each output once."""
+    L, K = fat.leaf_tri.shape
+    np_ = prep.rays.shape[0]
+    ins = np_ * (10 + 1 + 3 + 3) * 4 + prep.cand.numel() * 8 + prep.ncand.numel() * 4
+    ins += L * (6 * 4 + K * 160)
+    return ins + np_ * (1 if occluded else 8)
 
 
 def _compare_closest(fat, o, d, hk, hp, live=None):
@@ -114,9 +187,9 @@ def _compare_closest(fat, o, d, hk, hp, live=None):
     )
 
 
-def _check_closest(name, c):
+def _check_closest(name, c, agree=BATCH_AGREE):
     print(f"    {name}: {c}")
-    assert c["agree"] >= BATCH_AGREE, (name, c)
+    assert c["agree"] >= agree, (name, c)
     assert c["t_err_ratio"] <= 1.0, (name, c)
 
 
@@ -133,6 +206,85 @@ def _check_occluded(name, ok, op, live):
     return dict(rays=int(ok.numel()), live=n_live, agree=agree, mismatch=mismatch)
 
 
+def _words_record(words):
+    """K5 words as a slot-mode record (slot -1 and t = inf on a miss)."""
+    import torch
+    from stratum_tpu_torch.ops import binned, block_trace
+
+    t, slot = binned.unpack(words)
+    hit = torch.isfinite(t)
+    return block_trace._slot_record(t, torch.where(hit, slot, -1))
+
+
+def _build():
+    """Phase 2: every kernel source built by its own nvcc, all at once."""
+    from stratum_tpu_torch.utils import cuda_build
+
+    names = ("block_trace", "binned")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        list(pool.map(cuda_build.load, names))
+    for name in names:
+        ptxas = [ln.strip() for ln in cuda_build.BUILD_LOG.get(f"{name}.cu", "").splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"[2 build] {name}.cu -> {cuda_build.library_path(name).name}; "
+              f"ptxas: {' | '.join(ptxas)}", flush=True)
+    print(f"[2 build] {len(names)} kernels in {time.perf_counter() - t0:.3f} s", flush=True)
+
+
+def _binned_wave(fat, kind, o, d, t, stats, hb):
+    """Phase 6 on one captured binned wave: K5 against bin_min_plain on the
+    wave's own bins, and the wrapper's result against the block kernel's
+    (``hb``) on the lanes whose group dropped no pair."""
+    import torch
+    from stratum_tpu_torch.ops import binned, block_trace
+
+    bound = t if kind == "closest" else t * block_trace.SHADOW_EPS
+    bins = binned.bin_pairs(fat, o, d, bound)
+    assert bins.stats == stats, (bins.stats, stats)
+    words, ms = _timed(lambda: binned.launch(fat, bins, kind), reps=3)
+    plain, plain_ms = _timed(lambda: binned.bin_min_plain(fat, bins), warmup=False)
+    hk, hp = _words_record(words), _words_record(plain)
+    c = _compare_closest(fat, o, d, hk, hp, (hk.slot >= 0) | (hp.slot >= 0))
+    _check_closest(f"K5 {kind} vs plain", c)
+    live = t > 0
+    kept = live & ~bins.lost
+    # K5's work: each lane of a real pair against its bin leaf's triangles
+    pair = bins.pair_id.repeat_interleave(bins.g)
+    ray = (pair // bins.pcap) * bins.g + torch.arange(pair.numel(), device=pair.device) % bins.g
+    lane_live = (pair >= 0) & (ray < bins.n)
+    lane_leaf = bins.bin_leaf.repeat_interleave(binned.LANES)
+    lanes = int(lane_live.sum())
+    tests = int(_leaf_sizes(fat)[lane_leaf[lane_live].long()].sum())
+    del pair, ray, lane_live, lane_leaf
+    L, K = fat.leaf_tri.shape
+    nbytes = (bins.bin_leaf.numel() * 4 + bins.pair_id.numel() * 4 + bins.n * (40 + 16)
+              + L * K * 160)
+    bound_ms, bound_by = _bound(tests, nbytes)
+    if kind == "closest":
+        hn = binned.binned_closest(fat, o, d, t)
+        cb = _compare_closest(fat, o, d, hn, hb, kept)
+        _check_closest(f"binned {kind} vs block kernel, undropped lanes", cb, agree=1.0)
+        vs_block = cb["agree"]
+    else:
+        # K2 tests stn < limit * |a|, K5 t = stn / |a| < limit: they may part
+        # only where t rounds onto the limit
+        blocked = hk.t < bound
+        differ = (blocked != hb) & kept
+        edge = differ & (torch.abs(hk.t - bound) <= T_REL * bound)
+        vs_block = 1.0 - float(differ.sum()) / max(int(kept.sum()), 1)
+        print(f"    binned occluded vs block kernel, undropped lanes: agree {vs_block} "
+              f"(lanes that differ {int(differ.sum())}, on the limit {int(edge.sum())})")
+        assert int((differ & ~edge).sum()) == 0
+    share_lost = float((bins.lost & live).sum()) / max(int(live.sum()), 1)
+    print(f"[6 binned waves] {kind} wave ({o.shape[0]} lanes, {int(live.sum())} live): "
+          f"{bins.stats}, live lanes in groups that lost pairs {share_lost:.6f}; "
+          f"K5 {ms:.3f} ms (bound {bound_ms:.3f} ms, {bound_by}; {lanes} lanes, {tests} tests), "
+          f"plain {plain_ms:.3f} ms", flush=True)
+    return dict(c, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                lanes=lanes, tests=tests, stats=bins.stats, lost_share=share_lost, vs_block=vs_block)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -142,12 +294,11 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from stratum_tpu_torch.core import math as smath
-    from stratum_tpu_torch.ops import block_trace
+    from stratum_tpu_torch.ops import binned, block_trace
     from stratum_tpu_torch.ops.intersect import T_MAX, ray_offset
     from stratum_tpu_torch.render import camera, integrator
     from stratum_tpu_torch.render.shading import shading_point_from_row
     from stratum_tpu_torch.scene import builtin, flatten
-    from stratum_tpu_torch.utils import cuda_build
 
     dev = torch.device(DEVICE)
     smi = _smi()
@@ -156,12 +307,7 @@ def main() -> int:
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     # ---- 2: build ---------------------------------------------------------
-    t0 = time.perf_counter()
-    cuda_build.load("block_trace")
-    ptxas = [ln.strip() for ln in cuda_build.BUILD_LOG.get("block_trace", "").splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"[2 build] block_trace.cu -> {cuda_build.library_path('block_trace').name} "
-          f"in {time.perf_counter() - t0:.3f} s; ptxas: {' | '.join(ptxas)}", flush=True)
+    _build()
 
     # ---- scene --------------------------------------------------------------
     t0 = time.perf_counter()
@@ -232,25 +378,55 @@ def main() -> int:
         hp, plain_ms = _timed(
             lambda: block_trace.block_closest_plain(fat, o, d, tm), warmup=False)
         c = _compare_closest(fat, o, d, hk, hp, tm > 0)
+        tests = _needed_tri_tests(fat, o, d, torch.where(hk.slot >= 0, hk.t, tm))
+        bound_ms, bound_by = _bound(tests, _block_bytes(fat, prep, False))
         print(f"[3 main-path waves] closest wave {i} ({c['rays']} lanes, {c['live']} live): "
-              f"kernel {ms:.3f} ms, wrapper (prep + kernel) {wrap_ms:.3f} ms, "
-              f"plain {plain_ms:.3f} ms, candidate groups/block "
-              f"{prep.ncand.float().mean().item():.2f}", flush=True)
+              f"kernel {ms:.3f} ms (bound {bound_ms:.3f} ms, {bound_by}; {tests} tests), "
+              f"wrapper (prep + kernel) {wrap_ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"candidate groups/block {prep.ncand.float().mean().item():.2f}", flush=True)
         _check_closest(f"closest wave {i}", c)
-        closest_waves.append(dict(c, ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms))
+        closest_waves.append(dict(c, ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by, tests=tests))
+        if i == 1:  # the heaviest sorted bounce: kept for K3
+            wave1 = (o, d, tm, hp)
         del prep, hk, hp
     ((o, w, t),) = waves["occluded"]
-    prep = block_trace._prepare(fat, o, w, t * block_trace.SHADOW_EPS)
+    limit = t * block_trace.SHADOW_EPS
+    prep = block_trace._prepare(fat, o, w, limit)
     _, ms_o = _timed(lambda: block_trace.launch(fat, prep, True), reps=3)
     ok, wrap_ms_o = _timed(lambda: block_trace.block_occluded(fat, o, w, t))
     op, plain_ms_o = _timed(
         lambda: block_trace.block_occluded_plain(fat, o, w, t), warmup=False)
+    tests_o = _needed_tri_tests(fat, o, w, limit, blocked=ok)
+    bound_o = _bound(tests_o, _block_bytes(fat, prep, True))
     print(f"[3 main-path waves] deferred shadow wave ({t.numel()} lanes, "
-          f"{int((t > 0).sum())} live): kernel {ms_o:.3f} ms, wrapper (prep + kernel) "
+          f"{int((t > 0).sum())} live): kernel {ms_o:.3f} ms (bound {bound_o[0]:.3f} ms, "
+          f"{bound_o[1]}; {tests_o} tests), wrapper (prep + kernel) "
           f"{wrap_ms_o:.3f} ms, plain {plain_ms_o:.3f} ms, candidate groups/block "
           f"{prep.ncand.float().mean().item():.2f}", flush=True)
     occ = _check_occluded("occluded deferred wave", ok, op, t > 0)
-    del waves, prep, ok, op, o, w, t
+    del prep, ok
+
+    # K3: the same kernel over single-leaf candidate lists (gs = 1)
+    o1w, d1w, tm1w, hp1w = wave1
+    prep = block_trace._prepare(fat, o1w, d1w, tm1w, gs=1)
+    _, ms_k3 = _timed(lambda: block_trace.launch(fat, prep, False, gs=1), reps=3)
+    hk3 = block_trace.block_closest(fat, o1w, d1w, tm1w, gs=1)
+    k3c = _compare_closest(fat, o1w, d1w, hk3, hp1w, tm1w > 0)
+    bound_k3 = _bound(closest_waves[1]["tests"], _block_bytes(fat, prep, False))
+    print(f"[3 K3] closest wave 1 at gs=1: kernel {ms_k3:.3f} ms vs gs=4 "
+          f"{closest_waves[1]['ms']:.3f} ms, candidates/block "
+          f"{prep.ncand.float().mean().item():.2f}", flush=True)
+    _check_closest("K3 closest wave 1", k3c)
+    prep = block_trace._prepare(fat, o, w, limit, gs=1)
+    _, ms_k3o = _timed(lambda: block_trace.launch(fat, prep, True, gs=1), reps=3)
+    ok3 = block_trace.block_occluded(fat, o, w, t, gs=1)
+    print(f"[3 K3] deferred shadow wave at gs=1: kernel {ms_k3o:.3f} ms vs gs=4 "
+          f"{ms_o:.3f} ms, candidates/block {prep.ncand.float().mean().item():.2f}",
+          flush=True)
+    k3o = _check_occluded("K3 occluded deferred wave", ok3, op, t > 0)
+    bound_k3o = _bound(tests_o, _block_bytes(fat, prep, True))
+    del waves, wave1, prep, ok3, op, o, w, t, limit, hp1w
     torch.cuda.empty_cache()
 
     # ---- 4: parity with the JAX reference's golden images -----------------
@@ -273,61 +449,150 @@ def main() -> int:
         assert rays_rel <= PARITY_RAYS_REL
 
     # ---- 5: main path -------------------------------------------------------
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for k in block_trace.LAUNCHES:
-        block_trace.LAUNCHES[k] = 0
-    samples, times, total_rays = 5, [], 0
-    for seed in range(samples):
-        t0 = time.perf_counter()
-        img, n = integrator.render_path_with_counts(scene, view, cfg, seed)
-        n = int(n)  # synchronizes, like the reference bench's fetch
+    def timed_samples(cfg_run, label):
+        """1 warm-up and 4 timed samples with every launch counter zeroed
+        just before and read just after -> (launches, last image, line)."""
         torch.cuda.synchronize()
-        if seed > 0:  # sample 0 is the warm-up
-            times.append(time.perf_counter() - t0)
-            total_rays += n
-    launches = dict(block_trace.LAUNCHES)
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    mean = float(img.mean())
-    ms_spp = sum(times) / len(times) * 1e3
-    mrays = total_rays / sum(times) / 1e6
-    print(f"[5 main path] atrium {W}x{H} {cfg.max_bounces} bounces disney: "
-          f"{ms_spp:.1f} ms/spp, {mrays:.3f} Mrays/s ({total_rays // len(times)} rays/spp), "
-          f"launches/sample closest {launches['closest'] / samples} occluded "
-          f"{launches['occluded'] / samples}, peak {peak_gib:.2f} GiB, "
-          f"image mean {mean:.6f} | {smi}", flush=True)
-    assert bool(torch.isfinite(img).all()) and mean > 0
-    assert launches == {"closest": 5 * samples, "occluded": samples}, launches
-    assert total_rays // len(times) > W * H
+        torch.cuda.reset_peak_memory_stats()
+        for counts in (block_trace.LAUNCHES, binned.LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+        samples, times, total_rays = 5, [], 0
+        for seed in range(samples):
+            t0 = time.perf_counter()
+            img, n = integrator.render_path_with_counts(scene, view, cfg_run, seed)
+            n = int(n)  # synchronizes, like the reference bench's fetch
+            torch.cuda.synchronize()
+            if seed > 0:  # sample 0 is the warm-up
+                times.append(time.perf_counter() - t0)
+                total_rays += n
+        launches = {f"block {k}": v for k, v in block_trace.LAUNCHES.items()}
+        launches.update({f"binned {k}": v for k, v in binned.LAUNCHES.items()})
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        mean = float(img.mean())
+        ms_spp = sum(times) / len(times) * 1e3
+        mrays = total_rays / sum(times) / 1e6
+        print(f"[{label}] atrium {W}x{H} {cfg_run.max_bounces} bounces disney: "
+              f"{ms_spp:.1f} ms/spp, {mrays:.3f} Mrays/s ({total_rays // len(times)} rays/spp), "
+              f"launches/sample {{{', '.join(f'{k}: {v / samples}' for k, v in launches.items())}}}, "
+              f"peak {peak_gib:.2f} GiB, image mean {mean:.6f} | {smi}", flush=True)
+        assert bool(torch.isfinite(img).all()) and mean > 0
+        assert total_rays // len(times) > W * H
+        return launches, img, dict(ms_spp=ms_spp, mrays=mrays, peak_gib=peak_gib, mean=mean)
+
+    launches, img5, main5 = timed_samples(cfg, "5 main path")
+    assert launches == {"block closest": 25, "block occluded": 5,
+                        "binned closest": 0, "binned occluded": 0}, launches
+
+    # ---- 6: the binned path -------------------------------------------------
+    cfg6 = integrator.RenderConfig(width=W, height=H, **BENCH, **BINNED)
+    waves = {}
+    integrator.render_path_with_counts(scene, view, cfg6, 0, capture=waves)
+    assert len(waves["closest"]) == 1 and "occluded" not in waves
+    assert [x[0].shape[0] for x in waves["binned_closest"]] == [W * H] * 4
+    ((o, w, t, st_o),) = waves["binned_occluded"]
+    assert t.shape[0] == 5 * W * H
+    k5 = []
+    for o_, d_, tm_, st in waves["binned_closest"]:
+        hb = block_trace.block_closest(fat, o_, d_, tm_)
+        k5.append(_binned_wave(fat, "closest", o_, d_, tm_, st, hb))
+        del hb
+    hb = block_trace.block_occluded(fat, o, w, t)
+    k5o = _binned_wave(fat, "occluded", o, w, t, st_o, hb)
+    del waves, hb, o, w, t
+    torch.cuda.empty_cache()
+    launches6, img6, main6 = timed_samples(cfg6, "6 binned path")
+    assert launches6 == {"block closest": 5, "block occluded": 0,
+                         "binned closest": 20, "binned occluded": 5}, launches6
+    print(f"[6 binned path] {main6['ms_spp']:.1f} ms/spp vs {main5['ms_spp']:.1f} (phase 5); "
+          f"image mean {main6['mean']:.6f} vs {main5['mean']:.6f} "
+          f"(rel {abs(main6['mean'] - main5['mean']) / main5['mean']:.2e})", flush=True)
+
+    # ---- 7: other configurations -------------------------------------------
+    seed = 4  # phase 5's last sample
+    for label, extra in (("binned_bounces=1", dict(binned_bounces=1)), ("gs=1", dict(gs=1))):
+        for counts in (block_trace.LAUNCHES, binned.LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+        img, _ = integrator.render_path_with_counts(
+            scene, view, integrator.RenderConfig(width=W, height=H, **BENCH, **extra), seed)
+        mean = float(img.mean())
+        rel = abs(mean - main5["mean"]) / main5["mean"]
+        same = bool(torch.equal(img, img5))
+        print(f"[7 {label}] image mean {mean:.6f} vs {main5['mean']:.6f} (rel {rel:.2e}), "
+              f"equal to phase 5's sample {seed} bit for bit: {same}; "
+              f"launches {dict(block_trace.LAUNCHES)} / binned {dict(binned.LAUNCHES)}",
+              flush=True)
+        assert bool(torch.isfinite(img).all()) and rel <= PARITY_MEAN_REL
+        if label == "gs=1":
+            k3_launches = dict(block_trace.LAUNCHES)
+            assert k3_launches == {"closest": 5, "occluded": 1}, k3_launches
+            assert same
 
     # ms / plain_ms / wrapper_ms of K1 are means per closest wave over the
-    # main path's five waves; K2's are the deferred shadow wave's. K2's
-    # output is a 0/1 flag, so its max_abs_err is max |kernel - plain| over
-    # those flags and ``mismatch`` counts the lanes where they differ.
-    n_w = len(closest_waves)
+    # main path's five waves; K2's are the deferred shadow wave's. K3's are
+    # closest wave 1's and the deferred wave's at gs=1, its launches those of
+    # the gs=1 sample (phase 7). K5's are means over the binned path's four
+    # closest waves and its deferred wave, its launches those of phase 6's
+    # timed run. A flag output's max_abs_err is max |kernel - plain| over
+    # its 0/1 flags. bound_ms: see _bound and _needed_tri_tests, and
+    # _binned_wave for K5.
+    def avg(rows, key):
+        return sum(r[key] for r in rows) / len(rows)
+
+    common = dict(route="cuda", library_ms=None)
+    bt = dict(common, source="stratum_tpu_torch/csrc/block_trace.cu")
     kernels = [
-        dict(name="block_trace closest (K1)", route="cuda",
-             source="stratum_tpu_torch/csrc/block_trace.cu",
+        dict(bt, name="block_trace closest (K1)",
              replaces="stratum_tpu/ops/pallas_trace.py:1242",
-             launches=launches["closest"],
+             launches=launches["block closest"],
              max_abs_err=max(c["max_abs_err"] for c in closest_waves),
-             ms=sum(c["ms"] for c in closest_waves) / n_w,
-             plain_ms=sum(c["plain_ms"] for c in closest_waves) / n_w,
-             wrapper_ms=sum(c["wrapper_ms"] for c in closest_waves) / n_w,
+             ms=avg(closest_waves, "ms"), plain_ms=avg(closest_waves, "plain_ms"),
+             bound_ms=avg(closest_waves, "bound_ms"), bound_by=closest_waves[1]["bound_by"],
+             wrapper_ms=avg(closest_waves, "wrapper_ms"),
              agree=min(c["agree"] for c in closest_waves),
              wave_ms=[c["ms"] for c in closest_waves],
+             wave_bound_ms=[c["bound_ms"] for c in closest_waves],
              wave_plain_ms=[c["plain_ms"] for c in closest_waves],
+             tri_tests=[c["tests"] for c in closest_waves],
              rays=[c["rays"] for c in closest_waves],
              live=[c["live"] for c in closest_waves]),
-        dict(name="block_trace occluded (K2)", route="cuda",
-             source="stratum_tpu_torch/csrc/block_trace.cu",
+        dict(bt, name="block_trace occluded (K2)",
              replaces="stratum_tpu/ops/pallas_trace.py:1242",
-             launches=launches["occluded"], max_abs_err=float(occ["mismatch"] > 0),
-             ms=ms_o, plain_ms=plain_ms_o, wrapper_ms=wrap_ms_o,
-             agree=occ["agree"], mismatch=occ["mismatch"], rays=occ["rays"],
-             live=occ["live"]),
+             launches=launches["block occluded"], max_abs_err=float(occ["mismatch"] > 0),
+             ms=ms_o, plain_ms=plain_ms_o, bound_ms=bound_o[0], bound_by=bound_o[1],
+             wrapper_ms=wrap_ms_o, agree=occ["agree"], mismatch=occ["mismatch"],
+             tri_tests=tests_o, rays=occ["rays"], live=occ["live"]),
+        dict(bt, name="block_trace closest at gs=1 (K3)",
+             replaces="stratum_tpu/ops/pallas_trace.py:532",
+             launches=k3_launches["closest"], max_abs_err=k3c["max_abs_err"],
+             ms=ms_k3, plain_ms=closest_waves[1]["plain_ms"], bound_ms=bound_k3[0],
+             bound_by=bound_k3[1], gs4_ms=closest_waves[1]["ms"], agree=k3c["agree"]),
+        dict(bt, name="block_trace occluded at gs=1 (K3)",
+             replaces="stratum_tpu/ops/pallas_trace.py:958",
+             launches=k3_launches["occluded"], max_abs_err=float(k3o["mismatch"] > 0),
+             ms=ms_k3o, plain_ms=plain_ms_o, bound_ms=bound_k3o[0], bound_by=bound_k3o[1],
+             gs4_ms=ms_o, agree=k3o["agree"], mismatch=k3o["mismatch"]),
+        dict(common, name="binned closest (K5)", source="stratum_tpu_torch/csrc/binned.cu",
+             replaces="stratum_tpu/ops/binned.py:68",
+             launches=launches6["binned closest"],
+             max_abs_err=max(c["max_abs_err"] for c in k5),
+             ms=avg(k5, "ms"), plain_ms=avg(k5, "plain_ms"), bound_ms=avg(k5, "bound_ms"),
+             bound_by=k5[0]["bound_by"], agree=min(c["agree"] for c in k5),
+             agree_block_undropped=min(c["vs_block"] for c in k5),
+             wave_ms=[c["ms"] for c in k5], wave_bound_ms=[c["bound_ms"] for c in k5],
+             wave_plain_ms=[c["plain_ms"] for c in k5], lanes=[c["lanes"] for c in k5],
+             tri_tests=[c["tests"] for c in k5],
+             stats=[c["stats"] for c in k5], lost_share=[c["lost_share"] for c in k5]),
+        dict(common, name="binned occluded (K5)", source="stratum_tpu_torch/csrc/binned.cu",
+             replaces="stratum_tpu/ops/binned.py:68",
+             launches=launches6["binned occluded"], max_abs_err=k5o["max_abs_err"],
+             ms=k5o["ms"], plain_ms=k5o["plain_ms"], bound_ms=k5o["bound_ms"],
+             bound_by=k5o["bound_by"], agree=k5o["agree"],
+             agree_block_undropped=k5o["vs_block"], lanes=k5o["lanes"], tri_tests=k5o["tests"],
+             stats=k5o["stats"], lost_share=k5o["lost_share"]),
     ]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "paths": {"main": main5, "binned": main6}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -8,6 +8,15 @@ Kernels of this module (source ``csrc/block_trace.cu``):
 * K2, any-hit: the same kernel with ``OCCLUDED = true``, replacing
   ``_kernel_gs(occluded=True)`` reached through ``pallas_occluded``
   (pallas_trace.py:1905).
+* K3, the same kernel at a group size of 1 (``gs=1``): candidates are
+  single leaves, which is what ``pallas_trace._kernel`` (:532) and
+  ``_kernel_occ`` (:958) compute; ``_run_blocks`` picks those when gs == 1.
+* K4 (``_kernel_ring`` :742, ``_kernel_occ_ring`` :1117) only reorders the
+  TPU kernel's commits and gives the same results, so K1-K3 compute it.
+
+The group size ``gs`` is an argument of the prep, the launch and the
+wrappers (``GS`` = 4 is the reference's default); the plain versions do not
+depend on it.
 
 ``block_closest`` / ``block_occluded`` launch the kernel when the rays lie
 on a CUDA device and use ``block_closest_plain`` / ``block_occluded_plain``
@@ -36,14 +45,14 @@ from stratum_tpu_torch.ops.intersect import HitRecord, T_MAX
 from stratum_tpu_torch.ops.packet import FatBVH, _block_entries, safe_inv
 
 BLOCK = 2048  # rays per candidate list (one 2048-lane ray block)
-GS = 4  # leaves per candidate group (the reference's default GS)
+GS = 4  # default leaves per candidate group (the reference's GS)
 T_MIN = 1e-4  # block entries ignore boxes the ray leaves before this
 SHADOW_EPS = float(np.float32(1.0 - 1e-3))
-# blocks per _block_entries pass: bounds the [blocks, BLOCK, G] temporaries
-# (64 x 2048 x 190 f32 = 100 MB each at the atrium's G)
-ENTRY_CHUNK_BLOCKS = 64
+# elements per _block_entries pass: bounds the [blocks, BLOCK, G] temporaries
+# to 100 MB of f32 each (64 blocks at the atrium's G = 190, gs = 4)
+ENTRY_CHUNK_ELEMS = 64 * 2048 * 190
 PLAIN_RAY_CHUNK = 1 << 20
-PLAIN_MM_ROWS = 65536
+PLAIN_MT_ROWS = 65536
 
 LAUNCHES = {"closest": 0, "occluded": 0}
 
@@ -62,23 +71,25 @@ class Prepared(NamedTuple):
     n: int  # rays before padding
 
 
-def group_boxes(fat: FatBVH):
-    """AABBs of the G = ceil(L / GS) groups of consecutive leaves; members
-    past L are padded with inverted boxes."""
+def group_boxes(fat: FatBVH, gs: int = GS):
+    """AABBs of the G = ceil(L / gs) groups of consecutive leaves; members
+    past L are padded with inverted boxes. At gs = 1 these are the leaf
+    boxes."""
     L = fat.num_leaves
-    G = -(-L // GS)
+    G = -(-L // gs)
     big = 3.0e37
-    pad = G * GS - L
+    pad = G * gs - L
     lo = torch.nn.functional.pad(fat.leaf_lo, (0, 0, 0, pad), value=big)
     hi = torch.nn.functional.pad(fat.leaf_hi, (0, 0, 0, pad), value=-big)
-    return lo.reshape(G, GS, 3).amin(dim=1), hi.reshape(G, GS, 3).amax(dim=1)
+    return lo.reshape(G, gs, 3).amin(dim=1), hi.reshape(G, gs, 3).amax(dim=1)
 
 
-def _prepare(fat: FatBVH, origin, direction, t_max) -> Prepared:
-    """Candidate prep (pallas_trace.py:1685-1767, group mode): per 2048-ray
-    block, the entry distance to every leaf group, sorted front to back
-    (stable, like jnp.argsort), with the count of groups the block reaches.
-    Dead lanes (t_max = 0) contribute no entries."""
+def _prepare(fat: FatBVH, origin, direction, t_max, gs: int = GS) -> Prepared:
+    """Candidate prep (pallas_trace.py:1685-1767): per 2048-ray block, the
+    entry distance to every group of ``gs`` leaves (group mode for gs > 1,
+    single leaves at gs = 1, as the reference's ``entry_group`` 1), sorted
+    front to back (stable, like jnp.argsort), with the count of groups the
+    block reaches. Dead lanes (t_max = 0) contribute no entries."""
     n = origin.shape[0]
     block = BLOCK
     nb = -(-n // block)
@@ -87,13 +98,12 @@ def _prepare(fat: FatBVH, origin, direction, t_max) -> Prepared:
     o = torch.nn.functional.pad(origin, (0, 0, 0, pad))
     d = torch.nn.functional.pad(direction, (0, 0, 0, pad), value=1.0)
     tm = torch.nn.functional.pad(t_max, (0, pad))
-    glo, ghi = group_boxes(fat)
+    glo, ghi = group_boxes(fat, gs)
     ob, db, tb = o.view(nb, block, 3), d.view(nb, block, 3), tm.view(nb, block)
+    step = max(1, ENTRY_CHUNK_ELEMS // (block * glo.shape[0]))
     entries = torch.cat([
-        _block_entries(glo, ghi, ob[s:s + ENTRY_CHUNK_BLOCKS],
-                       db[s:s + ENTRY_CHUNK_BLOCKS], T_MIN,
-                       tb[s:s + ENTRY_CHUNK_BLOCKS])
-        for s in range(0, nb, ENTRY_CHUNK_BLOCKS)
+        _block_entries(glo, ghi, ob[s:s + step], db[s:s + step], T_MIN, tb[s:s + step])
+        for s in range(0, nb, step)
     ])
     sorted_entry, order = torch.sort(entries, dim=1, stable=True)
     finite = torch.isfinite(sorted_entry)
@@ -135,8 +145,9 @@ def _check(x: torch.Tensor, name, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def launch(fat: FatBVH, prep: Prepared, occluded: bool):
-    """One kernel launch over every ray block of a prepared wave."""
+def launch(fat: FatBVH, prep: Prepared, occluded: bool, gs: int = GS):
+    """One kernel launch over every ray block of a wave prepared with the
+    same group size ``gs``."""
     dev = prep.rays.device
     if dev.type != "cuda":
         raise ValueError("the block-trace kernel runs on CUDA tensors only")
@@ -157,15 +168,15 @@ def launch(fat: FatBVH, prep: Prepared, occluded: bool):
         (fat.leaf_feat, "leaf_feat", f32, (L, K, 10, 4)),
     ):
         _check(x, name, dt, shape, dev)
-    if G * GS < L:
-        raise ValueError(f"{G} groups of {GS} do not cover {L} leaves")
+    if G != -(-L // gs):
+        raise ValueError(f"{G} candidate groups do not match {L} leaves in groups of {gs}")
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = [
         prep.rays.data_ptr(), prep.t_max.data_ptr(), prep.origin.data_ptr(),
         prep.inv_dir.data_ptr(), prep.cand.data_ptr(), prep.centry.data_ptr(),
         prep.ncand.data_ptr(), fat.leaf_lo.data_ptr(), fat.leaf_hi.data_ptr(),
-        fat.leaf_feat.data_ptr(), nb, G, L, K, GS,
+        fat.leaf_feat.data_ptr(), nb, G, L, K, gs,
     ]
     if occluded:
         blocked = torch.empty(np_, dtype=torch.uint8, device=dev)
@@ -197,24 +208,26 @@ def _default_t_max(origin, t_max):
     return t_max
 
 
-def block_closest(fat: FatBVH, origin, direction, t_max=None) -> HitRecord:
+def block_closest(fat: FatBVH, origin, direction, t_max=None, gs: int = GS) -> HitRecord:
     """Closest hit per ray as a slot-mode HitRecord. CUDA tensors run the
-    kernel (K1); CPU tensors run :func:`block_closest_plain`."""
+    kernel (K1, or K3 at gs = 1); CPU tensors run
+    :func:`block_closest_plain`, whose result does not depend on ``gs``."""
     t_max = _default_t_max(origin, t_max)
     if origin.device.type == "cpu":
         return block_closest_plain(fat, origin, direction, t_max)
-    prep = _prepare(fat, origin, direction, t_max)
-    t, slot = launch(fat, prep, occluded=False)
+    prep = _prepare(fat, origin, direction, t_max, gs)
+    t, slot = launch(fat, prep, occluded=False, gs=gs)
     return _slot_record(t[:prep.n], slot[:prep.n])
 
 
-def block_occluded(fat: FatBVH, origin, direction, t_max):
+def block_occluded(fat: FatBVH, origin, direction, t_max, gs: int = GS):
     """Any-hit before t_max * (1 - 1e-3): bool [N]. CUDA tensors run
-    the kernel (K2); CPU tensors run :func:`block_occluded_plain`."""
+    the kernel (K2, or K3 at gs = 1); CPU tensors run
+    :func:`block_occluded_plain`."""
     if origin.device.type == "cpu":
         return block_occluded_plain(fat, origin, direction, t_max)
-    prep = _prepare(fat, origin, direction, t_max * SHADOW_EPS)
-    (blocked,) = launch(fat, prep, occluded=True)
+    prep = _prepare(fat, origin, direction, t_max * SHADOW_EPS, gs)
+    (blocked,) = launch(fat, prep, occluded=True, gs=gs)
     return blocked[:prep.n].bool()
 
 
@@ -230,6 +243,26 @@ def _leaf_slab(lo, hi, origin, inv_d):
     tn = torch.clamp(torch.amax(torch.minimum(t0, t1), dim=-1), min=0.0)
     tf = torch.amin(torch.maximum(t0, t1), dim=-1)
     return tn, tf
+
+
+def leaf_rows(fat: FatBVH):
+    """Leaf features as [L, 10, K * 4]: row f of leaf l holds feature f of
+    (a, u_num, v_num, t_num) for every slot, so ``mt_quantities`` takes a
+    leaf's block as one [10, K * 4] tensor."""
+    L, K = fat.leaf_tri.shape
+    return fat.leaf_feat.permute(0, 2, 1, 3).reshape(L, 10, K * 4)
+
+
+def mt_quantities(rf, rows):
+    """[m, 10] ray features against one leaf's [10, K * 4] rows -> [m, K, 4]
+    (a, u_num, v_num, t_num): the ten products summed in feature order with
+    separate multiplies and adds. Unlike a matmul, whose blocking on the CPU
+    depends on the batch, a ray's result does not depend on the rays beside
+    it, so every plain version built on this agrees bit for bit."""
+    q = rf[:, 0, None] * rows[0]
+    for f in range(1, 10):
+        q += rf[:, f, None] * rows[f]
+    return q.view(rf.shape[0], -1, 4)
 
 
 def _classify(q):
@@ -248,10 +281,10 @@ def _classify(q):
 def _plain_walk(fat: FatBVH, origin, direction, bound, occluded: bool):
     """Every leaf whose AABB a ray reaches before its current bound, in leaf
     order, exact f32 MT over all K slots. Rays are walked in chunks of
-    PLAIN_RAY_CHUNK and each leaf's wanting rays in matmuls of at most
-    PLAIN_MM_ROWS rows, so a full 1080p wave fits beside the scene."""
+    PLAIN_RAY_CHUNK and each leaf's wanting rays in MT passes of at most
+    PLAIN_MT_ROWS rows, so a full 1080p wave fits beside the scene."""
     L, K = fat.leaf_tri.shape
-    feat = fat.leaf_feat.permute(0, 2, 1, 3).reshape(L, 10, K * 4)
+    feat = leaf_rows(fat)
     best = bound.clone()
     slot = torch.full(best.shape, -1, dtype=torch.int32, device=best.device)
     for s in range(0, origin.shape[0], PLAIN_RAY_CHUNK):
@@ -263,10 +296,9 @@ def _plain_walk(fat: FatBVH, origin, direction, bound, occluded: bool):
         for leaf in range(L):
             tn, tf = _leaf_slab(fat.leaf_lo[leaf], fat.leaf_hi[leaf], o, inv_d)
             want = torch.nonzero((tn <= tf) & (tn < b)).squeeze(1)
-            for m in range(0, want.numel(), PLAIN_MM_ROWS):
-                idx = want[m:m + PLAIN_MM_ROWS]
-                q = (rf[idx] @ feat[leaf]).view(-1, K, 4)
-                abs_a, stn, valid = _classify(q)
+            for m in range(0, want.numel(), PLAIN_MT_ROWS):
+                idx = want[m:m + PLAIN_MT_ROWS]
+                abs_a, stn, valid = _classify(mt_quantities(rf[idx], feat[leaf]))
                 if occluded:
                     hit = (valid & (stn < b[idx, None] * abs_a)).any(dim=1)
                     b[idx[hit]] = 0.0

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from stratum_tpu_torch.ops import mxu as smxu
+from stratum_tpu_torch.utils.native import sah_order
 
 
 class FatBVH(NamedTuple):
@@ -32,8 +33,6 @@ def build_fat_bvh_sah(positions, indices, valid_mask=None,
     """Fat leaves from the native binned-SAH builder (numpy out). Raises if
     the native builder cannot be built or run: a Morton build would silently
     change every candidate list."""
-    from stratum_tpu.utils.native import sah_order
-
     pos_np = np.asarray(positions, np.float32)
     idx_np = np.asarray(indices, np.int32)
     num_tris = idx_np.shape[0]
@@ -43,12 +42,7 @@ def build_fat_bvh_sah(positions, indices, valid_mask=None,
     vids = np.nonzero(valid_np)[0].astype(np.int32)
     if len(vids) == 0:
         raise ValueError("scene has no valid triangles")
-    res = sah_order(pos_np, idx_np[vids], leaf_size)
-    if res is None:
-        raise RuntimeError(
-            "native SAH builder unavailable (native/sah_builder.cpp needs g++)"
-        )
-    order, offsets = res
+    order, offsets = sah_order(pos_np, idx_np[vids], leaf_size)
     order = vids[order]
     num_leaves = len(offsets) - 1
     slots = np.full((num_leaves, leaf_size), -1, np.int32)
@@ -91,8 +85,9 @@ def _block_entries(box_lo, box_hi, origin, direction, t_min, t_clip):
     """Min-over-block entry distance to every box: origin/direction
     [nb, B, 3], t_clip [nb, B], boxes [G, 3] -> [nb, G] (inf where the whole
     block misses or enters beyond its t_clip). The reference chunks the
-    leaf axis at 256; G <= 256 here is one chunk, and callers chunk the
-    block axis to bound the [nb, B, G] temporaries."""
+    box axis at 256; every box's entry is independent of the others, so one
+    pass over all G boxes gives the same values, and callers chunk the block
+    axis to bound the [nb, B, G] temporaries."""
     inv_d = safe_inv(direction)
     tn = None
     tf = None

@@ -18,7 +18,9 @@ class ViewData(NamedTuple):
 
 
 def make_view(camera_to_world, fovy: float, width: int, height: int,
-              znear=0.001, device=None) -> ViewData:
+              znear=0.001, device="cuda") -> ViewData:
+    """Camera view on ``device``: the card unless the caller asks for
+    the CPU (``device="cpu"``); without a CUDA device the default raises."""
     c2w = torch.tensor(np.asarray(camera_to_world, np.float32), device=device)
     proj = xform.make_perspective(
         fovy, aspect=height / width, znear=znear, device=c2w.device

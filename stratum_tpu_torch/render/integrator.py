@@ -7,8 +7,10 @@ BSDF, continue with Russian roulette. The reference's ``lax.scan`` over
 bounces is a Python loop here. Bounce 0 traces unsorted (the primary wave
 is tile-coherent); later bounces go through the trace-local sort; every
 bounce's NEE shadow rays are traced in ONE deferred occlusion wave after
-the loop. Integer and hash paths (RNG, tile order, coherent granules) match
-the reference bit for bit.
+the loop. With the ``binned_*`` options, sorted closest waves, early
+bounces and the occlusion wave go through the binned pair-stream tracer
+instead (ops/binned.py). Integer and hash paths (RNG, tile order, coherent
+granules) match the reference bit for bit.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 
 from stratum_tpu_torch.core import math as smath
 from stratum_tpu_torch.core import rng as srng
-from stratum_tpu_torch.ops import block_trace, raysort
+from stratum_tpu_torch.ops import binned, block_trace, raysort
 from stratum_tpu_torch.ops.bvh import morton3
 from stratum_tpu_torch.ops.intersect import T_MAX, ray_offset
 from stratum_tpu_torch.render import camera as scamera
@@ -38,11 +40,13 @@ _ENV_DIST = float(np.float32(T_MAX) * np.float32(0.5))
 class RenderConfig:
     """Render parameters, field for field the reference's RenderConfig.
 
-    TPU schedule knobs that give identical results (``unroll_bounces``,
-    ``ring``, ``gs*``, ``entry_group*``) are accepted and ignored: the CUDA
-    kernel has one schedule. Options that would change what is rendered
-    and are not ported raise NotImplementedError (see
-    :func:`check_supported`)."""
+    ``gs``, ``gs_primary`` and ``gs_shadow`` set the block tracer's group
+    size as the reference's do (-1: 4, -2: follow ``gs``; 1 is the K3
+    kernel's single leaves). TPU schedule knobs that give identical results
+    (``unroll_bounces``, ``ring``, ``entry_group*``, ``gs_gate``) are
+    accepted and ignored: the CUDA kernel has one schedule. Options that
+    would change what is rendered and are not ported raise
+    NotImplementedError (see :func:`check_supported`)."""
 
     width: int = 256
     height: int = 256
@@ -74,9 +78,13 @@ class RenderConfig:
     gs_primary: int = -2
     gs_shadow: int = -2
     gs_gate: int = -1
-    binned_secondary: int = 0
-    binned_shadow: int = 0
-    binned_bounces: int = 0
+    binned_secondary: int = 0  # >0: sorted closest waves binned, g rays a group
+    binned_shadow: int = 0  # >0: occlusion waves binned, g rays a group
+    binned_pcap: int = 16  # binned: leaves kept per group (more are dropped)
+    binned_bounces: int = 0  # bounces 1..n: unsorted binned closest waves
+    binned_mcap_num: int = 0  # binned pair capacity n * num / 8 (0: n // 2)
+    binned_em: str = "ray"  # binned emission: "ray" or "group" slab tests
+    binned_sb: int = 1  # binned: bins of one leaf per padded step
     wave_caps: tuple = ()
 
 
@@ -91,7 +99,6 @@ _ITEM = {  # ROADMAP Queue 1 item that ports each refused option
     "alpha_test": "item 4 (RIS NEE, alpha_test, wave_caps, media and spheres)",
     "ris_candidates>1": "item 4 (RIS NEE, alpha_test, wave_caps, media and spheres)",
     "wave_caps": "item 4 (RIS NEE, alpha_test, wave_caps, media and spheres)",
-    "binned_*": "item 9 (binned with K5)",
     "slim_carry": "item 3 (render_path_batched / render_path_lanes)",
     "debug_path_edges": "item 6 (denoise, tonemap, AOVs and sessions)",
     "indirect_only": "item 5 (light tracing, BDPT, ReSTIR and adaptive)",
@@ -115,7 +122,6 @@ def check_supported(cfg: RenderConfig) -> None:
         "alpha_test": cfg.alpha_test,
         "ris_candidates>1": cfg.ris_candidates > 1,
         "wave_caps": bool(cfg.wave_caps),
-        "binned_*": cfg.binned_secondary or cfg.binned_shadow or cfg.binned_bounces,
         "slim_carry": cfg.slim_carry,
         "debug_path_edges": cfg.debug_path_edges > 0,
         "indirect_only": cfg.indirect_only,
@@ -125,6 +131,9 @@ def check_supported(cfg: RenderConfig) -> None:
     for name, on in refused.items():
         if on:
             raise NotImplementedError(f"{name}: ROADMAP Queue 1 {_ITEM[name]}")
+    if (cfg.binned_secondary or cfg.binned_bounces) and not cfg.sort_rays:
+        # the reference silently ignores both without its sorted peel
+        raise ValueError("binned_secondary and binned_bounces need sort_rays=True")
 
 
 def mis_power_heuristic(pdf_a, pdf_b):
@@ -170,20 +179,54 @@ def _shadow_ray_rr(cfg: RenderConfig, contrib, candidate, st):
     return contrib / p[..., None], candidate & (u[..., 0] < p), st
 
 
+def _group_size(value: int, follow: int) -> int:
+    """A ``gs*`` field -> the block tracer's group size (integrator.py:
+    466-482 of the reference): -2 follows ``follow``, other negatives mean
+    the default 4, and 0 runs single leaves like 1."""
+    if value == -2:
+        return follow
+    return block_trace.GS if value < 0 else max(value, 1)
+
+
 def _trace_fns(scene, cfg: RenderConfig, capture=None):
-    """(closest, closest_unsorted, occluded) on the block tracer. Closest
-    results are resolved by finalize_hit's one payload gather after any
-    unsort. With a ``capture`` dict, every tracer call appends the inputs
-    it hands the block-trace wrapper under "closest" / "occluded"."""
+    """(closest, closest_unsorted, occluded, closest_binned_peel), the
+    counterpart of the reference's ``_trace_fns4``: the sorted closest
+    tracer (binned with ``binned_secondary``), the unsorted primary peel
+    (always the block tracer), the occlusion tracer (binned with
+    ``binned_shadow``) and, with ``binned_bounces``, the unsorted binned
+    closest tracer of the early bounces (else None). Closest results are
+    resolved by finalize_hit's one payload gather after any unsort. With a
+    ``capture`` dict, every tracer call appends the inputs it hands a
+    wrapper: (o, d, t) under "closest" / "occluded" for the block tracer,
+    (o, d, t, stats) under "binned_closest" / "binned_occluded"."""
     fat = scene.fat_bvh
+    gs = _group_size(cfg.gs, block_trace.GS)
+    binned_kw = dict(pcap=cfg.binned_pcap, sb=cfg.binned_sb, em=cfg.binned_em,
+                     with_stats=capture is not None)
 
     def record(kind, *rays):
         if capture is not None:
             capture.setdefault(kind, []).append(rays)
 
-    def closest_raw(o, d, tm=None):
-        record("closest", o, d, tm)
-        return block_trace.block_closest(fat, o, d, tm)
+    def mcap(n):
+        return n * cfg.binned_mcap_num // 8 if cfg.binned_mcap_num else None
+
+    def block_closest(gs_c):
+        def closest(o, d, tm=None):
+            record("closest", o, d, tm)
+            return block_trace.block_closest(fat, o, d, tm, gs=gs_c)
+
+        return closest
+
+    def binned_closest(g):
+        def closest(o, d, tm=None):
+            h = binned.binned_closest(fat, o, d, tm, g=g, mcap=mcap(o.shape[0]), **binned_kw)
+            if capture is None:
+                return h
+            record("binned_closest", o, d, tm, h[1].stats)
+            return h[0]
+
+        return closest
 
     def finalized(fn):
         def g(o, d, tm=None):
@@ -191,18 +234,33 @@ def _trace_fns(scene, cfg: RenderConfig, capture=None):
 
         return g
 
-    closest_sorted = closest_raw
+    closest_sorted = (
+        binned_closest(cfg.binned_secondary) if cfg.binned_secondary else block_closest(gs)
+    )
     if cfg.sort_rays:
         pos = scene.geo.positions
         closest_sorted = raysort.sorted_closest(
-            closest_raw, pos.amin(dim=0), pos.amax(dim=0)
+            closest_sorted, pos.amin(dim=0), pos.amax(dim=0)
         )
+    closest_b = None
+    if cfg.binned_bounces:
+        closest_b = finalized(binned_closest(cfg.binned_secondary or 8))
+
+    gs_o = _group_size(cfg.gs_shadow, gs)
 
     def occluded(o, d, t):
-        record("occluded", o, d, t)
-        return block_trace.block_occluded(fat, o, d, t)
+        if not cfg.binned_shadow:
+            record("occluded", o, d, t)
+            return block_trace.block_occluded(fat, o, d, t, gs=gs_o)
+        occ = binned.binned_occluded(fat, o, d, t, g=cfg.binned_shadow,
+                                     mcap=mcap(o.shape[0]), **binned_kw)
+        if capture is None:
+            return occ
+        record("binned_occluded", o, d, t, occ[1].stats)
+        return occ[0]
 
-    return finalized(closest_sorted), finalized(closest_raw), occluded
+    closest_u = block_closest(_group_size(cfg.gs_primary, gs))
+    return finalized(closest_sorted), finalized(closest_u), occluded, closest_b
 
 
 def light_tile_for(scene, cfg: RenderConfig, seed, scene_lo, scene_hi):
@@ -296,7 +354,9 @@ def trace_path(scene, view, cfg: RenderConfig, seed: int, px=None, py=None,
     bsdf_eval, bsdf_sample = _bsdf_fns(cfg)
     scene_lo = scene.geo.positions.amin(dim=0)
     scene_hi = scene.geo.positions.amax(dim=0)
-    trace_closest, trace_closest_u, trace_occluded = _trace_fns(scene, cfg, capture)
+    trace_closest, trace_closest_u, trace_occluded, trace_closest_b = _trace_fns(
+        scene, cfg, capture
+    )
     if px is None:
         px, py = scamera.pixel_grid(cfg.width, cfg.height, dev)
     jitter, st = _ray_jitter(px, py, seed)
@@ -320,7 +380,12 @@ def trace_path(scene, view, cfg: RenderConfig, seed: int, px=None, py=None,
         n_rays = n_rays + alive.sum()
         # dead lanes trace a zero-length segment: no candidates
         seg_max = torch.where(alive, T_MAX, 0.0)
-        closest_fn = trace_closest_u if depth == 0 else trace_closest
+        if depth == 0:
+            closest_fn = trace_closest_u
+        elif depth <= cfg.binned_bounces:
+            closest_fn = trace_closest_b
+        else:
+            closest_fn = trace_closest
         hit = closest_fn(origin, direction, seg_max)
         sp = shading_point_from_row(hit.payload[:, 0:32], hit.tri, hit.bary, direction)
         mat = material_from_row(hit.payload[:, 64:88])

@@ -1,3 +1,4 @@
 """Scene schema, flattening and built-in scenes (counterpart of
-stratum_tpu.scene). The node graph and host materials are shared with the
-JAX package (``stratum_tpu.scene.graph`` / ``.material`` import no JAX)."""
+stratum_tpu.scene). The node graph (``graph``) and host materials
+(``material``) are the port's own copies of the JAX package's numpy-only
+modules, so building a scene imports nothing of that package."""

@@ -1,21 +1,21 @@
 """Built-in scenes (counterpart of stratum_tpu/scene/builtin.py:24-107,
-172-250): the Cornell box and the procedural atrium, built on the shared node
-graph with the port's numpy sphere tessellation and look_at, so building
-them pulls in no JAX.
+172-250): the Cornell box and the procedural atrium, built on the port's
+node graph with its numpy sphere tessellation and look_at, so building them
+pulls in nothing of the JAX package.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from stratum_tpu.scene.graph import (
+from stratum_tpu_torch.scene.graph import (
     CameraComponent,
     EnvironmentComponent,
     MeshPrimitive,
     NodeGraph,
     TransformComponent,
 )
-from stratum_tpu.scene.material import Material
+from stratum_tpu_torch.scene.material import Material
 from stratum_tpu_torch.core.transform import look_at
 from stratum_tpu_torch.scene.flatten import tessellate_sphere
 

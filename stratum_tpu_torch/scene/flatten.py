@@ -1,10 +1,11 @@
 """Scene flattening: node graph -> the port's SceneData (counterpart of
 stratum_tpu/scene/flatten.py:50-93, 184-609).
 
-Walks the shared node graph (``stratum_tpu.scene.graph``), bakes meshes to
+Walks the node graph (``scene/graph.py``), bakes meshes to
 world space, dedups materials by value, builds the light table, the native
 SAH fat BVH (K = 256) and the fused per-slot hit payload, all in numpy, then
-moves the result onto ``device``. Scenes with textures, analytic spheres,
+moves the result onto ``device`` (the card unless the caller names
+another). Scenes with textures, analytic spheres,
 media or environment images are refused: their render paths are not ported
 yet (ROADMAP Queue 1).
 """
@@ -15,7 +16,7 @@ import dataclasses
 
 import numpy as np
 
-from stratum_tpu.scene.graph import (
+from stratum_tpu_torch.scene.graph import (
     CameraComponent,
     EnvironmentComponent,
     MediumComponent,
@@ -23,7 +24,7 @@ from stratum_tpu.scene.graph import (
     Node,
     SpherePrimitive,
 )
-from stratum_tpu.scene.material import Material
+from stratum_tpu_torch.scene.material import Material
 from stratum_tpu_torch.ops.packet import build_fat_bvh_sah
 from stratum_tpu_torch.scene import schema
 
@@ -104,9 +105,10 @@ def compute_smooth_normals(positions, indices):
     ).astype(np.float32)
 
 
-def flatten(root: Node, env_probability: float = 0.5, device="cpu"):
+def flatten(root: Node, env_probability: float = 0.5, device="cuda"):
     """Walk the subtree under ``root`` -> (SceneData on ``device``,
-    FlattenStats)."""
+    FlattenStats). Without a CUDA device the default raises; CPU callers
+    pass ``device="cpu"``."""
     stats = FlattenStats()
     all_pos, all_nrm, all_uv, all_idx, all_mat, all_inst = [], [], [], [], [], []
     materials: list[Material] = []

@@ -1,10 +1,12 @@
-"""Build the port's CUDA kernels on first use and bind them with ctypes.
+"""Build the port's native sources on first use and bind them with ctypes.
 
 Each ``stratum_tpu_torch/csrc/<name>.cu`` exposes a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into ``build/stratum_tpu_torch/`` at the
 repository root, keyed by a hash of the source and the flags, so an edited
 kernel is rebuilt and an unchanged one is loaded as it is. A plain C
-interface keeps the build to seconds (no PyTorch headers).
+interface keeps the build to seconds (no PyTorch headers). :func:`build`
+does the same for any source and compiler; ``utils/native.py`` builds the
+host-side C++ helpers with it.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Callable
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -25,7 +28,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 _LOADED: dict = {}
-BUILD_LOG: dict = {}  # name -> ptxas report (registers, shared memory)
+BUILD_LOG: dict = {}  # source file name -> compiler report (ptxas registers, ...)
 
 
 def _nvcc() -> str:
@@ -36,34 +39,44 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _library_path(src: Path, flags, key: bytes = b"") -> Path:
+    tag = hashlib.sha1(src.read_bytes() + " ".join(flags).encode() + key).hexdigest()[:12]
+    return BUILD_DIR / f"lib{src.stem}-{tag}.so"
+
+
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    tag = hashlib.sha1(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{tag}.so"
+    return _library_path(CSRC / f"{name}.cu", NVCC_FLAGS)
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``."""
-    if name in _LOADED:
-        return _LOADED[name]
-    out = library_path(name)
+def build(source: str, compiler: Callable[[], str], flags, key: bytes = b"") -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<source>`` as a shared library:
+    ``compiler()`` names the compiler (called only when a build is due),
+    ``flags`` precede ``-o <library> <source>``, and ``key`` adds to the
+    hash that names the library."""
+    if source in _LOADED:
+        return _LOADED[source]
+    src = CSRC / source
+    out = _library_path(src, flags, key)
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=str(BUILD_DIR))
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [compiler(), *flags, "-o", tmp, str(src)]
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
             if proc.returncode != 0:
                 raise RuntimeError(
-                    f"nvcc failed for {name}.cu:\n{proc.stdout}\n{proc.stderr}"
+                    f"{Path(cmd[0]).name} failed for {source}:\n{proc.stdout}\n{proc.stderr}"
                 )
-            BUILD_LOG[name] = proc.stderr
+            BUILD_LOG[source] = proc.stderr
             os.replace(tmp, out)
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
-    _LOADED[name] = ctypes.CDLL(str(out))
-    return _LOADED[name]
+    _LOADED[source] = ctypes.CDLL(str(out))
+    return _LOADED[source]
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``."""
+    return build(f"{name}.cu", _nvcc, NVCC_FLAGS)

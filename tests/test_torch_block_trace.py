@@ -156,30 +156,48 @@ def test_launch_refuses_cpu_tensors(case):
         block_trace.launch(fat, prep, occluded=False)
 
 
+def test_plain_mt_does_not_depend_on_the_batch(case):
+    """``mt_quantities`` gives a ray the same bits whatever rays share its
+    batch (a CPU matmul does not), which is what lets the binned and block
+    plain versions agree bit for bit."""
+    fat = case["ps"].fat_bvh
+    rows = block_trace.leaf_rows(fat)[3]
+    rf = block_trace.smxu.ray_features(_t(case["o"]), _t(case["d"]))
+    full = block_trace.mt_quantities(rf, rows)
+    for sel in (slice(5, 6), slice(0, 17), slice(1000, 3001)):
+        assert torch.equal(block_trace.mt_quantities(rf[sel], rows), full[sel])
+    np.testing.assert_allclose(
+        full.reshape(rf.shape[0], -1).numpy(), (rf @ rows).numpy(), rtol=1e-4, atol=1e-2
+    )
+
+
+@pytest.mark.parametrize("gs", [1, 4])
 @pytest.mark.parametrize("occluded", [False, True])
-def test_prepare_matches_reference(case, occluded):
-    """Candidate order, entries and counts are bit-identical (block 2048,
-    group streaming GS=4 at G = ceil(L/4))."""
+def test_prepare_matches_reference(case, occluded, gs):
+    """Candidate order, entries and counts are bit-identical (block 2048):
+    group streaming at gs = 4 (G = ceil(L/4), ``expand=False``), and single
+    leaves at gs = 1 (the K3 kernel's lists: ``entry_group`` 1, where
+    ``expand`` has nothing to expand)."""
     js, ps = case["js"], case["ps"]
     tm = case["t_max"] * (block_trace.SHADOW_EPS if occluded else 1.0)
     _, _, order, entry, ncand, n = pallas_trace._prepare(
         js.fat_bvh, jnp.asarray(case["o"]), jnp.asarray(case["d"]), 1e-4,
-        jnp.asarray(tm.astype(np.float32)), 2048, 4, expand=False,
+        jnp.asarray(tm.astype(np.float32)), 2048, gs, expand=gs == 1,
     )
     prep = block_trace._prepare(ps.fat_bvh, _t(case["o"]), _t(case["d"]),
-                                _t(tm.astype(np.float32)))
+                                _t(tm.astype(np.float32)), gs)
     assert prep.n == n
     np.testing.assert_array_equal(prep.ncand.numpy(), np.asarray(ncand)[:, 0])
     np.testing.assert_array_equal(prep.centry.numpy(), np.asarray(entry))
     # order is only meaningful where entries are finite (ties past ncand
     # sort identically anyway: both sorts are stable)
     np.testing.assert_array_equal(prep.cand.numpy(), np.asarray(order))
-    assert prep.cand.shape[1] == -(-ps.fat_bvh.num_leaves // 4)
+    assert prep.cand.shape[1] == -(-ps.fat_bvh.num_leaves // gs)
     # padded rays carry direction 1.0 and t_max 0: they yield no entries
     assert (prep.t_max[n:] == 0).all() and (prep.rays[n:, 0:3] == 1.0).all()
 
 
-def _walk_like_the_kernel(fat, prep, occluded):
+def _walk_like_the_kernel(fat, prep, occluded, gs=block_trace.GS):
     """The CUDA kernel's traversal, CTA by CTA, in torch (see
     csrc/block_trace.cu): front-to-back groups, early exit on the CTA's
     largest best, per-ray slab pretest, exact MT, lower slot on ties."""
@@ -196,13 +214,13 @@ def _walk_like_the_kernel(fat, prep, occluded):
             if not prep.centry[blk, c] < b.max():
                 break
             g = int(prep.cand[blk, c])
-            for leaf in range(g * block_trace.GS, min((g + 1) * block_trace.GS, L)):
+            for leaf in range(g * gs, min((g + 1) * gs, L)):
                 tn, tf = block_trace._leaf_slab(fat.leaf_lo[leaf], fat.leaf_hi[leaf], o, inv)
                 want = torch.nonzero((tn <= tf) & (tn < b)).squeeze(1)
                 if want.numel() == 0:
                     continue
                 abs_a, stn, valid = block_trace._classify(
-                    (rf[want] @ feat[leaf]).view(-1, K, 4)
+                    block_trace.mt_quantities(rf[want], feat[leaf])
                 )
                 if occluded:
                     b[want[(valid & (stn < b[want, None] * abs_a)).any(dim=1)]] = 0.0
@@ -235,6 +253,23 @@ def test_kernel_traversal_matches_plain(case):
     blocked = _walk_like_the_kernel(fat, prep_o, occluded=True)
     op = block_trace.block_occluded_plain(fat, o, d, tm)
     assert (blocked[:n] == op).float().mean() >= 0.999
+
+
+def test_single_leaf_traversal_matches_plain(case):
+    """The K3 launch (gs = 1): the kernel's walk over single-leaf candidate
+    lists gives the plain version's hits; with exact arithmetic on both
+    sides (``mt_quantities``), slots and t are equal."""
+    fat = case["ps"].fat_bvh
+    o, d, tm = _t(case["o"]), _t(case["d"]), _t(case["t_max"])
+    n = o.shape[0]
+    prep = block_trace._prepare(fat, o, d, tm, gs=1)
+    assert prep.cand.shape[1] == fat.num_leaves
+    t, slot = _walk_like_the_kernel(fat, prep, occluded=False, gs=1)
+    hp = block_trace.block_closest_plain(fat, o, d, tm)
+    assert torch.equal(slot[:n], hp.slot) and torch.equal(t[:n], hp.t)
+    prep_o = block_trace._prepare(fat, o, d, tm * block_trace.SHADOW_EPS, gs=1)
+    blocked = _walk_like_the_kernel(fat, prep_o, occluded=True, gs=1)
+    assert torch.equal(blocked[:n], block_trace.block_occluded_plain(fat, o, d, tm))
 
 
 def test_finalize_hit_matches_reference(case):

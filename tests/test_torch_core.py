@@ -99,7 +99,7 @@ def test_transform_and_camera(rng):
     d = _unit(rng, N)
     _close(pxf.transform_vector(_t(c2w_j), _t(d)), jxf.transform_vector(c2w_j, d))
     w, h = 128, 64
-    vp = pcam.make_view(c2w_j, 0.9, w, h)
+    vp = pcam.make_view(c2w_j, 0.9, w, h, device="cpu")
     vj = jcam.make_view(c2w_j, 0.9, w, h)
     for field in ("scale", "offset", "near_plane", "sensor_area", "vertical_fov"):
         _close(getattr(vp.projection, field), getattr(vj.projection, field))

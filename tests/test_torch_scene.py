@@ -23,10 +23,15 @@ import torch
 from stratum_tpu.render import lights as jlights
 from stratum_tpu.scene import builtin as jbuiltin
 from stratum_tpu.scene import flatten as jflatten
-from stratum_tpu.scene.graph import EnvironmentComponent, MediumComponent, MeshPrimitive, SpherePrimitive
-from stratum_tpu.scene.material import Material
 from stratum_tpu_torch.render import lights as plights
 from stratum_tpu_torch.scene import bridge, builtin, flatten
+from stratum_tpu_torch.scene.graph import (
+    EnvironmentComponent,
+    MediumComponent,
+    MeshPrimitive,
+    SpherePrimitive,
+)
+from stratum_tpu_torch.scene.material import Material
 
 torch.set_num_threads(2)
 
@@ -38,7 +43,7 @@ TINY = dict(columns=1, stacks=6, slices=12)
 @pytest.fixture(scope="module")
 def scenes():
     js, jstats = jflatten.flatten(jbuiltin.atrium(**TINY).root)
-    ps, pstats = flatten.flatten(builtin.atrium(**TINY).root)
+    ps, pstats = flatten.flatten(builtin.atrium(**TINY).root, device="cpu")
     return js, ps, jstats, pstats
 
 
@@ -62,7 +67,7 @@ def test_atrium_build_matches_reference(scenes):
 
 def test_cornell_build_matches_reference():
     js, _ = jflatten.flatten(jbuiltin.cornell_box().root)
-    ps, _ = flatten.flatten(builtin.cornell_box().root)
+    ps, _ = flatten.flatten(builtin.cornell_box().root, device="cpu")
     np.testing.assert_array_equal(ps.fat_bvh.leaf_tri.numpy(), np.asarray(js.fat_bvh.leaf_tri))
     np.testing.assert_array_equal(ps.geo.packed_tri.numpy(), np.asarray(js.geo.packed_tri))
     np.testing.assert_array_equal(ps.lights.packed.numpy(), np.asarray(js.lights.packed))
@@ -134,12 +139,30 @@ def test_unported_scene_features_raise(what):
                 color=np.ones(3, np.float32), image=np.ones((4, 8, 3), np.float32)))
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flatten.flatten(_scene_with(add).root)
+        flatten.flatten(_scene_with(add).root, device="cpu")
+
+
+def test_entry_points_default_to_the_card():
+    """``flatten`` and ``make_view`` put their tensors on the card unless the
+    caller asks for the CPU; without a card the default raises rather than
+    falling back."""
+    import inspect
+
+    from stratum_tpu_torch.render import camera
+
+    for fn in (flatten.flatten, camera.make_view):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        assert camera.make_view(np.eye(3, 4), 0.9, 8, 8).camera_to_world.is_cuda
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            camera.make_view(np.eye(3, 4), 0.9, 8, 8)
 
 
 def test_port_runs_without_jax():
     """Import the port, build the atrium and render a tiny frame on the CPU
-    in a fresh interpreter: JAX must never be imported."""
+    (binned tracer included) in a fresh interpreter: neither JAX nor any
+    module of the JAX package may be imported."""
     code = (
         "import sys\n"
         "import torch\n"
@@ -147,14 +170,16 @@ def test_port_runs_without_jax():
         "from stratum_tpu_torch.render import camera, integrator\n"
         "from stratum_tpu_torch import profile_sample\n"
         "g = builtin.atrium(columns=1, stacks=6, slices=12)\n"
-        "scene, _ = flatten.flatten(g.root)\n"
+        "scene, _ = flatten.flatten(g.root, device='cpu')\n"
         "node, cam = flatten.find_camera(g.root)\n"
-        "view = camera.make_view(node.to_world(), cam.fovy, 32, 16)\n"
+        "view = camera.make_view(node.to_world(), cam.fovy, 32, 16, device='cpu')\n"
         "cfg = integrator.RenderConfig(width=32, height=16, bsdf='disney',"
-        " presample_lights=256, coherent_tiles=16)\n"
+        " presample_lights=256, coherent_tiles=16, binned_secondary=8, binned_shadow=8)\n"
         "img, n = integrator.render_path_with_counts(scene, view, cfg, 0)\n"
         "assert torch.isfinite(img).all() and int(n) > 0\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
+        "ref = [m for m in sys.modules if m == 'stratum_tpu' or m.startswith('stratum_tpu.')]\n"
+        "assert not ref, ref\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))

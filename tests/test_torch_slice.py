@@ -20,15 +20,17 @@ twice these bounds against tests/golden/torch_atrium_tiny.npz.
 
 from pathlib import Path
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from stratum_tpu.ops import binned as jbinned
 from stratum_tpu.render import camera as jcamera
 from stratum_tpu.render import integrator as jintegrator
 from stratum_tpu.scene import builtin as jbuiltin
 from stratum_tpu.scene import flatten as jflatten
-from stratum_tpu_torch.ops import block_trace
+from stratum_tpu_torch.ops import binned, block_trace
 from stratum_tpu_torch.render import camera, integrator
 from stratum_tpu_torch.scene import bridge, builtin, flatten
 
@@ -61,7 +63,7 @@ def case():
     return dict(
         js=js, jview=jcamera.make_view(c2w, cam.fovy, W, H),
         ps=bridge.scene_from_numpy(bridge.numpy_fields(js), "cpu"),
-        pview=camera.make_view(c2w, cam.fovy, W, H),
+        pview=camera.make_view(c2w, cam.fovy, W, H, device="cpu"),
     )
 
 
@@ -102,8 +104,8 @@ def test_port_scene_matches_golden():
     """The port's own atrium build (no JAX) against the golden reference
     images, seeds 0-3 (the check chip_smoke.py repeats on the GPU)."""
     gold = np.load(GOLDEN)
-    scene, _ = flatten.flatten(builtin.atrium(columns=1, stacks=6, slices=12).root)
-    view = camera.make_view(gold["camera_to_world"], float(gold["fovy"]), W, H)
+    scene, _ = flatten.flatten(builtin.atrium(columns=1, stacks=6, slices=12).root, device="cpu")
+    view = camera.make_view(gold["camera_to_world"], float(gold["fovy"]), W, H, device="cpu")
     cfg = integrator.RenderConfig(**BENCH)
     for i, seed in enumerate(gold["seeds"]):
         img, n = integrator.render_path_with_counts(scene, view, cfg, int(seed))
@@ -117,7 +119,7 @@ def test_schedule_knobs_are_ignored_and_options_agree(case):
     ref, n_ref = integrator.render_path_with_counts(
         case["ps"], case["pview"], integrator.RenderConfig(**BENCH), 3
     )
-    knobs = integrator.RenderConfig(ring=1, gs=2, entry_group=4, unroll_bounces=3, **BENCH)
+    knobs = integrator.RenderConfig(ring=1, entry_group=4, unroll_bounces=3, **BENCH)
     img, n = integrator.render_path_with_counts(case["ps"], case["pview"], knobs, 3)
     assert torch.equal(img, ref) and int(n) == int(n_ref)
     unsorted = integrator.RenderConfig(sort_rays=False, **BENCH)
@@ -221,7 +223,6 @@ def test_clamp_and_shadow_rr_match_reference(depth):
 @pytest.mark.parametrize("option", [
     dict(tracer="mxu"), dict(tracer="packet"), dict(tracer="bvh"), dict(tracer="brute"),
     dict(alpha_test=True), dict(ris_candidates=4), dict(wave_caps=(1.0, 0.5)),
-    dict(binned_secondary=8), dict(binned_shadow=8), dict(binned_bounces=1),
     dict(slim_carry=True), dict(debug_path_edges=2), dict(indirect_only=True),
     dict(use_nee=False), dict(use_mis=False),
 ])
@@ -229,3 +230,156 @@ def test_unported_options_raise(case, option):
     cfg = integrator.RenderConfig(**{**BENCH, **option})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         integrator.render_path_with_counts(case["ps"], case["pview"], cfg, 0)
+
+
+BINNED = [dict(binned_secondary=8, binned_shadow=8), dict(binned_bounces=1)]
+
+
+@pytest.mark.parametrize("option", BINNED)
+def test_binned_render_equals_block_render(case, option):
+    """The binned tracer on the sorted bounce waves and the deferred shadow
+    wave (or on bounce 1, unsorted) gives the block render bit for bit when
+    no pair is dropped: both plain versions compute exact f32 and keep the
+    lower slot on equal t."""
+    cfg = {**BENCH, **option}
+    waves = {}
+    img, n = integrator.render_path_with_counts(
+        case["ps"], case["pview"], integrator.RenderConfig(**cfg), 1, capture=waves
+    )
+    ref, n_ref = integrator.render_path_with_counts(
+        case["ps"], case["pview"], integrator.RenderConfig(**BENCH), 1
+    )
+    stats = [w[-1] for k in ("binned_closest", "binned_occluded") for w in waves.get(k, [])]
+    assert len(stats) == (5 if "binned_shadow" in option else 1)
+    assert all(s["dropped_pcap"] == 0 and s["dropped_mcap"] == 0 and s["pairs"] > 0
+               for s in stats), stats
+    assert torch.equal(img, ref) and int(n) == int(n_ref)
+
+
+@pytest.mark.parametrize("option", BINNED)
+def test_binned_render_matches_reference(case, option):
+    """The binned render against the JAX reference (``tracer="packet"``
+    there, which runs no binned tracer: the hits, and so the image, are the
+    same) within the file's bounds."""
+    pimg, pn, jimg, jn = _render_both(case, 2, **{**BENCH, **option})
+    _agree(pimg, jimg, pn, jn)
+
+
+@pytest.mark.parametrize("option, calls", [
+    (dict(), {"block_closest": 5, "block_occluded": 1}),
+    (dict(binned_secondary=8), {"block_closest": 1, "binned_closest": 4, "block_occluded": 1}),
+    (dict(binned_shadow=8), {"block_closest": 5, "binned_occluded": 1}),
+    (dict(binned_bounces=2), {"block_closest": 3, "binned_closest": 2, "block_occluded": 1}),
+    (dict(binned_bounces=1, binned_secondary=16, binned_shadow=8),
+     {"block_closest": 1, "binned_closest": 4, "binned_occluded": 1}),
+])
+def test_binned_options_route_the_waves(case, monkeypatch, option, calls):
+    """Counterpart of tests/test_binned.py::test_integrator_routes_binned:
+    the primary peel stays on the block tracer, ``binned_secondary`` takes
+    the sorted bounces, ``binned_bounces`` the first bounces (unsorted, with
+    g = binned_secondary or 8) and ``binned_shadow`` the occlusion wave."""
+    seen = {}
+    groups = []
+
+    def counted(module, name):
+        real = getattr(module, name)
+
+        def fn(*a, **k):
+            seen[name] = seen.get(name, 0) + 1
+            if name == "binned_closest":
+                groups.append(k["g"])
+            return real(*a, **k)
+
+        monkeypatch.setattr(module, name, fn)
+
+    for module, name in ((block_trace, "block_closest"), (block_trace, "block_occluded"),
+                         (binned, "binned_closest"), (binned, "binned_occluded")):
+        counted(module, name)
+    integrator.render_path_with_counts(
+        case["ps"], case["pview"], integrator.RenderConfig(**{**BENCH, **option}), 0
+    )
+    assert seen == calls
+    g_b = option.get("binned_secondary") or 8
+    assert groups == [g_b] * calls.get("binned_closest", 0)
+
+
+@pytest.fixture(scope="module")
+def binned_default_stats(case):
+    waves = {}
+    integrator.render_path_with_counts(
+        case["ps"], case["pview"], integrator.RenderConfig(**BENCH, **BINNED[0]), 0,
+        capture=waves)
+    return {k: [w[-1] for w in waves[k]] for k in ("binned_closest", "binned_occluded")}
+
+
+@pytest.mark.parametrize("field", [
+    dict(binned_pcap=2), dict(binned_mcap_num=1), dict(binned_em="group"), dict(binned_sb=2),
+])
+def test_binned_fields_match_reference(case, binned_default_stats, field):
+    """``binned_pcap``, ``binned_mcap_num``, ``binned_em`` and ``binned_sb``
+    set through RenderConfig reach both binned tracers: the stats of a
+    sample's first binned closest wave and of its deferred shadow wave
+    differ from the defaults' and equal the JAX package's (interpret mode)
+    on the same waves, with the fields resolved as the reference's
+    integrator resolves them (integrator.py:326-381)."""
+    fields = {**BENCH, **BINNED[0], **field}
+    waves = {}
+    integrator.render_path_with_counts(
+        case["ps"], case["pview"], integrator.RenderConfig(**fields), 0, capture=waves)
+    jcfg = jintegrator.RenderConfig(**fields)
+    js = case["js"]
+    ours, ref = [], []
+    for kind, jfn, kw in (
+        ("binned_closest", jbinned.pallas_closest_binned,
+         dict(g=jcfg.binned_secondary, slot_payload=True)),
+        ("binned_occluded", jbinned.pallas_occluded_binned, dict(g=jcfg.binned_shadow)),
+    ):
+        o, d, t, stats = waves[kind][0]
+        n = o.shape[0]
+        _, sj = jfn(js.fat_bvh, js.leaf_feat_packed, jnp.asarray(o.numpy()),
+                    jnp.asarray(d.numpy()), t_max=jnp.asarray(t.numpy()),
+                    pcap=jcfg.binned_pcap, sb=jcfg.binned_sb, em=jcfg.binned_em,
+                    mcap=n * jcfg.binned_mcap_num // 8 if jcfg.binned_mcap_num else None,
+                    interpret=True, with_stats=True, **kw)
+        ours.append(stats)
+        ref.append({k: int(v) for k, v in sj.items()})
+    assert ours == ref
+    default = [binned_default_stats[k][0] for k in ("binned_closest", "binned_occluded")]
+    assert all(a != b for a, b in zip(ours, default)), (ours, default)
+
+
+@pytest.mark.parametrize("option", [dict(binned_secondary=8), dict(binned_bounces=1)])
+def test_binned_closest_needs_sorted_waves(case, option):
+    """The reference silently ignores these without ``sort_rays``; the port
+    refuses them."""
+    cfg = integrator.RenderConfig(**{**BENCH, **option, "sort_rays": False})
+    with pytest.raises(ValueError, match="sort_rays"):
+        integrator.render_path_with_counts(case["ps"], case["pview"], cfg, 0)
+
+
+@pytest.mark.parametrize("gs", [dict(gs=1), dict(gs=8), dict(gs=1, gs_primary=4, gs_shadow=-1)])
+def test_group_size_renders_equal(case, monkeypatch, gs):
+    """``gs`` / ``gs_primary`` / ``gs_shadow`` reach the block-trace
+    wrappers as the reference resolves them, and the image does not depend
+    on the group size."""
+    seen = []
+    for name in ("block_closest", "block_occluded"):
+        real = getattr(block_trace, name)
+
+        def fn(*a, _real=real, **k):
+            seen.append(k["gs"])
+            return _real(*a, **k)
+
+        monkeypatch.setattr(block_trace, name, fn)
+    img, n = integrator.render_path_with_counts(
+        case["ps"], case["pview"], integrator.RenderConfig(**{**BENCH, **gs}), 3
+    )
+    monkeypatch.undo()
+    ref, n_ref = integrator.render_path_with_counts(
+        case["ps"], case["pview"], integrator.RenderConfig(**BENCH), 3
+    )
+    assert torch.equal(img, ref) and int(n) == int(n_ref)
+    g = gs["gs"]
+    primary = gs.get("gs_primary", g)
+    shadow = 4 if gs.get("gs_shadow") == -1 else g
+    assert seen == [primary] + [g] * 4 + [shadow]
