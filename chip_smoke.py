@@ -32,7 +32,17 @@ Phases, each printing its results:
    within phase 4's bound of phase 5's) and one with ``gs=1``, whose
    launches are K3's and whose image must equal phase 5's sample at the
    same seed bit for bit (K1 and K3 both compute exact f32 and keep the
-   lower slot on equal t).
+   lower slot on equal t);
+8. the microbenchmark tools (``stratum_tpu_torch/tools``, kernels T1-T4 in
+   ``csrc/microbench.cu``): their four ``main`` entry points at the
+   reference defaults and at k=256, with the T launch counters zeroed just
+   before and read just after; then each T kernel against its plain
+   version on two input sets, small integers (bit for bit: every product
+   and sum is exact) and standard normal values (within each tool's stated
+   bound), at the default shapes and at k=256, and the plain versions and
+   (T3/T4) one ``torch.matmul`` of the same bf16 product timed per visit;
+   last, K1's own visit of a 256-slot leaf by 128 lanes on one SM, the
+   exact-f32 counterpart of a T1 visit at k=256.
 
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 result line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -220,7 +230,7 @@ def _build():
     """Phase 2: every kernel source built by its own nvcc, all at once."""
     from stratum_tpu_torch.utils import cuda_build
 
-    names = ("block_trace", "binned")
+    names = ("block_trace", "binned", "microbench")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(cuda_build.load, names))
@@ -283,6 +293,266 @@ def _binned_wave(fat, kind, o, d, t, stats, hb):
           f"plain {plain_ms:.3f} ms", flush=True)
     return dict(c, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 lanes=lanes, tests=tests, stats=bins.stats, lost_share=share_lost, vs_block=vs_block)
+
+
+MB_ITERS = 8  # visits per kernel-against-plain comparison of T1-T3
+MB_AGREE = 0.99  # share of lanes within the bound on T1/T2's normal sets
+NONZERO = (-3.0, -2.0, -1.0, 1.0, 2.0, 3.0)
+
+
+def _mb_check(name, kind, got, want, tol=None, share=1.0):
+    """One T kernel-against-plain comparison: bit for bit on the integer
+    set; on the normal set |got - want| <= tol on at least ``share`` of
+    the outputs (equal values, inf included, differ by 0) -> (max |diff|,
+    max |diff| / |want|, both where within tol; share within tol)."""
+    import torch
+
+    if kind == "int":
+        ok = torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert ok, (name, kind, int((got != want).sum()))
+        return 0.0, 0.0, 1.0
+    diff = torch.where(got == want, 0.0, (got.double() - want.double()).abs())
+    within = diff <= tol
+    frac = float(within.float().mean())
+    assert frac >= share, (name, kind, frac)
+    if not bool(within.any()):
+        return 0.0, 0.0, frac
+    rel = diff[within] / want.double().abs()[within].clamp(min=1e-30)
+    return float(diff[within].max()), float(rel.max()), frac
+
+
+def _k1_visit(dev, leaves: int = 64, k: int = 256):
+    """K1's exact-f32 visit of one leaf of k slots by 128 lanes on one SM,
+    the work a T1 visit at the same k does on tensor cores: K1 launches
+    whose every ray enters every leaf (boxes around the origin;
+    random-normal features, so some tests commit), over 8 ray blocks (128
+    CTAs, at most one per SM, as T1 runs) and over 165 (2640 CTAs, 20 per
+    SM: the card full) -> ms per leaf visit and SM of each, beside the
+    per-SM bound (80 flop a test at 1/132 of the f32 peak, or the leaf's
+    features at 1/132 of the memory rate)."""
+    import torch
+    from stratum_tpu_torch.ops import block_trace
+    from stratum_tpu_torch.ops.packet import FatBVH
+
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    fat = FatBVH(
+        leaf_lo=torch.full((leaves, 3), -1e3, device=dev),
+        leaf_hi=torch.full((leaves, 3), 1e3, device=dev),
+        leaf_feat=torch.randn((leaves, k, 10, 4), generator=gen).to(dev),
+        leaf_tri=torch.arange(leaves * k, dtype=torch.int32, device=dev).view(leaves, k))
+    sm_ms = max(128 * k * FLOP_PER_TEST / PEAK_F32_FLOPS, k * 160 / PEAK_BYTES_S) * 132 * 1e3
+    result = dict(bound_sm_ms=sm_ms, k=k)
+    for key, blocks in (("ms", 8), ("ms_full", 165)):
+        n = blocks * block_trace.BLOCK
+        d = torch.nn.functional.normalize(torch.randn((n, 3), generator=gen), dim=1).to(dev)
+        o = torch.zeros((n, 3), device=dev)
+        prep = block_trace._prepare(fat, o, d, torch.full((n,), 3.0e38, device=dev), gs=1)
+        assert bool((prep.ncand == leaves).all())
+        _, ms = _timed(lambda: block_trace.launch(fat, prep, False, gs=1), reps=5)
+        ctas = n // 128
+        per_sm = ms / leaves * 132 / max(ctas, 132)  # one CTA per SM: ms / leaves
+        result[key] = per_sm
+        print(f"[8 K1 visit] {leaves} leaves of {k} slots per CTA, {ctas} CTAs: {ms:.3f} ms, "
+              f"{per_sm * 1e3:.3f} us per leaf visit and SM (bound {sm_ms * 1e3:.3f} us)",
+              flush=True)
+    return result
+
+
+def _microbench():
+    """Phase 8: the tools' entry points (the slice's path), then T1-T4
+    against their plain versions -> the kernels JSON entries."""
+    import numpy as np
+    import torch
+    from stratum_tpu_torch import tools
+    from stratum_tpu_torch.tools import bench_mxu_model as t4
+    from stratum_tpu_torch.tools import perf_commit_pipeline as t1
+    from stratum_tpu_torch.tools import perf_epilogue as t2
+    from stratum_tpu_torch.tools import probe_mxu_loop as t3
+
+    mods = {"T1": t1, "T2": t2, "T3": t3, "T4": t4}
+    for m in mods.values():
+        for key in m.LAUNCHES:
+            m.LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    runs = {}
+    for name, mod, argv in (("T1", t1, []), ("T1 k=256", t1, ["--k=256"]),
+                            ("T2", t2, []), ("T2 k=256", t2, ["--k=256"]),
+                            ("T3", t3, []), ("T3 k=256", t3, ["--k=256"]), ("T4", t4, [])):
+        print(f"[8 tools] {mod.__name__.rsplit('.', 1)[1]} {' '.join(argv)}", flush=True)
+        runs[name] = mod.main(argv)
+    launches = {name: sum(m.LAUNCHES.values()) for name, m in mods.items()}
+    print(f"[8 tools] launches {launches} in {time.perf_counter() - t0:.1f} s", flush=True)
+    assert all(v > 0 for v in launches.values()), launches
+
+    dev = torch.device(DEVICE)
+    bf16 = torch.bfloat16
+    rng = np.random.default_rng(8)
+
+    def vals(kind, shape, nonzero=False, scale=1.0):
+        if kind == "int":
+            x = rng.choice(NONZERO, shape) if nonzero else rng.integers(-3, 4, shape)
+        else:
+            x = rng.standard_normal(shape)
+        return torch.from_numpy((x * scale).astype(np.float32)).to(dev)
+
+    errs = {name: [0.0] for name in mods}
+    rels = {name: [0.0] for name in mods}
+    agree = {name: [1.0] for name in mods}
+
+    def note(name, result):
+        errs[name].append(result[0])
+        rels[name].append(result[1])
+        agree[name].append(result[2])
+
+    word = torch.tensor([1, 0, 3, 1, 0, 1, 1, 2], dtype=torch.int32, device=dev)
+    n = torch.tensor([MB_ITERS - 1], dtype=torch.int32, device=dev)
+    for k in (1024, 256):
+        for v in t1.VARIANTS:
+            for kind in ("int", "normal"):
+                scale = 2.0 ** 58 if v in ("bare", "classify") else 1.0
+                rays = vals(kind, (48, t1.lanes_of(v)), scale=scale).to(bf16)
+                feat = vals(kind, (t1.NL, 48, 4 * k), scale=scale).to(bf16)
+                got = t1.run_inner(rays, feat, word, n, v, k, MB_ITERS)
+                want = t1.run_inner_plain(rays, feat, word, n, v, k, MB_ITERS)
+                if kind == "int":
+                    note("T1", _mb_check(f"T1 {v} k={k}", kind, got, want))
+                    continue
+                # row 0 within the bound (a differing slot must be a near-tie)
+                tol = t1.tolerance(rays, feat, k, MB_ITERS, v, want)
+                note("T1", _mb_check(f"T1 {v} k={k}", kind, got[0], want[0], tol, MB_AGREE))
+                assert float((got[1] == want[1]).float().mean()) >= MB_AGREE, (v, k, kind)
+        for v in t2.VARIANTS:
+            for kind in ("int", "normal"):
+                kk = 512 if k == 1024 else k  # T2's default K is 512
+                slab = vals(kind, (48, 4 * kk)).to(bf16)
+                rays = vals(kind, (48, 256), nonzero=True).to(bf16)
+                got = t2.run(slab, rays, v, kk, 256, MB_ITERS)
+                want = t2.run_plain(slab, rays, v, kk, 256, MB_ITERS)
+                note("T2", _mb_check(f"T2 {v} k={kk}", kind, got, want,
+                                     t2.REL_TOL * want.abs(), MB_AGREE))
+        for dep in (False, True):
+            for kind in ("int", "normal"):
+                rays = vals(kind, (48, t3.B), nonzero=True).to(bf16)
+                feat = vals(kind, (t3.NL, 48, 4 * k)).to(bf16)
+                got = t3.run(rays, feat, MB_ITERS, dep)
+                want = t3.run_plain(rays, feat, MB_ITERS, dep)
+                note("T3", _mb_check(f"T3 dep={dep} k={k}", kind, got, want,
+                                     t3.tolerance(rays, feat, MB_ITERS)))
+    for label, c, m, b, passes, reps in t4.CASES:
+        for p in sorted({0, passes, 5}):
+            for kind in ("int", "normal"):
+                a = vals(kind, (c, m))
+                bb = vals(kind, (c, b))
+                bb = bb.abs() if kind == "int" else bb  # b >= 0: no b * fi + p cancels
+                got = t4.run(a, bb, 4, p, reps)
+                want = t4.run_plain(a, bb, 4, p, reps)
+                note("T4", _mb_check(f"T4 {label} passes={p}", kind, got, want,
+                                     t4.tolerance(a, bb, 4, p)))
+    for name in mods:
+        print(f"[8 kernel vs plain] {name}: {len(errs[name]) - 1} comparisons, integer sets "
+              f"bit for bit, normal sets max |diff| {max(errs[name]):.3e} (relative "
+              f"{max(rels[name]):.3e}), least share within "
+              f"the bound {min(agree[name]):.4f}", flush=True)
+
+    # per-visit times (T4: per pass on the whole card) of the kernels, from
+    # the tools' runs, beside the plain versions' and (T3/T4) one
+    # torch.matmul of the same bf16 product, at the reference defaults and
+    # (T1-T3) at k=256
+    def bound(flops, nbytes):
+        ops_ms = flops / tools.PEAK_BF16_FLOPS * 1e3
+        bytes_ms = nbytes / tools.PEAK_BYTES_S * 1e3
+        return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+    def sm_bound(flops, slab_bytes):
+        """Least time of one visit on one SM: 1/132 of the card's rates."""
+        least = max(flops / tools.PEAK_BF16_FLOPS, slab_bytes / tools.PEAK_BYTES_S)
+        return least * tools.SMS * 1e3
+
+    def per_visit(fn, iters):
+        return _timed(fn, warmup=False)[1] / iters
+
+    def visit_times(name, k):
+        """(ms, plain_ms, bound, per-SM bound, library_ms, extras) per visit."""
+        if name == "T1":
+            args = t1.operands("epi", k, MB_ITERS, dev)
+            plain = per_visit(lambda: t1.run_inner_plain(*args, "epi", k, MB_ITERS), MB_ITERS)
+            run = runs["T1" if k == 1024 else "T1 k=256"]
+            flops = 2 * 48 * 4 * k * t1.B
+            nbytes = (48 * t1.B * 2 + t1.NL * 48 * 4 * k * 2 + 2 * t1.B * 4) / 2048
+            return (run["epi"]["ns_per_commit"] * 1e-6, plain, bound(flops, nbytes),
+                    sm_bound(flops, 48 * 4 * k * 2), None,
+                    {v: r["ns_per_commit"] for v, r in run.items()})
+        if name == "T2":
+            slab = vals("normal", (48, 4 * k)).to(bf16)
+            rays = vals("normal", (48, 128)).to(bf16)
+            plain = per_visit(lambda: t2.run_plain(slab, rays, "full", k, 128, MB_ITERS),
+                              MB_ITERS)
+            run = runs["T2" if k == 512 else "T2 k=256"]
+            flops = 3 * 2 * 48 * 4 * k * 128  # the f32 product as three bf16 products
+            nbytes = (48 * 4 * k * 2 + 48 * 128 * 2 + 128 * 4) / 64
+            return (run["full"]["ns_per_exec"] * 1e-6, plain, bound(flops, nbytes),
+                    sm_bound(flops, 48 * 4 * k * 2), None,
+                    {v: r["ns_per_exec"] for v, r in run.items()})
+        run = runs["T3" if k == 1024 else "T3 k=256"]
+        lo, hi = t3.TRIPS[-2], t3.TRIPS[-1]
+        rays = vals("normal", (48, t3.B)).to(bf16)
+        feat = vals("normal", (t3.NL, 48, 4 * k)).to(bf16)
+        plain = per_visit(lambda: t3.run_plain(rays, feat, MB_ITERS, False), MB_ITERS)
+        lib = _timed(lambda: torch.matmul(feat[0].T, rays), reps=20)[1]
+        flops = 2 * 48 * 4 * k * t3.B
+        nbytes = (48 * t3.B * 2 + t3.NL * 48 * 4 * k * 2 + t3.B * 4) / hi
+        return ((run[(0, hi)]["ms"] - run[(0, lo)]["ms"]) / (hi - lo), plain,
+                bound(flops, nbytes), sm_bound(flops, 48 * 4 * k * 2), lib,
+                {"dep1_ms": (run[(1, hi)]["ms"] - run[(1, lo)]["ms"]) / (hi - lo),
+                 "trips_ms": {f"dep={d} iters={i}": x["ms"] for (d, i), x in run.items()}})
+
+    common = dict(route="cuda", source="stratum_tpu_torch/csrc/microbench.cu")
+    entries = []
+    for name, title, replaces, k_def, unit in (
+            ("T1", "commit_pipeline, epi", "tools/perf_commit_pipeline.py:77", 1024,
+             "per visit (one CTA), marginal between 512 and 2048 visits"),
+            ("T2", "epilogue, full", "tools/perf_epilogue.py:106", 512,
+             "per exec (one CTA of 128 lanes), 64 execs a call"),
+            ("T3", "mxu_loop, dep=0", "tools/probe_mxu_loop.py:35", 1024,
+             "per visit (one CTA), marginal between the last two trip counts")):
+        ms, plain, (b_ms, b_by), b_sm, lib, extra = visit_times(name, k_def)
+        ms2, plain2, (b2, _), b2_sm, lib2, extra2 = visit_times(name, 256)
+        entries.append(dict(
+            common, name=f"{title}, k={k_def} ({name})", replaces=replaces,
+            launches=launches[name], max_abs_err=max(errs[name]),
+            max_rel_err=max(rels[name]), agree=min(agree[name]), ms=ms, plain_ms=plain,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib, unit=unit,
+            bound_sm_ms=b_sm, extra=extra, k256=dict(
+                ms=ms2, plain_ms=plain2, bound_ms=b2, bound_sm_ms=b2_sm, library_ms=lib2,
+                extra=extra2)))
+    label, c, m, b, _, reps = t4.CASES[0]
+    a = vals("normal", (c, m))
+    bb = vals("normal", (c, b))
+    p1 = per_visit(lambda: t4.run_plain(a, bb, 4, 1, reps), 4)
+    p5 = per_visit(lambda: t4.run_plain(a, bb, 4, 5, reps), 4)
+    a16, b16 = a.to(bf16), bb.to(bf16)
+    lib = _timed(lambda: torch.matmul(a16.T, b16), reps=20)[1]
+    b_ms, b_by = bound(2 * c * m * b, (c * m * 4 + c * b * 4 + m * b * 4) / (t4.ITERS * 5))
+    entries.append(dict(
+        common, name=f"mxu_model, {label} (T4)", replaces="tools/bench_mxu_model.py:35",
+        launches=launches["T4"], max_abs_err=max(errs["T4"]), max_rel_err=max(rels["T4"]),
+        agree=min(agree["T4"]), ms=runs["T4"][label]["ns_per_pass"] * 1e-6,
+        plain_ms=(p5 - p1) / 4, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        unit="per pass, whole card (slope of passes 1 -> 5)",
+        extra={lb: r["ns_per_pass"] for lb, r in runs["T4"].items()}))
+    entries[0]["k1_visit"] = _k1_visit(dev)
+    for e in entries:
+        sm = f", per SM {e['bound_sm_ms'] * 1e6:.1f} ns" if "bound_sm_ms" in e else ""
+        lib = "none" if e["library_ms"] is None else f"{e['library_ms'] * 1e6:.1f} ns"
+        print(f"[8 timing] {e['name']}: {e['ms'] * 1e6:.1f} ns {e['unit']}; bound "
+              f"{e['bound_ms'] * 1e6:.2f} ns ({e['bound_by']}){sm}; plain "
+              f"{e['plain_ms'] * 1e6:.1f} ns; library {lib}", flush=True)
+        if "k256" in e:
+            x = e["k256"]
+            print(f"[8 timing]   at k=256: {x['ms'] * 1e6:.1f} ns, per-SM bound "
+                  f"{x['bound_sm_ms'] * 1e6:.1f} ns, plain {x['plain_ms'] * 1e6:.1f} ns",
+                  flush=True)
+    return entries
 
 
 def main() -> int:
@@ -529,6 +799,9 @@ def main() -> int:
             assert k3_launches == {"closest": 5, "occluded": 1}, k3_launches
             assert same
 
+    # ---- 8: the microbenchmark tools (T1-T4) ---------------------------------
+    t_kernels = _microbench()
+
     # ms / plain_ms / wrapper_ms of K1 are means per closest wave over the
     # main path's five waves; K2's are the deferred shadow wave's. K3's are
     # closest wave 1's and the deferred wave's at gs=1, its launches those of
@@ -591,7 +864,7 @@ def main() -> int:
              bound_by=k5o["bound_by"], agree=k5o["agree"],
              agree_block_undropped=k5o["vs_block"], lanes=k5o["lanes"], tri_tests=k5o["tests"],
              stats=k5o["stats"], lost_share=k5o["lost_share"]),
-    ]
+    ] + t_kernels
     print(json.dumps({"kernels": kernels, "paths": {"main": main5, "binned": main6}}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
