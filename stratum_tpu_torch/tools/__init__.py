@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 # bf16 dense tensor-core peak and memory rate of one H100 SXM (NVIDIA data
-# sheet); the tools' per-SM bounds divide them by its 132 SMs
+# sheet); the tools' per-SM bounds divide the peak by its 132 SMs
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 SMS = 132
@@ -97,7 +97,7 @@ def check(x: torch.Tensor, name: str, dtype, shape) -> None:
 
 
 _SIGNATURES = {  # C entry point -> (pointer args, int args)
-    "mb_commit_pipeline": (6, 3),
+    "mb_commit_pipeline": (6, 4),
     "mb_epilogue": (3, 4),
     "mb_mxu_loop": (3, 3),
     "mb_mxu_model": (3, 6),

@@ -8,7 +8,7 @@ no product can be hoisted; ``passes`` products per iteration multiply
 ``b * fi + p`` for p = 0 .. passes - 1 and are summed in that order;
 ``passes = 0`` is the control that adds the broadcast row ``b[0] * fi``
 instead. ``reps`` splits M into equal slices that the TPU multiplied as
-separate calls. The output is the whole ``[M, B]`` f32 accumulator.
+separate calls (see below for the card). The output is the whole ``[M, B]`` f32 accumulator.
 
 Two defects of the reference are not copied: its scratch accumulator is
 never zeroed (in interpret mode it returns NaN; the port starts from 0), and
@@ -18,8 +18,13 @@ fold the program (the port takes runtime tensors).
 On the card the loop is ``csrc/microbench.cu``'s model kernel: one CTA per
 64 x 32 output tile, spread over the SMs, each holding its accumulator in
 registers across all iterations; C below 16 is padded with zeros to one
-16-deep tensor-core step. ``python3 -m stratum_tpu_torch.tools.bench_mxu_model
-[--cpu]`` prints the marginal ns per pass of the reference's 11 cases.
+16-deep tensor-core step. ``reps`` changes nothing there: a slice of
+M / reps rows is whole 64-row tiles, each already a product of its own, so
+the per-leaf case (``reps=8``) launches exactly what its batched twin
+launches and cannot price separate calls. The grid is M / 64 x B / 32 CTAs:
+64 at M = 1024, B = 128, fewer than the card's 132 SMs; 512 at M = 8192.
+``python3 -m stratum_tpu_torch.tools.bench_mxu_model [--cpu]`` prints the
+marginal ns per pass of the reference's 11 cases.
 """
 
 from __future__ import annotations
@@ -140,7 +145,8 @@ def main(argv=None) -> dict:
             f"{mflop / per_pass / 1e6:9.1f} TFLOP/s issued "
             f"({eff / per_pass / 1e6:8.1f} useful/pass)"
         )
-        results[label] = dict(c=c, m=m, b=b, reps=reps, ns_per_pass=per_pass * 1e9,
+        results[label] = dict(c=c, m=m, b=b, reps=reps, ctas=m // TILE_M * (b // TILE_N),
+                              ns_per_pass=per_pass * 1e9,
                               t1_ns=t1 * 1e9, t5_ns=t5 * 1e9,
                               tflops=mflop / per_pass / 1e6)
     return results

@@ -16,7 +16,9 @@ f32: ``best + acc[0]`` and the slot.
 
 On the card the visit is ``csrc/microbench.cu``'s commit-pipeline kernel:
 one CTA, one warp per 16 lanes (``epi_x2``: per 32 lanes), the slab
-streamed through shared memory in 64-row tiles. ``python3 -m
+streamed through shared memory in 64-row tiles. ``run_inner`` also takes
+the lanes of several independent CTAs side by side, which times a visit
+per SM with the card full (the tool itself runs one). ``python3 -m
 stratum_tpu_torch.tools.perf_commit_pipeline [--iters=2048]
 [--base_iters=512] [--k=1024] [--cpu]`` prints each variant's marginal ns
 per commit between the two trip counts.
@@ -50,32 +52,38 @@ def lanes_of(variant: str) -> int:
 def run_inner(rays, feat, word, n, variant: str, k: int, iters: int) -> torch.Tensor:
     """``[2, 128]`` f32 (best + acc row 0, slot) of ``iters`` visits (``n[0]``
     for ``epi_while`` and ``ring``). rays: bf16 [48, lanes]; feat: bf16
-    [4, 48, 4k]; word: i32 [8]; n: i32 [1]. CUDA tensors launch the kernel,
-    CPU tensors run :func:`run_inner_plain`."""
+    [4, 48, 4k]; word: i32 [8]; n: i32 [1]. Rays of ``ctas`` x lanes
+    columns run that many independent CTAs over the same slabs and give
+    ``[2, ctas x 128]``. CUDA tensors launch the kernel, CPU tensors run
+    :func:`run_inner_plain`."""
     if rays.device.type == "cpu":
         return run_inner_plain(rays, feat, word, n, variant, k, iters)
     lanes = lanes_of(variant)
+    ctas = rays.shape[1] // lanes
     if not (8 <= k <= 1 << mt.IDX_BITS and k % 8 == 0):
         raise ValueError(f"k = {k}: the kernel takes multiples of 8 up to {1 << mt.IDX_BITS}")
-    for x, name, dt, shape in ((rays, "rays", torch.bfloat16, (mt.C, lanes)),
+    for x, name, dt, shape in ((rays, "rays", torch.bfloat16, (mt.C, max(ctas, 1) * lanes)),
                                (feat, "feat", torch.bfloat16, (NL, mt.C, 4 * k)),
                                (word, "word", torch.int32, (8,)),
                                (n, "n", torch.int32, (1,))):
         tools.check(x, name, dt, shape)
-    out = torch.empty((2, B), dtype=torch.float32, device=rays.device)
-    sink = torch.empty(SINK, dtype=torch.float32, device=rays.device)
+    out = torch.empty((2, ctas * B), dtype=torch.float32, device=rays.device)
+    sink = torch.empty(ctas * SINK, dtype=torch.float32, device=rays.device)
     tools.launch("mb_commit_pipeline",
                  [x.data_ptr() for x in (rays, feat, word, n, out, sink)],
-                 [VARIANTS.index(variant), k, iters], rays.device)
+                 [VARIANTS.index(variant), k, iters, ctas], rays.device)
     LAUNCHES["commit_pipeline"] += 1
     return out
 
 
 def run_inner_plain(rays, feat, word, n, variant: str, k: int, iters: int) -> torch.Tensor:
     """Plain torch twin of :func:`run_inner`, step for step as the TPU
-    kernel (perf_commit_pipeline.py:77-241)."""
+    kernel (perf_commit_pipeline.py:77-241), one CTA's lanes at a time."""
+    lanes = lanes_of(variant)
+    if rays.shape[1] > lanes:
+        return torch.cat([run_inner_plain(rays[:, i:i + lanes], feat, word, n, variant, k, iters)
+                          for i in range(0, rays.shape[1], lanes)], dim=1)
     dev = rays.device
-    lanes = rays.shape[1]
     best = torch.full((lanes,), mt.T_INIT, device=dev)
     slot = torch.full((lanes,), -1.0, device=dev)
     acc = torch.zeros((2, B), device=dev)  # the rows of acc the output reads

@@ -125,6 +125,31 @@ def test_commit_pipeline_matches_reference(variant, kind):
     assert np.all(diff[same] <= tol[same]), (diff / tol)[same].max()
 
 
+@pytest.mark.parametrize("variant", ["epi", "epi_drain", "ring", "epi_w256"])
+def test_commit_pipeline_ctas_are_independent(variant):
+    """Rays of several CTAs side by side (how the card-full timing launches
+    T1): each CTA's [2, 128] columns equal the reference's run_inner on that
+    CTA's lanes alone, bit for bit on the integer set (``epi_drain`` and
+    ``ring`` gate on a min over one CTA's lanes)."""
+    rng = np.random.default_rng(41 + perf_commit_pipeline.VARIANTS.index(variant))
+    k, lanes, ctas = T1_K, perf_commit_pipeline.lanes_of(variant), 3
+    rays = _values(rng, "int", (48, ctas * lanes))
+    feat = _values(rng, "int", (4, 48, 4 * k))
+    word = np.array([1, 0, 3, 1, 0, 1, 1, 2], np.int32)
+    n = np.array([T1_ITERS - 2], np.int32)
+    got = perf_commit_pipeline.run_inner(
+        _bf16(rays), _bf16(feat), torch.from_numpy(word), torch.from_numpy(n),
+        variant, k, T1_ITERS)
+    assert got.shape == (2, ctas * 128)
+    for c in range(ctas):
+        ref = np.asarray(_ref("perf_commit_pipeline").run_inner(
+            jnp.asarray(rays[:, c * lanes:(c + 1) * lanes]).astype(jnp.bfloat16),
+            jnp.asarray(feat).astype(jnp.bfloat16), jnp.asarray(word), jnp.asarray(n),
+            variant, k, T1_ITERS, True))
+        assert (ref[1] >= 0).mean() >= 0.5
+        np.testing.assert_array_equal(_bits(got[:, c * 128:(c + 1) * 128].numpy()), _bits(ref))
+
+
 def test_commit_pipeline_reference_operands_never_commit():
     """The reference's own timing operands (uniform [0, 0.5)) commit no
     candidate (perf_commit_pipeline.py:43-46): every variant returns 3e38
@@ -361,6 +386,10 @@ def test_kernels_match_plain_on_gpu():
         got = perf_commit_pipeline.run_inner(rays, feat, word, n, variant, k, iters)
         want = perf_commit_pipeline.run_inner_plain(rays, feat, word, n, variant, k, iters)
         assert torch.equal(got.view(torch.int32), want.view(torch.int32)), variant
+        rays = _bf16(_values(rng, "int", (48, 3 * lanes))).to(dev)  # three CTAs
+        got = perf_commit_pipeline.run_inner(rays, feat, word, n, variant, k, iters)
+        want = perf_commit_pipeline.run_inner_plain(rays, feat, word, n, variant, k, iters)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (variant, 3)
     slab = _bf16(_values(rng, "int", (48, 4 * k))).to(dev)
     rays = _bf16(_values(rng, "int", (48, 256), nonzero=True)).to(dev)
     for variant in perf_epilogue.VARIANTS:
