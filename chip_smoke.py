@@ -8,14 +8,21 @@ Phases, each printing its results:
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: the CUDA kernels from ``stratum_tpu_torch/csrc`` (one nvcc per
    source, started together; sm_90a), with ptxas registers and spills;
-3. kernel against plain version: the block-trace kernel (K1 closest, K2
-   occluded) against its plain torch version on the full 132,778-triangle
-   atrium, on 65,536-ray batches (primary, cosine secondary, shadow rays
-   toward presampled lights) and on the waves one 1920x1080 sample of the
-   main path hands the wrappers (five closest waves of 2,073,600 lanes, the
-   deferred shadow wave of 10,368,000 lanes), with both times; then K3 (the
-   same kernel at group size 1) on closest wave 1 and the deferred wave,
-   against the same plain results, timed beside K1/K2;
+3. kernel against plain version: each instantiation's registers and
+   resident CTAs per SM; the block-trace kernel (K1 closest, K2 occluded)
+   against its plain torch version on the full 132,778-triangle atrium, on
+   65,536-ray batches (primary, cosine secondary, shadow rays toward
+   presampled lights) and on the waves one 1920x1080 sample of the main
+   path hands the wrappers (five closest waves of 2,073,600 lanes, the
+   deferred shadow wave of 10,368,000 lanes), with both times (the kernel's
+   launch includes its list phase: each CTA builds its own front-to-back
+   list). The per-CTA list lengths the kernel reports (``stats``) are held
+   bit for bit to ``candidate_lists(..., block=128, live_only=True)`` on
+   closest wave 1 (with each CTA's sorted entries and groups) and on the
+   deferred wave, and their mean is printed beside the reference's
+   per-2048-block figure on every wave. Then K3 (the same kernel at group
+   size 1) on closest wave 1 and the deferred wave, against the same plain
+   results, timed beside K1/K2;
 4. parity: the tiny atrium at 64x32, seeds 0-3, against the JAX reference's
    golden images (tests/golden/torch_atrium_tiny.npz);
 5. main path: ``render_path_with_counts`` on the full atrium at 1920x1080
@@ -43,7 +50,9 @@ Phases, each printing its results:
    (T3/T4) one ``torch.matmul`` of the same bf16 product timed per visit;
    last, a visit of 256 slots by 128 lanes per SM, at one CTA per SM and
    with the card full, both by T1 ``epi`` (tensor cores) and by K1 (its
-   exact-f32 counterpart).
+   exact-f32 counterpart), and by K1 at 21 real slots per leaf (the
+   atrium's entered leaves hold ~21 triangles; K1 visits only a leaf's
+   real triangles).
 
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 result line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -118,12 +127,6 @@ def _bound(tests: int, nbytes: int):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def _leaf_sizes(fat):
-    """Triangles in each leaf (slots past them are padding that holds no
-    triangle and cannot change a result)."""
-    return (fat.leaf_tri >= 0).sum(dim=1)
-
-
 def _needed_tri_tests(fat, o, d, bound, blocked=None):
     """Ray-triangle tests every front-to-back walk must make, whatever its
     schedule: for a closest hit, the triangles of every leaf whose slab the
@@ -133,9 +136,9 @@ def _needed_tri_tests(fat, o, d, bound, blocked=None):
     blocker. The least work of a trace of this run's rays."""
     import torch
     from stratum_tpu_torch.ops import block_trace
-    from stratum_tpu_torch.ops.packet import safe_inv
+    from stratum_tpu_torch.ops.packet import leaf_counts, safe_inv
 
-    nv = _leaf_sizes(fat)
+    nv = leaf_counts(fat)
     lo, hi = fat.leaf_lo[None], fat.leaf_hi[None]
     total = 0
     for s in range(0, o.shape[0], SLAB_RAYS):
@@ -152,13 +155,33 @@ def _needed_tri_tests(fat, o, d, bound, blocked=None):
 
 def _block_bytes(fat, prep, occluded: bool) -> int:
     """Bytes a block-trace launch must move: each input once (rays, t_max,
-    origin, inverse direction, candidate lists, leaf boxes and features),
-    each output once."""
-    L, K = fat.leaf_tri.shape
+    origin, inverse direction, group and leaf boxes, leaf counts, and the
+    features of the leaves' real triangles: the kernel builds its lists
+    itself and never reads a padded slot), each output once."""
+    L = fat.leaf_tri.shape[0]
     np_ = prep.rays.shape[0]
-    ins = np_ * (10 + 1 + 3 + 3) * 4 + prep.cand.numel() * 8 + prep.ncand.numel() * 4
-    ins += L * (6 * 4 + K * 160)
+    ins = np_ * (10 + 1 + 3 + 3) * 4 + prep.group_lo.shape[0] * 24
+    ins += L * (6 * 4 + 4) + int(prep.leaf_count.sum()) * 160
     return ins + np_ * (1 if occluded else 8)
+
+
+def _check_lists(fat, o, d, bound, lists, gs):
+    """The kernel's per-CTA lists (``launch(..., stats=...)``) against the
+    plain list phase at block 128 over live rays, bit for bit: the counts,
+    and where the kernel wrote them each CTA's sorted entries and groups.
+    -> mean list length per CTA."""
+    import torch
+    from stratum_tpu_torch.ops import block_trace
+
+    plain = block_trace.candidate_lists(fat, o, d, bound, gs, block_trace.CTA, live_only=True)
+    n_cta = lists.ncand.numel()
+    assert torch.equal(lists.ncand, plain.ncand[:n_cta]), int(
+        (lists.ncand != plain.ncand[:n_cta]).sum())
+    assert not bool(plain.ncand[n_cta:].any())
+    if lists.centry is not None:
+        assert torch.equal(lists.centry, plain.centry[:n_cta])
+        assert torch.equal(lists.cand, plain.cand[:n_cta])
+    return float(lists.ncand.float().mean())
 
 
 def _compare_closest(fat, o, d, hk, hp, live=None):
@@ -249,6 +272,7 @@ def _binned_wave(fat, kind, o, d, t, stats, hb):
     (``hb``) on the lanes whose group dropped no pair."""
     import torch
     from stratum_tpu_torch.ops import binned, block_trace
+    from stratum_tpu_torch.ops.packet import leaf_counts
 
     bound = t if kind == "closest" else t * block_trace.SHADOW_EPS
     bins = binned.bin_pairs(fat, o, d, bound)
@@ -266,7 +290,7 @@ def _binned_wave(fat, kind, o, d, t, stats, hb):
     lane_live = (pair >= 0) & (ray < bins.n)
     lane_leaf = bins.bin_leaf.repeat_interleave(binned.LANES)
     lanes = int(lane_live.sum())
-    tests = int(_leaf_sizes(fat)[lane_leaf[lane_live].long()].sum())
+    tests = int(leaf_counts(fat)[lane_leaf[lane_live].long()].sum())
     del pair, ray, lane_live, lane_leaf
     L, K = fat.leaf_tri.shape
     nbytes = (bins.bin_leaf.numel() * 4 + bins.pair_id.numel() * 4 + bins.n * (40 + 16)
@@ -327,36 +351,41 @@ def _per_sm(ms_visit: float, ctas: int) -> float:
     return ms_visit * 132 / max(ctas, 132)
 
 
-def _k1_visit(dev, leaves: int = 64, k: int = 256):
-    """K1's exact-f32 visit of one leaf of k slots by 128 lanes on one SM,
-    the work a T1 visit at the same k does on tensor cores: K1 launches
-    (group size 4) whose every ray enters every leaf (boxes around the
-    origin; random-normal features, so some tests commit), over the CTA
-    counts of SM_CTAS (128 lanes each) -> ms per leaf visit and SM of each,
-    beside the per-SM bound (80 flop a test at 1/132 of the f32 peak; the
-    leaves, 2.6 MB, stay in L2)."""
+def _k1_visit(dev, leaves: int = 64, k: int = 256, real: int = 256):
+    """K1's exact-f32 visit of one leaf of k slots, ``real`` of them holding
+    triangles, by 128 lanes on one SM (at real = k the work a T1 visit at
+    the same k does on tensor cores): K1 launches (group size 4) whose
+    every ray enters every leaf (boxes around the origin; random-normal
+    features, so some tests commit), over the CTA counts of SM_CTAS (128
+    lanes each) -> ms per leaf visit and SM of each (each CTA's list phase
+    included: 16 groups), beside the per-SM bound (80 flop a test at 1/132
+    of the f32 peak; the leaves, 2.6 MB, stay in L2)."""
     import torch
     from stratum_tpu_torch.ops import block_trace
     from stratum_tpu_torch.ops.packet import FatBVH
 
     gen = torch.Generator(device="cpu").manual_seed(8)
+    tri = torch.arange(leaves * k, dtype=torch.int32).view(leaves, k)
+    filled = torch.arange(k) < real
     fat = FatBVH(
         leaf_lo=torch.full((leaves, 3), -1e3, device=dev),
         leaf_hi=torch.full((leaves, 3), 1e3, device=dev),
-        leaf_feat=torch.randn((leaves, k, 10, 4), generator=gen).to(dev),
-        leaf_tri=torch.arange(leaves * k, dtype=torch.int32, device=dev).view(leaves, k))
-    sm_ms = 128 * k * FLOP_PER_TEST / PEAK_F32_FLOPS * 132 * 1e3
-    result = dict(bound_sm_ms=sm_ms, k=k, gs=block_trace.GS)
+        leaf_feat=(torch.randn((leaves, k, 10, 4), generator=gen)
+                   * filled[:, None, None]).to(dev),
+        leaf_tri=torch.where(filled, tri, -1).to(dev))
+    sm_ms = 128 * real * FLOP_PER_TEST / PEAK_F32_FLOPS * 132 * 1e3
+    result = dict(bound_sm_ms=sm_ms, k=k, real=real, gs=block_trace.GS)
     for key, ctas in SM_CTAS:
         n = ctas * 128
         d = torch.nn.functional.normalize(torch.randn((n, 3), generator=gen), dim=1).to(dev)
         o = torch.zeros((n, 3), device=dev)
         prep = block_trace._prepare(fat, o, d, torch.full((n,), 3.0e38, device=dev))
-        assert bool((prep.ncand == leaves // block_trace.GS).all())
+        *_, lists = block_trace.launch(fat, prep, False, stats="ncand")
+        assert bool((lists.ncand == leaves // block_trace.GS).all())
         _, ms = _timed(lambda: block_trace.launch(fat, prep, False), reps=5)
         result[key] = _per_sm(ms / leaves, ctas)
-        print(f"[8 visit per SM] K1: {leaves} leaves of {k} slots per CTA, {ctas} CTAs: "
-              f"{ms:.3f} ms, {result[key] * 1e3:.3f} us per leaf visit and SM "
+        print(f"[8 visit per SM] K1: {leaves} leaves of {k} slots ({real} real) per CTA, "
+              f"{ctas} CTAs: {ms:.3f} ms, {result[key] * 1e3:.3f} us per leaf visit and SM "
               f"(bound {sm_ms * 1e3:.3f} us)", flush=True)
     return result
 
@@ -576,7 +605,8 @@ def _microbench():
         unit="per pass, whole card (slope of passes 1 -> 5)",
         extra={lb: dict(ns_per_pass=r["ns_per_pass"], ctas=r["ctas"])
                for lb, r in runs["T4"].items()}))
-    per_sm = entries[0]["visit_per_sm"] = dict(T1=_t1_visit(dev), K1=_k1_visit(dev))
+    per_sm = entries[0]["visit_per_sm"] = dict(
+        T1=_t1_visit(dev), K1=_k1_visit(dev), K1_real21=_k1_visit(dev, real=21))
     print("[8 visit per SM] T1 epi / K1 at k=256: " + ", ".join(
         f"{ctas} CTAs {per_sm['T1'][key] / per_sm['K1'][key]:.3f}" for key, ctas in SM_CTAS),
         flush=True)
@@ -679,6 +709,22 @@ def main() -> int:
     # its one deferred shadow wave of 5 x W x H lanes, as the wrappers get them
     waves = {}
     integrator.render_path_with_counts(scene, view, cfg, 0, capture=waves)
+
+    def list_lengths(o, d, bound, prep, occluded, check=None):
+        """Mean list length per CTA the kernel reports (held to the plain
+        list phase when ``check`` names the stats to compare), beside the
+        reference's mean per 2048-ray block."""
+        *_, lists = block_trace.launch(fat, prep, occluded, stats=check or "ncand")
+        per_cta = (_check_lists(fat, o, d, bound, lists, prep.gs) if check
+                   else float(lists.ncand.float().mean()))
+        old = block_trace.candidate_lists(fat, o, d, bound, prep.gs)
+        return per_cta, float(old.ncand.float().mean())
+
+    for occl in (False, True):
+        for gs_ in (block_trace.GS, 1):
+            info = block_trace.kernel_info(occl, -(-L // gs_))
+            print(f"[3 kernel] block_trace_kernel<{str(occl).lower()}> at gs={gs_} "
+                  f"(G={-(-L // gs_)}): {info}", flush=True)
     closest_waves = []
     for i, (o, d, tm) in enumerate(waves["closest"]):
         prep = block_trace._prepare(fat, o, d, tm)
@@ -689,13 +735,17 @@ def main() -> int:
         c = _compare_closest(fat, o, d, hk, hp, tm > 0)
         tests = _needed_tri_tests(fat, o, d, torch.where(hk.slot >= 0, hk.t, tm))
         bound_ms, bound_by = _bound(tests, _block_bytes(fat, prep, False))
+        per_cta, per_block = list_lengths(o, d, tm, prep, False, "lists" if i == 1 else None)
         print(f"[3 main-path waves] closest wave {i} ({c['rays']} lanes, {c['live']} live): "
               f"kernel {ms:.3f} ms (bound {bound_ms:.3f} ms, {bound_by}; {tests} tests), "
               f"wrapper (prep + kernel) {wrap_ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"candidate groups/block {prep.ncand.float().mean().item():.2f}", flush=True)
+              f"candidate groups per CTA {per_cta:.2f} (per 2048-ray block {per_block:.2f})"
+              + ("; per-CTA counts, entries and groups equal to the plain list phase"
+                 if i == 1 else ""), flush=True)
         _check_closest(f"closest wave {i}", c)
         closest_waves.append(dict(c, ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms,
-                                  bound_ms=bound_ms, bound_by=bound_by, tests=tests))
+                                  bound_ms=bound_ms, bound_by=bound_by, tests=tests,
+                                  ncand_cta=per_cta, ncand_block=per_block))
         if i == 1:  # the heaviest sorted bounce: kept for K3
             wave1 = (o, d, tm, hp)
         del prep, hk, hp
@@ -708,31 +758,35 @@ def main() -> int:
         lambda: block_trace.block_occluded_plain(fat, o, w, t), warmup=False)
     tests_o = _needed_tri_tests(fat, o, w, limit, blocked=ok)
     bound_o = _bound(tests_o, _block_bytes(fat, prep, True))
+    per_cta_o, per_block_o = list_lengths(o, w, limit, prep, True, "ncand")
     print(f"[3 main-path waves] deferred shadow wave ({t.numel()} lanes, "
           f"{int((t > 0).sum())} live): kernel {ms_o:.3f} ms (bound {bound_o[0]:.3f} ms, "
           f"{bound_o[1]}; {tests_o} tests), wrapper (prep + kernel) "
-          f"{wrap_ms_o:.3f} ms, plain {plain_ms_o:.3f} ms, candidate groups/block "
-          f"{prep.ncand.float().mean().item():.2f}", flush=True)
+          f"{wrap_ms_o:.3f} ms, plain {plain_ms_o:.3f} ms, candidate groups per CTA "
+          f"{per_cta_o:.2f} (per 2048-ray block {per_block_o:.2f}); per-CTA counts equal "
+          f"to the plain list phase", flush=True)
     occ = _check_occluded("occluded deferred wave", ok, op, t > 0)
     del prep, ok
 
     # K3: the same kernel over single-leaf candidate lists (gs = 1)
     o1w, d1w, tm1w, hp1w = wave1
     prep = block_trace._prepare(fat, o1w, d1w, tm1w, gs=1)
-    _, ms_k3 = _timed(lambda: block_trace.launch(fat, prep, False, gs=1), reps=3)
+    _, ms_k3 = _timed(lambda: block_trace.launch(fat, prep, False), reps=3)
     hk3 = block_trace.block_closest(fat, o1w, d1w, tm1w, gs=1)
     k3c = _compare_closest(fat, o1w, d1w, hk3, hp1w, tm1w > 0)
     bound_k3 = _bound(closest_waves[1]["tests"], _block_bytes(fat, prep, False))
+    per_cta, per_block = list_lengths(o1w, d1w, tm1w, prep, False)
     print(f"[3 K3] closest wave 1 at gs=1: kernel {ms_k3:.3f} ms vs gs=4 "
-          f"{closest_waves[1]['ms']:.3f} ms, candidates/block "
-          f"{prep.ncand.float().mean().item():.2f}", flush=True)
+          f"{closest_waves[1]['ms']:.3f} ms, candidates per CTA {per_cta:.2f} "
+          f"(per 2048-ray block {per_block:.2f})", flush=True)
     _check_closest("K3 closest wave 1", k3c)
     prep = block_trace._prepare(fat, o, w, limit, gs=1)
-    _, ms_k3o = _timed(lambda: block_trace.launch(fat, prep, True, gs=1), reps=3)
+    _, ms_k3o = _timed(lambda: block_trace.launch(fat, prep, True), reps=3)
     ok3 = block_trace.block_occluded(fat, o, w, t, gs=1)
+    per_cta, per_block = list_lengths(o, w, limit, prep, True)
     print(f"[3 K3] deferred shadow wave at gs=1: kernel {ms_k3o:.3f} ms vs gs=4 "
-          f"{ms_o:.3f} ms, candidates/block {prep.ncand.float().mean().item():.2f}",
-          flush=True)
+          f"{ms_o:.3f} ms, candidates per CTA {per_cta:.2f} (per 2048-ray block "
+          f"{per_block:.2f})", flush=True)
     k3o = _check_occluded("K3 occluded deferred wave", ok3, op, t > 0)
     bound_k3o = _bound(tests_o, _block_bytes(fat, prep, True))
     del waves, wave1, prep, ok3, op, o, w, t, limit, hp1w
@@ -866,6 +920,8 @@ def main() -> int:
              wave_ms=[c["ms"] for c in closest_waves],
              wave_bound_ms=[c["bound_ms"] for c in closest_waves],
              wave_plain_ms=[c["plain_ms"] for c in closest_waves],
+             wave_ncand_cta=[c["ncand_cta"] for c in closest_waves],
+             wave_ncand_block=[c["ncand_block"] for c in closest_waves],
              tri_tests=[c["tests"] for c in closest_waves],
              rays=[c["rays"] for c in closest_waves],
              live=[c["live"] for c in closest_waves]),
@@ -874,7 +930,7 @@ def main() -> int:
              launches=launches["block occluded"], max_abs_err=float(occ["mismatch"] > 0),
              ms=ms_o, plain_ms=plain_ms_o, bound_ms=bound_o[0], bound_by=bound_o[1],
              wrapper_ms=wrap_ms_o, agree=occ["agree"], mismatch=occ["mismatch"],
-             tri_tests=tests_o, rays=occ["rays"], live=occ["live"]),
+             ncand_cta=per_cta_o, ncand_block=per_block_o, tri_tests=tests_o, rays=occ["rays"], live=occ["live"]),
         dict(bt, name="block_trace closest at gs=1 (K3)",
              replaces="stratum_tpu/ops/pallas_trace.py:532",
              launches=k3_launches["closest"], max_abs_err=k3c["max_abs_err"],

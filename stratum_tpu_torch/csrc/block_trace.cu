@@ -4,103 +4,256 @@
 // Replaces the TPU kernel stratum_tpu/ops/pallas_trace.py::_kernel_gs
 // (group-stream mode, GS = 4), reached through pallas_closest (closest,
 // every closest wave of the path tracer) and pallas_occluded (any-hit, the
-// deferred shadow wave). It computes what that kernel computes, not a
-// block-by-block copy of it:
+// deferred shadow wave); at a group size of 1 it is _kernel / _kernel_occ.
+// It computes what that kernel computes, not a block-by-block copy of it.
+// The TPU kernel walks a sequential grid over 2048-lane blocks whose
+// front-to-back lists XLA builds outside it; here every CTA of 128 rays
+// builds its own list and walks it:
 //
-//   * A ray block of 2048 lanes shares one front-to-back sorted candidate
-//     list of leaf groups (GS consecutive leaves of K triangles), built in
-//     torch by ops/block_trace.py::_prepare. Here one CTA of 128 threads
-//     runs one 128-lane sub-block, one thread per ray; the 16 CTAs of a ray
-//     block read the same list.
-//   * For each member leaf every thread runs the slab pretest of the leaf
-//     AABB against its own current best t (the formula of
-//     _pretest_words_multi). __syncthreads_or skips leaves no ray wants.
-//   * The CTA stages the leaf's [K, 10, 4] f32 Plucker features (40 KB at
-//     K = 256) in shared memory; each wanting thread evaluates the K
-//     triangles in full f32 (a, u, v, t as 10-term FMA chains) and applies
-//     the reference accept rule (_mt_classify): |a| > 1e-12, |a| < 1e37,
-//     u, v >= 0, u + v <= |a|, t > 1e-4 |a|, then t < best. Ties keep the
-//     lower slot. The TPU kernel's bf16-split matmul and packed argmin do
-//     not exist here: t is the exact f32 quotient and slots are int32.
-//   * Early exit: the CTA stops when the next candidate's entry distance is
-//     at or beyond the largest best t of its rays (a shared-memory max
-//     reduction per candidate). In occluded mode a blocked ray's bound drops
-//     to 0, so a fully blocked CTA exits at the next candidate.
+//   (a) List phase. The CTA stages its rays' origin, inverse direction and
+//       bound in shared memory. A thread per group box computes the box's
+//       entry distance (the slab formula of ops/packet.py::_block_entries:
+//       t_min 1e-4, t_clip = the ray's bound; subtract, multiply, min and
+//       max only, so the entries equal the plain version's bit for bit) for
+//       each live ray of the CTA and keeps the minimum. The (entry, group)
+//       pairs are sorted front to back as packed 64-bit keys
+//       (entry bits << 32) | group by a bitonic sort in shared memory,
+//       padded to a power of two: entries are >= 0 or +inf, so the key
+//       order is the stable order of ops/block_trace.py::candidate_lists.
+//       ncand = the finite keys. A lane with bound 0 (dead, or padding) can
+//       never commit and adds no entry; a CTA with no live ray writes
+//       misses and returns before the list phase.
+//   (b) Visits over real triangles. A leaf holds leaf_count[leaf] triangles
+//       at the front of its K slots (the padding sits at the tail); only
+//       those are staged, in tiles of at most 64 triangles (10 KB),
+//       feature-major so that consecutive threads read consecutive words.
+//   (c) (ray, triangle) pairs spread over the CTA. Each thread runs the slab
+//       pretest of the leaf box for its own ray against its current best t;
+//       the wanting rays are compacted with ballot and prefix, and the
+//       n_want x count pairs are spread over all 128 threads, ray index
+//       fastest. Each pair is the exact f32 test: a, u, v, t as 10-term FMA
+//       chains in feature order, the reference accept rule (_mt_classify):
+//       |a| > 1e-12, |a| < 1e37, u, v >= 0, u + v <= |a|, t > 1e-4 |a|.
+//       Closest: the commit is a shared-memory 64-bit atomicMin of
+//       (t bits << 32) | slot (t > 0, so the bits order like the values;
+//       equal t keeps the lower slot). Each ray's key starts at
+//       (bound bits << 32) | 0, so a hit at exactly the bound stays a miss.
+//       Occluded: a hit before the bound sets the ray's bound to 0.
+//   (d) Early exit: the CTA stops when the next entry is at or beyond the
+//       largest current best t of its rays (read from the shared keys),
+//       checked once per candidate group.
+//   (e) Exact f32 throughout; no tensor cores and no bf16 split (the c48
+//       split of the TPU kernel is an approximation the port does not
+//       carry). t is the exact quotient and slots are int32 leaf * K + k.
 //
-// What bounds it on this card: each ray-triangle test is 40 FMAs plus ~15
-// compare/select ops against 160 bytes of shared-memory features that all
-// threads of a warp read at the same address (broadcast). The leaf loop is
-// FP32-FMA and shared-memory-issue bound, not DRAM bound: the atrium's
-// 31 MB of leaf features stay resident in the 50 MB L2. Candidate-list
-// order (front-to-back) and the per-ray pretest keep the tested triangle
-// count low; tensor cores, TMA, warp specialisation and multi-leaf staging
-// are left for later work.
+// What bounds it on this card: the pair tests, 40 FFMA plus ~15
+// compare/select operations each, against features in shared memory (FP32
+// and shared-memory instruction rates); the atrium's 31 MB of leaf
+// features stay in the 50 MB L2. The list phase adds G slab tests per live
+// ray and a sort of G keys per CTA.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;     // rays per CTA (one sub-block)
-constexpr int kBlockRays = 2048;  // rays per candidate list
-constexpr float kTMax = 3.4e38f;  // ops/intersect.py T_MAX
+constexpr int kThreads = 128;             // rays per CTA
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 64;                 // triangles per staged tile
+constexpr int kMaxKeys = 4096;            // list keys per CTA (32 KB)
+constexpr int kMinCtas = 8;               // resident CTAs asked of ptxas
+constexpr float kTMax = 3.4e38f;          // ops/intersect.py T_MAX
+constexpr float kTMin = 1e-4f;            // ops/block_trace.py T_MIN
+constexpr float kNoEntry = 3.0e38f;       // plain lists' entry past ncand
+constexpr unsigned long long kInfKey = 0x7f800000ull << 32;  // entry +inf
 
-__device__ __forceinline__ float cta_max(float v, float* scratch) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) scratch[warp] = v;
+struct Shared {
+  float o[3][kThreads];
+  float inv[3][kThreads];
+  float bound[kThreads];           // t_clip; occluded: 0 once blocked
+  float ray[10][kThreads];         // Plucker features, feature-major
+  float4 tri[10][kTile];           // one tile of a leaf, feature-major
+  unsigned long long best[kThreads];  // closest: (t bits << 32) | slot
+  int list[kThreads];              // live rays, then wanting rays
+  int cnt[2][kWarps];              // per-warp counts, double-buffered
+  float wmax[2][kWarps];           // per-warp max best, double-buffered
+  int ncand;
+};
+
+// Indices of the threads whose `pred` holds, in thread order, into list[];
+// returns their count (one barrier). list[] is written after the barrier,
+// so its readers need another one. `cnt` must not be read by a thread
+// still in the previous use of the same buffer: callers alternate two.
+// With a `wmax` buffer (alternated like `cnt`), also writes the CTA's max
+// of `v` to *vmax.
+__device__ __forceinline__ int cta_compact(bool pred, int* list, int* cnt,
+                                           float v, float* wmax, float* vmax) {
+  const unsigned ballot = __ballot_sync(0xffffffffu, pred);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (wmax != nullptr) {
+    for (int off = 16; off > 0; off >>= 1)
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  }
+  if (lane == 0) {
+    cnt[warp] = __popc(ballot);
+    if (wmax != nullptr) wmax[warp] = v;
+  }
   __syncthreads();
-  float m = scratch[0];
-  for (int w = 1; w < kThreads / 32; ++w) m = fmaxf(m, scratch[w]);
-  __syncthreads();
-  return m;
+  int base = 0, total = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    const int c = cnt[w];
+    base += w < warp ? c : 0;
+    total += c;
+  }
+  if (wmax != nullptr) {
+    float m = wmax[0];
+    for (int w = 1; w < kWarps; ++w) m = fmaxf(m, wmax[w]);
+    *vmax = m;
+  }
+  if (pred) list[base + __popc(ballot & ((1u << lane) - 1u))] = threadIdx.x;
+  return total;
 }
 
 template <bool OCCLUDED>
-__global__ void __launch_bounds__(kThreads)
-block_trace_kernel(const float* __restrict__ rays,     // [Np, 10] features
-                   const float* __restrict__ t_max,    // [Np]
-                   const float* __restrict__ origin,   // [Np, 3]
-                   const float* __restrict__ inv_dir,  // [Np, 3]
-                   const int* __restrict__ cand,       // [nb, G] group ids
-                   const float* __restrict__ centry,   // [nb, G] entries
-                   const int* __restrict__ ncand,      // [nb]
-                   const float* __restrict__ leaf_lo,  // [L, 3]
-                   const float* __restrict__ leaf_hi,  // [L, 3]
-                   const float4* __restrict__ feat,    // [L, K, 10] x float4
-                   int num_groups, int num_leaves, int leaf_size, int gs,
-                   float* __restrict__ t_out,          // [Np] closest
-                   int* __restrict__ slot_out,         // [Np] closest
-                   uint8_t* __restrict__ blocked_out)  // [Np] occluded
+__global__ void __launch_bounds__(kThreads, kMinCtas)
+block_trace_kernel(const float* __restrict__ rays,       // [Np, 10] features
+                   const float* __restrict__ t_max,      // [Np]
+                   const float* __restrict__ origin,     // [Np, 3]
+                   const float* __restrict__ inv_dir,    // [Np, 3]
+                   const float* __restrict__ group_lo,   // [G, 3]
+                   const float* __restrict__ group_hi,   // [G, 3]
+                   const float* __restrict__ leaf_lo,    // [L, 3]
+                   const float* __restrict__ leaf_hi,    // [L, 3]
+                   const int* __restrict__ leaf_count,   // [L]
+                   const float4* __restrict__ feat,      // [L, K, 10] x float4
+                   int num_groups, int num_keys, int num_leaves, int leaf_size,
+                   int gs,
+                   float* __restrict__ t_out,            // [Np] closest
+                   int* __restrict__ slot_out,           // [Np] closest
+                   uint8_t* __restrict__ blocked_out,    // [Np] occluded
+                   int* __restrict__ ncand_out,          // [n_cta] or null
+                   float* __restrict__ entry_out,        // [n_cta, G] or null
+                   int* __restrict__ cand_out)           // [n_cta, G] or null
 {
-  extern __shared__ float4 sfeat[];  // [leaf_size * 10]
-  __shared__ float scratch[kThreads / 32];
+  extern __shared__ unsigned long long keys[];  // [num_keys]
+  __shared__ Shared s;
+  const int tid = threadIdx.x;
+  const size_t ray = (size_t)blockIdx.x * kThreads + tid;
 
-  const int ray = blockIdx.x * kThreads + threadIdx.x;
-  const int blk = (blockIdx.x * kThreads) / kBlockRays;
-  float r[10];
-#pragma unroll
-  for (int f = 0; f < 10; ++f) r[f] = rays[ray * 10 + f];
+  // ---- stage the CTA's rays ------------------------------------------------
   const float ox = origin[ray * 3 + 0], oy = origin[ray * 3 + 1],
               oz = origin[ray * 3 + 2];
   const float ix = inv_dir[ray * 3 + 0], iy = inv_dir[ray * 3 + 1],
               iz = inv_dir[ray * 3 + 2];
   const float limit = t_max[ray];
-  float best = limit;
-  int slot = -1;
+  const bool live = limit > 0.f;
+  s.o[0][tid] = ox; s.o[1][tid] = oy; s.o[2][tid] = oz;
+  s.inv[0][tid] = ix; s.inv[1][tid] = iy; s.inv[2][tid] = iz;
+  s.bound[tid] = limit;
+#pragma unroll
+  for (int f = 0; f < 10; ++f) s.ray[f][tid] = rays[ray * 10 + f];
+  // the initial key: a hit at exactly the bound is not below it
+  const unsigned long long init =
+      live ? (unsigned long long)__float_as_uint(limit) << 32 : 0ull;
+  if (!OCCLUDED) s.best[tid] = init;
+  if (tid == 0) s.ncand = 0;
+  int parity = 0;
+  const int n_live = cta_compact(live, s.list, s.cnt[parity], 0.f, nullptr,
+                                 nullptr);
+  parity ^= 1;
 
-  const int nc = ncand[blk];
-  const int* cand_b = cand + (size_t)blk * num_groups;
-  const float* centry_b = centry + (size_t)blk * num_groups;
-  const int n_feat = leaf_size * 10;
+  if (n_live == 0) {  // uniform: every lane dead or padding
+    if (OCCLUDED) {
+      blocked_out[ray] = 0;
+    } else {
+      t_out[ray] = kTMax;
+      slot_out[ray] = -1;
+    }
+    if (ncand_out != nullptr && tid == 0) ncand_out[blockIdx.x] = 0;
+    if (entry_out != nullptr) {
+      for (int i = tid; i < num_groups; i += kThreads) {
+        entry_out[(size_t)blockIdx.x * num_groups + i] = kNoEntry;
+        cand_out[(size_t)blockIdx.x * num_groups + i] = i;
+      }
+    }
+    return;
+  }
+  __syncthreads();  // every live ray's index is in s.list
 
-  for (int c = 0; c < nc; ++c) {
-    if (!(centry_b[c] < cta_max(best, scratch))) break;
-    const int g = cand_b[c];
+  // ---- (a) list phase: entries, keys, bitonic sort ---------------------------
+  for (int i = tid; i < num_keys; i += kThreads) {
+    unsigned long long key = ~0ull;  // padding sorts last
+    if (i < num_groups) {
+      const float lx = group_lo[i * 3 + 0], ly = group_lo[i * 3 + 1],
+                  lz = group_lo[i * 3 + 2];
+      const float hx = group_hi[i * 3 + 0], hy = group_hi[i * 3 + 1],
+                  hz = group_hi[i * 3 + 2];
+      float e = __int_as_float(0x7f800000);  // +inf
+      for (int j = 0; j < n_live; ++j) {
+        const int r = s.list[j];  // the same r across the warp: broadcast
+        const float rox = s.o[0][r], roy = s.o[1][r], roz = s.o[2][r];
+        const float rix = s.inv[0][r], riy = s.inv[1][r], riz = s.inv[2][r];
+        const float t0x = (lx - rox) * rix, t1x = (hx - rox) * rix;
+        const float t0y = (ly - roy) * riy, t1y = (hy - roy) * riy;
+        const float t0z = (lz - roz) * riz, t1z = (hz - roz) * riz;
+        const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                               fminf(t0z, t1z));
+        const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                               fmaxf(t0z, t1z));
+        if (tn <= tf && tf >= kTMin && tn < s.bound[r]) e = fminf(e, fmaxf(tn, 0.f));
+      }
+      // clear the sign bit: an entry of -0 sorts as +0
+      key = (unsigned long long)(__float_as_uint(e) & 0x7fffffffu) << 32 |
+            (unsigned)i;
+    }
+    keys[i] = key;
+  }
+  __syncthreads();
+  for (int k = 2; k <= num_keys; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = tid; i < num_keys; i += kThreads) {
+        const int p = i ^ j;
+        if (p > i) {
+          const unsigned long long a = keys[i], b = keys[p];
+          if ((a > b) == ((i & k) == 0)) {
+            keys[i] = b;
+            keys[p] = a;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int i = tid; i < num_keys; i += kThreads) {
+    if (keys[i] < kInfKey && (i + 1 == num_keys || keys[i + 1] >= kInfKey))
+      s.ncand = i + 1;
+  }
+  __syncthreads();
+  const int nc = s.ncand;
+  if (ncand_out != nullptr && tid == 0) ncand_out[blockIdx.x] = nc;
+  if (entry_out != nullptr) {
+    for (int i = tid; i < num_groups; i += kThreads) {
+      const unsigned long long key = keys[i];
+      entry_out[(size_t)blockIdx.x * num_groups + i] =
+          key < kInfKey ? __uint_as_float((unsigned)(key >> 32)) : kNoEntry;
+      cand_out[(size_t)blockIdx.x * num_groups + i] = (int)(key & 0xffffffffu);
+    }
+  }
+
+  // ---- walk the list front to back ---------------------------------------------
+  volatile unsigned long long* vbest = s.best;
+  volatile float* vbound = s.bound;
+  bool done = false;
+  for (int c = 0; c < nc && !done; ++c) {
+    const unsigned long long kc = keys[c];
+    const float entry = __uint_as_float((unsigned)(kc >> 32));
+    const int g = (int)(kc & 0xffffffffu);
     for (int m = 0; m < gs; ++m) {
       const int leaf = g * gs + m;
       if (leaf >= num_leaves) break;  // uniform: padded group members
+      // per-ray slab pretest of the leaf box against the current best
+      const float best = OCCLUDED ? vbound[tid]
+                                  : __uint_as_float((unsigned)(vbest[tid] >> 32));
       const float t0x = (leaf_lo[leaf * 3 + 0] - ox) * ix;
       const float t1x = (leaf_hi[leaf * 3 + 0] - ox) * ix;
       const float t0y = (leaf_lo[leaf * 3 + 1] - oy) * iy;
@@ -112,102 +265,165 @@ block_trace_kernel(const float* __restrict__ rays,     // [Np, 10] features
       const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
                              fmaxf(t0z, t1z));
       const bool want = (tn <= tf) && (tn < best);
-      if (!__syncthreads_or(want)) continue;
-
-      const float4* src = feat + (size_t)leaf * n_feat;
-      for (int i = threadIdx.x; i < n_feat; i += kThreads) sfeat[i] = src[i];
-      __syncthreads();
-
-      if (want) {
-        for (int k = 0; k < leaf_size; ++k) {
-          const float4* q = sfeat + k * 10;
+      float cta_best = 0.f;
+      // (d) the early exit rides on the first member's compaction barrier
+      const int n_want = cta_compact(want, s.list, s.cnt[parity], best,
+                                     m == 0 ? s.wmax[parity] : nullptr,
+                                     &cta_best);
+      parity ^= 1;
+      if (m == 0 && !(entry < cta_best)) {  // uniform
+        done = true;
+        break;
+      }
+      if (n_want == 0) continue;  // uniform
+      const int n = leaf_count[leaf];
+      const float4* src = feat + (size_t)leaf * leaf_size * 10;
+      const int dk = kThreads / n_want, dw = kThreads - dk * n_want;
+      for (int t0 = 0; t0 < n; t0 += kTile) {
+        const int nt = min(kTile, n - t0);
+        for (int i = tid; i < nt * 10; i += kThreads)
+          s.tri[i % 10][i / 10] = src[(size_t)t0 * 10 + i];
+        __syncthreads();  // the tile and the wanting rays are in place
+        // (c) pairs p = k * n_want + w, ray index w fastest
+        int k = tid / n_want, w = tid - k * n_want;
+        int cur = -1;
+        float r[10];
+        for (int p = tid; p < n_want * nt; p += kThreads) {
+          const int rr = s.list[w];
+          if (rr != cur) {
+            cur = rr;
+#pragma unroll
+            for (int f = 0; f < 10; ++f) r[f] = s.ray[f][rr];
+          }
           float a = 0.f, u = 0.f, v = 0.f, t = 0.f;
 #pragma unroll
           for (int f = 0; f < 10; ++f) {
-            const float4 w = q[f];
-            a = fmaf(r[f], w.x, a);
-            u = fmaf(r[f], w.y, u);
-            v = fmaf(r[f], w.z, v);
-            t = fmaf(r[f], w.w, t);
+            const float4 q = s.tri[f][k];
+            a = fmaf(r[f], q.x, a);
+            u = fmaf(r[f], q.y, u);
+            v = fmaf(r[f], q.z, v);
+            t = fmaf(r[f], q.w, t);
           }
-          const float s = a > 0.f ? 1.f : (a < 0.f ? -1.f : 0.f);
-          const float abs_a = a * s, su = u * s, sv = v * s, stn = t * s;
+          const float sg = a > 0.f ? 1.f : (a < 0.f ? -1.f : 0.f);
+          const float abs_a = a * sg, su = u * sg, sv = v * sg, stn = t * sg;
           const bool valid = abs_a > 1e-12f && abs_a < 1e37f && su >= 0.f &&
                              sv >= 0.f && su + sv <= abs_a &&
                              stn > 1e-4f * abs_a;
           if (OCCLUDED) {
-            if (valid && stn < best * abs_a) {
-              best = 0.f;  // any hit ends this ray
-              break;
-            }
+            if (valid && stn < vbound[rr] * abs_a) vbound[rr] = 0.f;
           } else if (valid) {
-            const float tt = stn / abs_a;
-            const int sid = leaf * leaf_size + k;
-            if (tt < best || (tt == best && sid < slot)) {
-              best = tt;
-              slot = sid;
-            }
+            const unsigned long long key =
+                (unsigned long long)__float_as_uint(stn / abs_a) << 32 |
+                (unsigned)(leaf * leaf_size + t0 + k);
+            if (key < vbest[rr]) atomicMin(&s.best[rr], key);
+          }
+          w += dw;
+          k += dk;
+          if (w >= n_want) {
+            w -= n_want;
+            ++k;
           }
         }
+        __syncthreads();  // commits land; the tile may be overwritten
       }
-      __syncthreads();  // sfeat is overwritten by the next leaf
     }
   }
 
   if (OCCLUDED) {
-    blocked_out[ray] = (best <= 0.f && limit > 0.f) ? 1 : 0;
+    blocked_out[ray] = (vbound[tid] <= 0.f && live) ? 1 : 0;
   } else {
-    t_out[ray] = slot >= 0 ? best : kTMax;
-    slot_out[ray] = slot;
+    const unsigned long long key = vbest[tid];
+    const bool hit = key < init;
+    t_out[ray] = hit ? __uint_as_float((unsigned)(key >> 32)) : kTMax;
+    slot_out[ray] = hit ? (int)(key & 0xffffffffu) : -1;
   }
+}
+
+int list_keys(int num_groups) {
+  int p = 1;
+  while (p < num_groups) p <<= 1;
+  return p;
 }
 
 template <bool OCCLUDED>
 cudaError_t launch(const float* rays, const float* t_max, const float* origin,
-                   const float* inv_dir, const int* cand, const float* centry,
-                   const int* ncand, const float* leaf_lo,
-                   const float* leaf_hi, const float* feat, int num_blocks,
-                   int num_groups, int num_leaves, int leaf_size, int gs,
-                   float* t_out, int* slot_out, uint8_t* blocked_out,
-                   cudaStream_t stream) {
-  const size_t smem = (size_t)leaf_size * 10 * sizeof(float4);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        block_trace_kernel<OCCLUDED>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  const int grid = num_blocks * (kBlockRays / kThreads);
-  if (grid == 0) return cudaSuccess;
-  block_trace_kernel<OCCLUDED><<<grid, kThreads, smem, stream>>>(
-      rays, t_max, origin, inv_dir, cand, centry, ncand, leaf_lo, leaf_hi,
-      reinterpret_cast<const float4*>(feat), num_groups, num_leaves,
-      leaf_size, gs, t_out, slot_out, blocked_out);
+                   const float* inv_dir, const float* group_lo,
+                   const float* group_hi, const float* leaf_lo,
+                   const float* leaf_hi, const int* leaf_count,
+                   const float* feat, int num_ctas, int num_groups,
+                   int num_leaves, int leaf_size, int gs, float* t_out,
+                   int* slot_out, uint8_t* blocked_out, int* ncand_out,
+                   float* entry_out, int* cand_out, cudaStream_t stream) {
+  const int num_keys = list_keys(num_groups);
+  if (num_keys > kMaxKeys || gs < 1 || (entry_out == nullptr) != (cand_out == nullptr))
+    return cudaErrorInvalidValue;
+  const size_t smem = (size_t)num_keys * sizeof(unsigned long long);
+  cudaError_t e = cudaFuncSetAttribute(
+      block_trace_kernel<OCCLUDED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  if (num_ctas == 0) return cudaSuccess;
+  block_trace_kernel<OCCLUDED><<<num_ctas, kThreads, smem, stream>>>(
+      rays, t_max, origin, inv_dir, group_lo, group_hi, leaf_lo, leaf_hi,
+      leaf_count, reinterpret_cast<const float4*>(feat), num_groups, num_keys,
+      num_leaves, leaf_size, gs, t_out, slot_out, blocked_out, ncand_out,
+      entry_out, cand_out);
   return cudaGetLastError();
+}
+
+template <bool OCCLUDED>
+cudaError_t info(int num_groups, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, block_trace_kernel<OCCLUDED>);
+  if (e != cudaSuccess) return e;
+  const size_t smem = (size_t)list_keys(num_groups) * sizeof(unsigned long long);
+  e = cudaFuncSetAttribute(block_trace_kernel<OCCLUDED>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, block_trace_kernel<OCCLUDED>, kThreads, smem);
+  if (e != cudaSuccess) return e;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.sharedSizeBytes;
+  out[2] = (int)smem;
+  out[3] = blocks;
+  out[4] = (int)attr.localSizeBytes;
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" cudaError_t block_trace_closest(
     const float* rays, const float* t_max, const float* origin,
-    const float* inv_dir, const int* cand, const float* centry,
-    const int* ncand, const float* leaf_lo, const float* leaf_hi,
-    const float* feat, int num_blocks, int num_groups, int num_leaves,
-    int leaf_size, int gs, float* t_out, int* slot_out, void* stream) {
-  return launch<false>(rays, t_max, origin, inv_dir, cand, centry, ncand,
-                       leaf_lo, leaf_hi, feat, num_blocks, num_groups,
-                       num_leaves, leaf_size, gs, t_out, slot_out, nullptr,
+    const float* inv_dir, const float* group_lo, const float* group_hi,
+    const float* leaf_lo, const float* leaf_hi, const int* leaf_count,
+    const float* feat, int num_ctas, int num_groups, int num_leaves,
+    int leaf_size, int gs, float* t_out, int* slot_out, int* ncand_out,
+    float* entry_out, int* cand_out, void* stream) {
+  return launch<false>(rays, t_max, origin, inv_dir, group_lo, group_hi,
+                       leaf_lo, leaf_hi, leaf_count, feat, num_ctas,
+                       num_groups, num_leaves, leaf_size, gs, t_out, slot_out,
+                       nullptr, ncand_out, entry_out, cand_out,
                        static_cast<cudaStream_t>(stream));
 }
 
 extern "C" cudaError_t block_trace_occluded(
     const float* rays, const float* t_max, const float* origin,
-    const float* inv_dir, const int* cand, const float* centry,
-    const int* ncand, const float* leaf_lo, const float* leaf_hi,
-    const float* feat, int num_blocks, int num_groups, int num_leaves,
-    int leaf_size, int gs, uint8_t* blocked_out, void* stream) {
-  return launch<true>(rays, t_max, origin, inv_dir, cand, centry, ncand,
-                      leaf_lo, leaf_hi, feat, num_blocks, num_groups,
-                      num_leaves, leaf_size, gs, nullptr, nullptr,
-                      blocked_out, static_cast<cudaStream_t>(stream));
+    const float* inv_dir, const float* group_lo, const float* group_hi,
+    const float* leaf_lo, const float* leaf_hi, const int* leaf_count,
+    const float* feat, int num_ctas, int num_groups, int num_leaves,
+    int leaf_size, int gs, uint8_t* blocked_out, int* ncand_out,
+    float* entry_out, int* cand_out, void* stream) {
+  return launch<true>(rays, t_max, origin, inv_dir, group_lo, group_hi,
+                      leaf_lo, leaf_hi, leaf_count, feat, num_ctas, num_groups,
+                      num_leaves, leaf_size, gs, nullptr, nullptr, blocked_out,
+                      ncand_out, entry_out, cand_out,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// Registers, static and dynamic shared memory, resident CTAs per SM and
+// local (spill) bytes of one instantiation at a list of num_groups groups.
+extern "C" cudaError_t block_trace_info(int occluded, int num_groups, int* out) {
+  return occluded ? info<true>(num_groups, out) : info<false>(num_groups, out);
 }

@@ -52,6 +52,7 @@ from stratum_tpu_torch.ops.block_trace import (
     _slot_record,
     leaf_rows,
     mt_quantities,
+    pack_key,
 )
 from stratum_tpu_torch.ops.intersect import T_MAX
 from stratum_tpu_torch.ops.mxu import ray_features
@@ -303,7 +304,7 @@ def bin_min_plain(fat: FatBVH, bins: Bins):
             tt = torch.where(valid, stn / torch.where(valid, abs_a, 1.0), float("inf"))
             tk, k = torch.min(tt, dim=1)
             hit = torch.isfinite(tk)
-            word = (tk.view(torch.int32).to(torch.int64) << 32) | (leaf * K + k)
+            word = pack_key(tk, leaf * K + k)
             words.scatter_reduce_(0, r[hit], word[hit], "amin")
     return words
 

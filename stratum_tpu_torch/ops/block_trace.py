@@ -1,4 +1,4 @@
-"""Block-BVH tracer: candidate prep in torch, the leaf loop in CUDA
+"""Block-BVH tracer: the list phase and the leaf loop in one CUDA kernel
 (counterpart of stratum_tpu/ops/pallas_trace.py).
 
 Kernels of this module (source ``csrc/block_trace.cu``):
@@ -14,9 +14,17 @@ Kernels of this module (source ``csrc/block_trace.cu``):
 * K4 (``_kernel_ring`` :742, ``_kernel_occ_ring`` :1117) only reorders the
   TPU kernel's commits and gives the same results, so K1-K3 compute it.
 
-The group size ``gs`` is an argument of the prep, the launch and the
-wrappers (``GS`` = 4 is the reference's default); the plain versions do not
-depend on it.
+The reference builds one front-to-back list of leaf groups per 2048-lane
+block in XLA before its kernel runs (``pallas_trace._prepare``). Here each
+CTA of 128 rays builds its own list inside the kernel; :func:`_prepare`
+only pads the rays to whole CTAs and computes their features, inverse
+directions and the group boxes. :func:`candidate_lists` is the plain
+version of the list phase: at ``block=2048`` it is the reference's list bit
+for bit, and at ``block=128`` with ``live_only=True`` it is what each CTA
+of the kernel builds.
+
+The group size ``gs`` is an argument of the prep and the wrappers (``GS`` =
+4 is the reference's default); the plain versions do not depend on it.
 
 ``block_closest`` / ``block_occluded`` launch the kernel when the rays lie
 on a CUDA device and use ``block_closest_plain`` / ``block_occluded_plain``
@@ -35,21 +43,23 @@ keeps the lower slot.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from stratum_tpu_torch.ops import mxu as smxu
 from stratum_tpu_torch.ops.intersect import HitRecord, T_MAX
-from stratum_tpu_torch.ops.packet import FatBVH, _block_entries, safe_inv
+from stratum_tpu_torch.ops.packet import FatBVH, _block_entries, leaf_counts, safe_inv
 
-BLOCK = 2048  # rays per candidate list (one 2048-lane ray block)
+BLOCK = 2048  # rays per candidate list of the reference (one 2048-lane block)
+CTA = 128  # rays per CTA of the kernel, each CTA with its own list
 GS = 4  # default leaves per candidate group (the reference's GS)
 T_MIN = 1e-4  # block entries ignore boxes the ray leaves before this
 SHADOW_EPS = float(np.float32(1.0 - 1e-3))
-# elements per _block_entries pass: bounds the [blocks, BLOCK, G] temporaries
-# to 100 MB of f32 each (64 blocks at the atrium's G = 190, gs = 4)
+MAX_LIST_KEYS = 4096  # list keys a CTA sorts in shared memory (csrc kMaxKeys)
+# elements per _block_entries pass: bounds the [blocks, block, G] temporaries
+# to 100 MB of f32 each
 ENTRY_CHUNK_ELEMS = 64 * 2048 * 190
 PLAIN_RAY_CHUNK = 1 << 20
 PLAIN_MT_ROWS = 65536
@@ -58,17 +68,26 @@ LAUNCHES = {"closest": 0, "occluded": 0}
 
 
 class Prepared(NamedTuple):
-    """Per-wave kernel inputs; rays padded to ``nb * BLOCK`` (nb a multiple
-    of 8) with direction 1.0 and t_max 0 in the padding."""
+    """Per-wave kernel inputs; rays padded to whole CTAs with direction 1.0
+    and t_max 0 in the padding."""
 
     rays: torch.Tensor  # f32 [Np, 10] Plucker ray features
     t_max: torch.Tensor  # f32 [Np]
     origin: torch.Tensor  # f32 [Np, 3]
     inv_dir: torch.Tensor  # f32 [Np, 3]
-    cand: torch.Tensor  # i32 [nb, G] group ids, front to back
-    centry: torch.Tensor  # f32 [nb, G] entry distances (3e38 past ncand)
-    ncand: torch.Tensor  # i32 [nb]
+    group_lo: torch.Tensor  # f32 [G, 3] boxes of gs consecutive leaves
+    group_hi: torch.Tensor  # f32 [G, 3]
+    leaf_count: torch.Tensor  # i32 [L] real triangles per leaf
+    gs: int  # leaves per group
     n: int  # rays before padding
+
+
+class Lists(NamedTuple):
+    """Front-to-back candidate lists, one per block of rays."""
+
+    cand: Optional[torch.Tensor]  # i32 [nb, G] group ids, front to back
+    centry: Optional[torch.Tensor]  # f32 [nb, G] entry distances (3e38 past ncand)
+    ncand: torch.Tensor  # i32 [nb] groups the block reaches
 
 
 def group_boxes(fat: FatBVH, gs: int = GS):
@@ -84,20 +103,54 @@ def group_boxes(fat: FatBVH, gs: int = GS):
     return lo.reshape(G, gs, 3).amin(dim=1), hi.reshape(G, gs, 3).amax(dim=1)
 
 
+def _pad_rays(origin, direction, t_max, multiple: int):
+    """Rays padded to a multiple of ``multiple`` lanes: origin 0,
+    direction 1.0, t_max 0 (dead lanes)."""
+    pad = -origin.shape[0] % multiple
+    return (torch.nn.functional.pad(origin, (0, 0, 0, pad)),
+            torch.nn.functional.pad(direction, (0, 0, 0, pad), value=1.0),
+            torch.nn.functional.pad(t_max, (0, pad)))
+
+
 def _prepare(fat: FatBVH, origin, direction, t_max, gs: int = GS) -> Prepared:
-    """Candidate prep (pallas_trace.py:1685-1767): per 2048-ray block, the
-    entry distance to every group of ``gs`` leaves (group mode for gs > 1,
-    single leaves at gs = 1, as the reference's ``entry_group`` 1), sorted
-    front to back (stable, like jnp.argsort), with the count of groups the
-    block reaches. Dead lanes (t_max = 0) contribute no entries."""
+    """What the kernel reads besides the scene: the rays padded to whole
+    CTAs, their Plucker features and inverse directions, the group boxes
+    and the leaves' real-triangle counts. The candidate lists are built
+    inside the kernel."""
+    o, d, tm = _pad_rays(origin, direction, t_max, CTA)
+    glo, ghi = group_boxes(fat, gs)
+    return Prepared(
+        rays=smxu.ray_features(o, d).contiguous(),
+        t_max=tm.contiguous(),
+        origin=o.contiguous(),
+        inv_dir=safe_inv(d).contiguous(),
+        group_lo=glo.contiguous(),
+        group_hi=ghi.contiguous(),
+        leaf_count=leaf_counts(fat),
+        gs=gs,
+        n=origin.shape[0],
+    )
+
+
+def candidate_lists(fat: FatBVH, origin, direction, t_max, gs: int = GS,
+                    block: int = BLOCK, live_only: bool = False) -> Lists:
+    """Plain version of the kernel's list phase (pallas_trace.py:1685-1767):
+    per block of ``block`` rays (their count padded to whole blocks, and
+    the blocks to a multiple of 8, as the reference pads), the entry
+    distance to every group of ``gs`` leaves (single leaves at gs = 1, as
+    the reference's ``entry_group`` 1), sorted front to back (stable, like
+    jnp.argsort), with the count of groups the block reaches.
+
+    The reference's entry pass also counts a box that a dead lane (t_max 0)
+    sits inside (its entry tn < 0 is below t_clip 0), though such a lane
+    can never commit. ``live_only`` drops those: every lane with t_max <= 0
+    reaches nothing, which is what the kernel's CTAs do."""
     n = origin.shape[0]
-    block = BLOCK
     nb = -(-n // block)
     nb = -(-nb // 8) * 8
-    pad = nb * block - n
-    o = torch.nn.functional.pad(origin, (0, 0, 0, pad))
-    d = torch.nn.functional.pad(direction, (0, 0, 0, pad), value=1.0)
-    tm = torch.nn.functional.pad(t_max, (0, pad))
+    o, d, tm = _pad_rays(origin, direction, t_max, nb * block)
+    if live_only:
+        tm = torch.where(tm > 0, tm, float("-inf"))
     glo, ghi = group_boxes(fat, gs)
     ob, db, tb = o.view(nb, block, 3), d.view(nb, block, 3), tm.view(nb, block)
     step = max(1, ENTRY_CHUNK_ELEMS // (block * glo.shape[0]))
@@ -107,16 +160,22 @@ def _prepare(fat: FatBVH, origin, direction, t_max, gs: int = GS) -> Prepared:
     ])
     sorted_entry, order = torch.sort(entries, dim=1, stable=True)
     finite = torch.isfinite(sorted_entry)
-    return Prepared(
-        rays=smxu.ray_features(o, d).contiguous(),
-        t_max=tm.contiguous(),
-        origin=o.contiguous(),
-        inv_dir=safe_inv(d).contiguous(),
-        cand=order.to(torch.int32).contiguous(),
-        centry=torch.where(finite, sorted_entry, 3.0e38).contiguous(),
+    return Lists(
+        cand=order.to(torch.int32),
+        centry=torch.where(finite, sorted_entry, 3.0e38),
         ncand=finite.sum(dim=1).to(torch.int32),
-        n=n,
     )
+
+
+def list_keys(num_groups: int) -> int:
+    """Keys of a CTA's list: G padded to a power of two. Raises ValueError
+    when they do not fit the kernel's shared-memory budget."""
+    keys = 1 << max(num_groups - 1, 0).bit_length()
+    if keys > MAX_LIST_KEYS:
+        raise ValueError(
+            f"{num_groups} candidate groups need {keys} list keys: more than the "
+            f"{MAX_LIST_KEYS} the kernel's shared-memory budget holds (use a larger gs)")
+    return keys
 
 
 def _lib():
@@ -126,10 +185,14 @@ def _lib():
     if not getattr(lib, "_stratum_bound", False):
         ptrs = [ctypes.c_void_p] * 10
         ints = [ctypes.c_int] * 5
-        lib.block_trace_closest.argtypes = ptrs + ints + [ctypes.c_void_p] * 3
-        lib.block_trace_occluded.argtypes = ptrs + ints + [ctypes.c_void_p] * 2
-        lib.block_trace_closest.restype = ctypes.c_int
-        lib.block_trace_occluded.restype = ctypes.c_int
+        stats = [ctypes.c_void_p] * 3
+        lib.block_trace_closest.argtypes = ptrs + ints + [ctypes.c_void_p] * 2 + stats + [
+            ctypes.c_void_p]
+        lib.block_trace_occluded.argtypes = ptrs + ints + [ctypes.c_void_p] + stats + [
+            ctypes.c_void_p]
+        lib.block_trace_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        for fn in (lib.block_trace_closest, lib.block_trace_occluded, lib.block_trace_info):
+            fn.restype = ctypes.c_int
         lib._stratum_bound = True
     return lib
 
@@ -145,52 +208,92 @@ def _check(x: torch.Tensor, name, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def launch(fat: FatBVH, prep: Prepared, occluded: bool, gs: int = GS):
-    """One kernel launch over every ray block of a wave prepared with the
-    same group size ``gs``."""
+def launch(fat: FatBVH, prep: Prepared, occluded: bool, stats: Optional[str] = None):
+    """One kernel launch over every CTA of a prepared wave -> (t, slot) or
+    (blocked,). ``stats="ncand"`` appends the per-CTA list lengths as
+    ``Lists(None, None, ncand)``, ``stats="lists"`` each CTA's whole sorted
+    list as well (``Lists`` at block 128: what
+    ``candidate_lists(..., block=CTA, live_only=True)`` gives for its
+    blocks)."""
+    L, K = fat.leaf_tri.shape
+    G = prep.group_lo.shape[0]
+    if G != -(-L // prep.gs):
+        raise ValueError(f"{G} candidate groups do not match {L} leaves in groups of {prep.gs}")
+    list_keys(G)
     dev = prep.rays.device
     if dev.type != "cuda":
         raise ValueError("the block-trace kernel runs on CUDA tensors only")
-    L, K = fat.leaf_tri.shape
-    nb, G = prep.cand.shape
-    np_ = nb * BLOCK
+    if stats not in (None, "ncand", "lists"):
+        raise ValueError(f"stats must be None, 'ncand' or 'lists', not {stats!r}")
+    np_ = prep.rays.shape[0]
+    if np_ % CTA:
+        raise ValueError(f"{np_} rays are not whole CTAs of {CTA}")
+    n_cta = np_ // CTA
     f32, i32 = torch.float32, torch.int32
     for x, name, dt, shape in (
         (prep.rays, "rays", f32, (np_, 10)),
         (prep.t_max, "t_max", f32, (np_,)),
         (prep.origin, "origin", f32, (np_, 3)),
         (prep.inv_dir, "inv_dir", f32, (np_, 3)),
-        (prep.cand, "cand", i32, (nb, G)),
-        (prep.centry, "centry", f32, (nb, G)),
-        (prep.ncand, "ncand", i32, (nb,)),
+        (prep.group_lo, "group_lo", f32, (G, 3)),
+        (prep.group_hi, "group_hi", f32, (G, 3)),
         (fat.leaf_lo, "leaf_lo", f32, (L, 3)),
         (fat.leaf_hi, "leaf_hi", f32, (L, 3)),
+        (prep.leaf_count, "leaf_count", i32, (L,)),
         (fat.leaf_feat, "leaf_feat", f32, (L, K, 10, 4)),
     ):
         _check(x, name, dt, shape, dev)
-    if G != -(-L // gs):
-        raise ValueError(f"{G} candidate groups do not match {L} leaves in groups of {gs}")
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = [
         prep.rays.data_ptr(), prep.t_max.data_ptr(), prep.origin.data_ptr(),
-        prep.inv_dir.data_ptr(), prep.cand.data_ptr(), prep.centry.data_ptr(),
-        prep.ncand.data_ptr(), fat.leaf_lo.data_ptr(), fat.leaf_hi.data_ptr(),
-        fat.leaf_feat.data_ptr(), nb, G, L, K, gs,
+        prep.inv_dir.data_ptr(), prep.group_lo.data_ptr(), prep.group_hi.data_ptr(),
+        fat.leaf_lo.data_ptr(), fat.leaf_hi.data_ptr(), prep.leaf_count.data_ptr(),
+        fat.leaf_feat.data_ptr(), n_cta, G, L, K, prep.gs,
     ]
+    lists, stat_ptrs = None, [None, None, None]
+    if stats is not None:
+        whole = stats == "lists"
+        lists = Lists(
+            cand=torch.empty((n_cta, G), dtype=i32, device=dev) if whole else None,
+            centry=torch.empty((n_cta, G), dtype=f32, device=dev) if whole else None,
+            ncand=torch.empty(n_cta, dtype=i32, device=dev),
+        )
+        stat_ptrs = [None if x is None else x.data_ptr()
+                     for x in (lists.ncand, lists.centry, lists.cand)]
     if occluded:
         blocked = torch.empty(np_, dtype=torch.uint8, device=dev)
-        rc = lib.block_trace_occluded(*args, blocked.data_ptr(), stream)
+        rc = lib.block_trace_occluded(*args, blocked.data_ptr(), *stat_ptrs, stream)
         outs = (blocked,)
     else:
         t = torch.empty(np_, dtype=f32, device=dev)
         slot = torch.empty(np_, dtype=i32, device=dev)
-        rc = lib.block_trace_closest(*args, t.data_ptr(), slot.data_ptr(), stream)
+        rc = lib.block_trace_closest(*args, t.data_ptr(), slot.data_ptr(), *stat_ptrs, stream)
         outs = (t, slot)
     if rc != 0:
         raise RuntimeError(f"block_trace kernel launch failed: cudaError {rc}")
     LAUNCHES["occluded" if occluded else "closest"] += 1
-    return outs
+    return outs if lists is None else outs + (lists,)
+
+
+def kernel_info(occluded: bool, num_groups: int) -> dict:
+    """The compiled kernel's registers per thread, static and dynamic
+    shared memory (bytes), resident CTAs per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and local (spill)
+    bytes per thread, at a list of ``num_groups`` groups."""
+    out = (ctypes.c_int * 5)()
+    rc = _lib().block_trace_info(int(occluded), num_groups, out)
+    if rc != 0:
+        raise RuntimeError(f"block_trace_info failed: cudaError {rc}")
+    return dict(zip(("registers", "static_smem", "dynamic_smem", "ctas_per_sm",
+                     "local_bytes"), out))
+
+
+def pack_key(t, slot):
+    """The kernel's commit key as int64: (t bits << 32) | slot. For t >= 0
+    and slot >= 0 the keys order like (t, slot) lexicographically, so their
+    minimum is the closest hit with the lower slot on equal t."""
+    return (t.view(torch.int32).to(torch.int64) << 32) | slot.to(torch.int64)
 
 
 def _slot_record(t, slot) -> HitRecord:
@@ -216,7 +319,7 @@ def block_closest(fat: FatBVH, origin, direction, t_max=None, gs: int = GS) -> H
     if origin.device.type == "cpu":
         return block_closest_plain(fat, origin, direction, t_max)
     prep = _prepare(fat, origin, direction, t_max, gs)
-    t, slot = launch(fat, prep, occluded=False, gs=gs)
+    t, slot = launch(fat, prep, occluded=False)
     return _slot_record(t[:prep.n], slot[:prep.n])
 
 
@@ -227,7 +330,7 @@ def block_occluded(fat: FatBVH, origin, direction, t_max, gs: int = GS):
     if origin.device.type == "cpu":
         return block_occluded_plain(fat, origin, direction, t_max)
     prep = _prepare(fat, origin, direction, t_max * SHADOW_EPS, gs)
-    (blocked,) = launch(fat, prep, occluded=True, gs=gs)
+    (blocked,) = launch(fat, prep, occluded=True)
     return blocked[:prep.n].bool()
 
 
@@ -280,11 +383,13 @@ def _classify(q):
 
 def _plain_walk(fat: FatBVH, origin, direction, bound, occluded: bool):
     """Every leaf whose AABB a ray reaches before its current bound, in leaf
-    order, exact f32 MT over all K slots. Rays are walked in chunks of
-    PLAIN_RAY_CHUNK and each leaf's wanting rays in MT passes of at most
-    PLAIN_MT_ROWS rows, so a full 1080p wave fits beside the scene."""
+    order, exact f32 MT over the leaf's real triangles (padded slots are
+    never valid). Rays are walked in chunks of PLAIN_RAY_CHUNK and each
+    leaf's wanting rays in MT passes of at most PLAIN_MT_ROWS rows, so a
+    full 1080p wave fits beside the scene."""
     L, K = fat.leaf_tri.shape
     feat = leaf_rows(fat)
+    counts = leaf_counts(fat).tolist()
     best = bound.clone()
     slot = torch.full(best.shape, -1, dtype=torch.int32, device=best.device)
     for s in range(0, origin.shape[0], PLAIN_RAY_CHUNK):
@@ -294,11 +399,14 @@ def _plain_walk(fat: FatBVH, origin, direction, bound, occluded: bool):
         b = best[s:s + PLAIN_RAY_CHUNK]
         sl = slot[s:s + PLAIN_RAY_CHUNK]
         for leaf in range(L):
+            if counts[leaf] == 0:
+                continue
+            rows = feat[leaf, :, :counts[leaf] * 4]
             tn, tf = _leaf_slab(fat.leaf_lo[leaf], fat.leaf_hi[leaf], o, inv_d)
             want = torch.nonzero((tn <= tf) & (tn < b)).squeeze(1)
             for m in range(0, want.numel(), PLAIN_MT_ROWS):
                 idx = want[m:m + PLAIN_MT_ROWS]
-                abs_a, stn, valid = _classify(mt_quantities(rf[idx], feat[leaf]))
+                abs_a, stn, valid = _classify(mt_quantities(rf[idx], rows))
                 if occluded:
                     hit = (valid & (stn < b[idx, None] * abs_a)).any(dim=1)
                     b[idx[hit]] = 0.0

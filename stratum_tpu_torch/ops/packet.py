@@ -21,11 +21,17 @@ class FatBVH(NamedTuple):
     leaf_lo: torch.Tensor  # f32 [L, 3]
     leaf_hi: torch.Tensor  # f32 [L, 3]
     leaf_feat: torch.Tensor  # f32 [L, K, 10, 4] Plucker blocks (0 = padding)
-    leaf_tri: torch.Tensor  # i32 [L, K] original tri ids (-1 = padding)
+    leaf_tri: torch.Tensor  # i32 [L, K] original tri ids (-1 = padding, at the tail)
 
     @property
     def num_leaves(self) -> int:
         return self.leaf_lo.shape[0]
+
+
+def leaf_counts(fat: FatBVH) -> torch.Tensor:
+    """Real triangles per leaf, int32 [L]: slots [0, count) of a leaf hold
+    triangles, the rest is padding (zero features) that no ray can hit."""
+    return (fat.leaf_tri >= 0).sum(dim=1, dtype=torch.int32)
 
 
 def build_fat_bvh_sah(positions, indices, valid_mask=None,
@@ -49,6 +55,9 @@ def build_fat_bvh_sah(positions, indices, valid_mask=None,
     for leaf in range(num_leaves):
         seg = order[offsets[leaf]:offsets[leaf + 1]]
         slots[leaf, :len(seg)] = seg
+    # the block kernel visits slots [0, count) of a leaf: padding at the tail
+    count = (slots >= 0).sum(axis=1)
+    assert ((slots >= 0) == (np.arange(leaf_size) < count[:, None])).all()
     flat = slots.reshape(-1)
     gather = np.maximum(flat, 0)
     p0 = pos_np[idx_np[gather, 0]]

@@ -9,10 +9,13 @@ through ``render_path_with_counts``: one warm-up sample, then
 1. the wall time of two plain samples (host clock, ending in a device
    synchronise);
 2. a layer split of one sample, with a device synchronise around every call
-   of a layer so each is timed alone (host clock): candidate prep
-   (``block_trace._prepare``), the trace kernel (``block_trace.launch``),
-   the rest of the tracer wrappers, ``finalize_hit``, and the glue
-   (everything else: camera, shading, Disney, NEE, RNG, sort, accumulation);
+   of a layer so each is timed alone (host clock): the light prep
+   (``block_trace._prepare``: padding to whole CTAs, ray features, inverse
+   directions, group boxes), the trace kernel (``block_trace.launch``,
+   whose list phase builds each CTA's front-to-back candidate list), the
+   rest of the tracer wrappers,
+   ``finalize_hit``, and the glue (everything else: camera, shading,
+   Disney, NEE, RNG, sort, accumulation);
 3. a torch.profiler trace of one sample: device busy time (the summed
    durations of the device's kernels, copies and fills, which run on one
    stream and do not overlap), its share of the plain sample's wall time,

@@ -7,12 +7,14 @@ through both packages.
   mode, default GS=4) and against ``packet_closest`` (compared by triangle
   id through ``leaf_tri[slot]``); ``block_occluded_plain`` against
   ``pallas_occluded`` (K2 in interpret mode).
-- ``_prepare``'s candidate lists, ``finalize_hit`` and the raysort keys
-  against the reference, bit for bit.
-- A candidate-list walk written exactly as the CUDA kernel walks (one
-  128-ray CTA, front-to-back groups, early exit on the CTA's largest best,
-  per-ray pretests) against the plain version, so the kernel's traversal
-  logic is checked here too; the kernel itself runs only on a GPU
+- ``candidate_lists`` (the plain list phase) at the reference's 2048-ray
+  blocks and at the kernel's 128-ray CTAs, ``finalize_hit`` and the raysort
+  keys against the reference, bit for bit.
+- A walk written exactly as the CUDA kernel walks (each 128-ray CTA with
+  its own list of live rays, front-to-back groups, early exit on the CTA's
+  largest best, per-ray pretests, each leaf's real triangles, packed-key
+  commits) against the plain version, so the kernel's traversal logic is
+  checked here too; the kernel itself runs only on a GPU
   (``test_kernel_matches_plain_on_gpu``).
 
 Tolerances: the reference kernel packs the slot index into the low 10
@@ -37,7 +39,8 @@ from stratum_tpu.scene import flatten as jflatten
 from stratum_tpu_torch.ops import block_trace, raysort
 from stratum_tpu_torch.ops.bvh import morton3
 from stratum_tpu_torch.ops.intersect import T_MAX
-from stratum_tpu_torch.scene import bridge
+from stratum_tpu_torch.ops.packet import FatBVH, leaf_counts
+from stratum_tpu_torch.scene import bridge, builtin, flatten
 
 torch.set_num_threads(2)
 
@@ -156,6 +159,23 @@ def test_launch_refuses_cpu_tensors(case):
         block_trace.launch(fat, prep, occluded=False)
 
 
+def test_launch_refuses_lists_that_do_not_fit():
+    """A CTA's list lives in shared memory: 4097 single-leaf groups need
+    8192 keys, more than the kernel holds, and the launch raises (it never
+    takes another path)."""
+    L = block_trace.MAX_LIST_KEYS + 1
+    fat = FatBVH(
+        leaf_lo=torch.zeros((L, 3)), leaf_hi=torch.ones((L, 3)),
+        leaf_feat=torch.zeros((L, 1, 10, 4)),
+        leaf_tri=torch.arange(L, dtype=torch.int32).view(L, 1),
+    )
+    o = torch.zeros((128, 3))
+    prep = block_trace._prepare(fat, o, torch.ones((128, 3)), torch.ones(128), gs=1)
+    with pytest.raises(ValueError, match="shared-memory budget"):
+        block_trace.launch(fat, prep, occluded=False)
+    assert block_trace.list_keys(-(-L // 2)) == block_trace.MAX_LIST_KEYS
+
+
 def test_plain_mt_does_not_depend_on_the_batch(case):
     """``mt_quantities`` gives a ray the same bits whatever rays share its
     batch (a CPU matmul does not), which is what lets the binned and block
@@ -171,77 +191,122 @@ def test_plain_mt_does_not_depend_on_the_batch(case):
     )
 
 
+@pytest.mark.parametrize("block", [2048, 128])
 @pytest.mark.parametrize("gs", [1, 4])
 @pytest.mark.parametrize("occluded", [False, True])
-def test_prepare_matches_reference(case, occluded, gs):
-    """Candidate order, entries and counts are bit-identical (block 2048):
-    group streaming at gs = 4 (G = ceil(L/4), ``expand=False``), and single
-    leaves at gs = 1 (the K3 kernel's lists: ``entry_group`` 1, where
-    ``expand`` has nothing to expand)."""
+def test_prepare_matches_reference(case, occluded, gs, block):
+    """``candidate_lists``' order, entries and counts are bit-identical to
+    ``pallas_trace._prepare``'s, at the reference's 2048-ray blocks and at
+    the kernel's 128-ray CTAs: group streaming at gs = 4 (G = ceil(L/4),
+    ``expand=False``), and single leaves at gs = 1 (the K3 kernel's lists:
+    ``entry_group`` 1, where ``expand`` has nothing to expand). The light
+    ``_prepare`` pads the rays to whole CTAs."""
     js, ps = case["js"], case["ps"]
-    tm = case["t_max"] * (block_trace.SHADOW_EPS if occluded else 1.0)
+    tm = (case["t_max"] * (block_trace.SHADOW_EPS if occluded else 1.0)).astype(np.float32)
     _, _, order, entry, ncand, n = pallas_trace._prepare(
         js.fat_bvh, jnp.asarray(case["o"]), jnp.asarray(case["d"]), 1e-4,
-        jnp.asarray(tm.astype(np.float32)), 2048, gs, expand=gs == 1,
+        jnp.asarray(tm), block, gs, expand=gs == 1,
     )
-    prep = block_trace._prepare(ps.fat_bvh, _t(case["o"]), _t(case["d"]),
-                                _t(tm.astype(np.float32)), gs)
-    assert prep.n == n
-    np.testing.assert_array_equal(prep.ncand.numpy(), np.asarray(ncand)[:, 0])
-    np.testing.assert_array_equal(prep.centry.numpy(), np.asarray(entry))
+    lists = block_trace.candidate_lists(ps.fat_bvh, _t(case["o"]), _t(case["d"]), _t(tm),
+                                        gs, block)
+    np.testing.assert_array_equal(lists.ncand.numpy(), np.asarray(ncand)[:, 0])
+    np.testing.assert_array_equal(lists.centry.numpy(), np.asarray(entry))
     # order is only meaningful where entries are finite (ties past ncand
     # sort identically anyway: both sorts are stable)
-    np.testing.assert_array_equal(prep.cand.numpy(), np.asarray(order))
-    assert prep.cand.shape[1] == -(-ps.fat_bvh.num_leaves // gs)
-    # padded rays carry direction 1.0 and t_max 0: they yield no entries
-    assert (prep.t_max[n:] == 0).all() and (prep.rays[n:, 0:3] == 1.0).all()
+    np.testing.assert_array_equal(lists.cand.numpy(), np.asarray(order))
+    assert lists.cand.shape[1] == -(-ps.fat_bvh.num_leaves // gs)
+    # padded rays carry direction 1.0 and t_max 0
+    prep = block_trace._prepare(ps.fat_bvh, _t(case["o"][:-5]), _t(case["d"][:-5]),
+                                _t(tm[:-5]), gs)
+    assert prep.n == n - 5 and prep.rays.shape[0] == n
+    assert (prep.t_max[n - 5:] == 0).all() and (prep.rays[n - 5:, 0:3] == 1.0).all()
+    glo, ghi = block_trace.group_boxes(ps.fat_bvh, gs)
+    assert torch.equal(prep.group_lo, glo) and torch.equal(prep.group_hi, ghi)
 
 
-def _walk_like_the_kernel(fat, prep, occluded, gs=block_trace.GS):
+def test_live_only_lists_leave_out_only_dead_lanes(case):
+    """``live_only`` (the kernel's CTA lists) equals the reference's entry
+    pass over each block's live lanes alone. The reference's lists also
+    count boxes that dead lanes sit inside (entry 0 below t_clip 0): on this
+    case that changes entries at gs = 1."""
+    fat = case["ps"].fat_bvh
+    o, d, tm = _t(case["o"]), _t(case["d"]), _t(case["t_max"])
+    differ = 0
+    for gs in (1, 4):
+        live = block_trace.candidate_lists(fat, o, d, tm, gs, 128, live_only=True)
+        ref = block_trace.candidate_lists(fat, o, d, tm, gs, 128)
+        glo, ghi = block_trace.group_boxes(fat, gs)
+        for b in range(o.shape[0] // 128):
+            lanes = torch.arange(b * 128, b * 128 + 128)
+            lanes = lanes[tm[lanes] > 0]
+            e = block_trace._block_entries(glo, ghi, o[lanes][None], d[lanes][None],
+                                           block_trace.T_MIN, tm[lanes][None])[0]
+            se, order = torch.sort(e, stable=True)
+            assert int(live.ncand[b]) == int(torch.isfinite(se).sum())
+            assert torch.equal(live.cand[b], order.to(torch.int32))
+            assert torch.equal(live.centry[b], torch.where(torch.isfinite(se), se, 3.0e38))
+        assert (live.ncand[o.shape[0] // 128:] == 0).all()  # the padded blocks
+        differ += int((live.centry != ref.centry).sum())
+    assert differ > 0
+
+
+def _best_t(key):
+    return (key >> 32).to(torch.int32).view(torch.float32)
+
+
+def _walk_like_the_kernel(fat, o, d, bound, occluded, gs=block_trace.GS):
     """The CUDA kernel's traversal, CTA by CTA, in torch (see
-    csrc/block_trace.cu): front-to-back groups, early exit on the CTA's
-    largest best, per-ray slab pretest, exact MT, lower slot on ties."""
+    csrc/block_trace.cu): each CTA's own list over its live rays
+    (``candidate_lists`` at block 128, ``live_only``), front-to-back groups,
+    early exit on the CTA's largest best, per-ray slab pretest against the
+    current best, exact MT over each leaf's real triangles, closest commits
+    as the minimum of packed (t bits << 32) | slot keys that start at
+    (bound bits << 32) | 0."""
     L, K = fat.leaf_tri.shape
-    feat = fat.leaf_feat.permute(0, 2, 1, 3).reshape(L, 10, K * 4)
-    best = prep.t_max.clone()
-    slot = torch.full(best.shape, -1, dtype=torch.int32)
-    for cta in range(best.shape[0] // 128):
+    prep = block_trace._prepare(fat, o, d, bound, gs)
+    lists = block_trace.candidate_lists(fat, o, d, bound, gs, block_trace.CTA, live_only=True)
+    rows = block_trace.leaf_rows(fat)
+    counts = leaf_counts(fat).tolist()
+    live = prep.t_max > 0
+    zero = torch.zeros(live.shape, dtype=torch.int32)
+    init = torch.where(live, block_trace.pack_key(prep.t_max, zero), 0)
+    key, bnd = init.clone(), prep.t_max.clone()
+    for cta in range(live.shape[0] // 128):
         lanes = slice(cta * 128, cta * 128 + 128)
-        blk = cta * 128 // block_trace.BLOCK
-        rf, o, inv = prep.rays[lanes], prep.origin[lanes], prep.inv_dir[lanes]
-        b, s = best[lanes], slot[lanes]
-        for c in range(int(prep.ncand[blk])):
-            if not prep.centry[blk, c] < b.max():
+        rf, org, inv = prep.rays[lanes], prep.origin[lanes], prep.inv_dir[lanes]
+        k_, b_ = key[lanes], bnd[lanes]
+        for c in range(int(lists.ncand[cta])):
+            if not lists.centry[cta, c] < (b_ if occluded else _best_t(k_)).max():
                 break
-            g = int(prep.cand[blk, c])
+            g = int(lists.cand[cta, c])
             for leaf in range(g * gs, min((g + 1) * gs, L)):
-                tn, tf = block_trace._leaf_slab(fat.leaf_lo[leaf], fat.leaf_hi[leaf], o, inv)
-                want = torch.nonzero((tn <= tf) & (tn < b)).squeeze(1)
+                best = b_ if occluded else _best_t(k_)
+                tn, tf = block_trace._leaf_slab(fat.leaf_lo[leaf], fat.leaf_hi[leaf], org, inv)
+                want = torch.nonzero((tn <= tf) & (tn < best)).squeeze(1)
                 if want.numel() == 0:
                     continue
+                n = counts[leaf]
                 abs_a, stn, valid = block_trace._classify(
-                    block_trace.mt_quantities(rf[want], feat[leaf])
+                    block_trace.mt_quantities(rf[want], rows[leaf, :, :n * 4])
                 )
                 if occluded:
-                    b[want[(valid & (stn < b[want, None] * abs_a)).any(dim=1)]] = 0.0
+                    b_[want[(valid & (stn < b_[want, None] * abs_a)).any(dim=1)]] = 0.0
                     continue
-                tt = torch.where(valid, stn / torch.where(valid, abs_a, 1.0), float("inf"))
-                tk, k = torch.min(tt, dim=1)
-                sid = (leaf * K + k).to(torch.int32)
-                cur_t, cur_s = b[want], s[want]
-                take = (tk < cur_t) | ((tk == cur_t) & (sid < cur_s))
-                b[want[take]] = tk[take]
-                s[want[take]] = sid[take]
+                tt = torch.where(valid, stn / torch.where(valid, abs_a, 1.0), 0.0)
+                slot = (leaf * K + torch.arange(n, dtype=torch.int32)).expand(tt.shape)
+                cand = torch.where(valid, block_trace.pack_key(tt, slot), init.max() + 1)
+                k_[want] = torch.minimum(k_[want], cand.amin(dim=1))
     if occluded:
-        return (best <= 0) & (prep.t_max > 0)
-    return torch.where(slot >= 0, best, T_MAX), slot
+        return (bnd <= 0) & live
+    hit = key < init
+    return (torch.where(hit, _best_t(key), T_MAX),
+            torch.where(hit, key & 0xFFFFFFFF, -1).to(torch.int32))
 
 
 def test_kernel_traversal_matches_plain(case):
     fat = case["ps"].fat_bvh
     o, d, tm = _t(case["o"]), _t(case["d"]), _t(case["t_max"])
-    prep = block_trace._prepare(fat, o, d, tm)
-    t, slot = _walk_like_the_kernel(fat, prep, occluded=False)
+    t, slot = _walk_like_the_kernel(fat, o, d, tm, occluded=False)
     hp = block_trace.block_closest_plain(fat, o, d, tm)
     n = o.shape[0]
     assert (slot[:n] == hp.slot).float().mean() >= 0.999
@@ -249,8 +314,7 @@ def test_kernel_traversal_matches_plain(case):
     torch.testing.assert_close(t[:n][same], hp.t[same], rtol=T_REL, atol=0.0)
     assert (slot[n:] == -1).all()  # padding rays never hit
     limit = tm * block_trace.SHADOW_EPS
-    prep_o = block_trace._prepare(fat, o, d, limit)
-    blocked = _walk_like_the_kernel(fat, prep_o, occluded=True)
+    blocked = _walk_like_the_kernel(fat, o, d, limit, occluded=True)
     op = block_trace.block_occluded_plain(fat, o, d, tm)
     assert (blocked[:n] == op).float().mean() >= 0.999
 
@@ -262,14 +326,57 @@ def test_single_leaf_traversal_matches_plain(case):
     fat = case["ps"].fat_bvh
     o, d, tm = _t(case["o"]), _t(case["d"]), _t(case["t_max"])
     n = o.shape[0]
-    prep = block_trace._prepare(fat, o, d, tm, gs=1)
-    assert prep.cand.shape[1] == fat.num_leaves
-    t, slot = _walk_like_the_kernel(fat, prep, occluded=False, gs=1)
+    assert block_trace._prepare(fat, o, d, tm, gs=1).group_lo.shape[0] == fat.num_leaves
+    t, slot = _walk_like_the_kernel(fat, o, d, tm, occluded=False, gs=1)
     hp = block_trace.block_closest_plain(fat, o, d, tm)
     assert torch.equal(slot[:n], hp.slot) and torch.equal(t[:n], hp.t)
-    prep_o = block_trace._prepare(fat, o, d, tm * block_trace.SHADOW_EPS, gs=1)
-    blocked = _walk_like_the_kernel(fat, prep_o, occluded=True, gs=1)
+    blocked = _walk_like_the_kernel(fat, o, d, tm * block_trace.SHADOW_EPS, occluded=True, gs=1)
     assert torch.equal(blocked[:n], block_trace.block_occluded_plain(fat, o, d, tm))
+
+
+def test_packed_key_is_the_lexicographic_minimum():
+    """The kernel's closest commit, emulated in int64 from t's int32 bits:
+    the minimum key is the least t and, among equal t, the lower slot. A
+    ray's key starts at (bound bits << 32) | 0, so a hit at exactly the
+    bound stays a miss and one an ulp below it is a hit; a dead ray (bound
+    0) starts at 0 and takes nothing."""
+    rng = np.random.default_rng(11)
+    t = rng.choice(np.float32([0.5, 1.0, np.nextafter(1.0, 2.0), 2.0, 3e38]), (400, 6))
+    slot = rng.integers(0, 1 << 20, (400, 6)).astype(np.int32)
+    key = block_trace.pack_key(torch.from_numpy(t), torch.from_numpy(slot)).amin(dim=1)
+    first = [np.lexsort((slot[i], t[i]))[0] for i in range(400)]
+    np.testing.assert_array_equal(_best_t(key).numpy(), t[np.arange(400), first])
+    np.testing.assert_array_equal((key & 0xFFFFFFFF).numpy(), slot[np.arange(400), first])
+    bound = torch.tensor([3.0, 3.0, 3.0, 0.0])
+    init = torch.where(bound > 0, block_trace.pack_key(bound, torch.zeros(4, dtype=torch.int32)), 0)
+    hit_t = torch.tensor([3.0, float(np.nextafter(np.float32(3.0), np.float32(0.0))), 3.5, 1.0])
+    got = torch.minimum(init, block_trace.pack_key(hit_t, torch.tensor([0, 7, 0, 0])))
+    assert (got < init).tolist() == [False, True, False, False]
+
+
+@pytest.mark.parametrize("scene", ["atrium", "cornell"])
+def test_leaf_padding_sits_at_the_tail(case, scene):
+    """The kernel visits slots [0, count) of each leaf: in the port's SAH
+    build (and the JAX package's, bridged) every leaf's padding is at its
+    tail, and padded rows (zero features) are never valid under the accept
+    rule, so leaving them out changes no result."""
+    g = (builtin.atrium(columns=1, stacks=6, slices=12) if scene == "atrium"
+         else builtin.cornell_box())
+    fats = [flatten.flatten(g.root, device="cpu")[0].fat_bvh]
+    if scene == "atrium":
+        fats.append(case["ps"].fat_bvh)
+    rf = block_trace.smxu.ray_features(_t(case["o"]), _t(case["d"]))
+    for fat in fats:
+        L, K = fat.leaf_tri.shape
+        counts = leaf_counts(fat)
+        assert counts.dtype == torch.int32 and bool((counts > 0).all())
+        assert torch.equal(fat.leaf_tri >= 0, torch.arange(K) < counts[:, None])
+        rows = block_trace.leaf_rows(fat)
+        padded = [leaf for leaf in range(L) if counts[leaf] < K]
+        assert padded  # the case has padding to check
+        for leaf in padded:
+            q = block_trace.mt_quantities(rf, rows[leaf, :, int(counts[leaf]) * 4:])
+            assert not block_trace._classify(q)[2].any()
 
 
 def test_finalize_hit_matches_reference(case):
