@@ -30,10 +30,16 @@ Phases, each printing its results:
    coherent tiles 16): 1 warm-up and 4 timed samples; the kernel launch
    counters are zeroed just before and read just after this phase;
 6. the binned path: the same render with ``binned_secondary=8,
-   binned_shadow=8``. One sample's binned waves (4 sorted closest waves,
-   the deferred shadow wave) are replayed: K5 against its plain version on
-   each wave's bins, and the binned results against the block kernel on
-   every lane whose group dropped no pair; the drop counts are printed.
+   binned_shadow=8``. The registers and resident CTAs of K5 and of the
+   emission kernel; then one sample's binned waves (4 sorted closest waves,
+   the deferred shadow wave) are replayed: first, on a slice of closest
+   wave 1, the emission kernel against the plain emission at g 1, 32, 64
+   and 128, both modes and pcap 3 and 32; then on every wave the emission
+   kernel's count and slots against the plain (torch) emission's, bit for
+   bit, both timed, beside the bytes and slab tests it needs; K5
+   against its plain version on each wave's bins, and the binned results
+   against the block kernel on every lane whose group dropped no pair; the
+   drop counts, lanes past K5's pretest and triangle tests are printed.
    Then 1 warm-up and 4 timed samples with the counters zeroed around them;
 7. other configurations: one sample with ``binned_bounces=1`` (image mean
    within phase 4's bound of phase 5's) and one with ``gs=1``, whose
@@ -266,17 +272,104 @@ def _build():
     print(f"[2 build] {len(names)} kernels in {time.perf_counter() - t0:.3f} s", flush=True)
 
 
-def _binned_wave(fat, kind, o, d, t, stats, hb):
-    """Phase 6 on one captured binned wave: K5 against bin_min_plain on the
-    wave's own bins, and the wrapper's result against the block kernel's
-    (``hb``) on the lanes whose group dropped no pair."""
+EMIT_OPS = 27  # operations of one emission slab test (subtract, multiply, min, max, compare)
+
+
+def _emission(fat, o, d, bound, g, pcap):
+    """The emission kernel against the plain ``_emit`` on one wave, as
+    ``bin_pairs`` pads it: count and slots bit for bit, both timed -> dict
+    of both times, the largest |kernel - plain| over count and slots, the
+    bound and the slab tests it counts."""
+    import torch
+    from stratum_tpu_torch.ops import binned, block_trace
+
+    op, ip, tp = binned.pad_wave(o, d, bound, g)
+    tmin = block_trace.T_MIN
+    (ck, sk), ms = _timed(lambda: binned.emit_launch(fat, op, ip, tp, tmin, g, pcap, "ray"),
+                          reps=3)
+    (cp, sp), plain_ms = _timed(lambda: binned._emit(fat, op, ip, tp, tmin, g, pcap, "ray"),
+                                warmup=False)
+    err = max(int((ck - cp).abs().max()), int((sk - sp).abs().max()))
+    rows = int(((ck != cp) | (sk != sp).any(dim=1)).sum())
+    assert err == 0 and rows == 0, (err, rows)
+    # the tests the kernel must make: each live ray against every 32-leaf
+    # chunk box, and against every leaf of a chunk its own ray passes (a
+    # ray that misses a chunk box misses its leaves), each ~EMIT_OPS
+    # operations; all: each live ray against every leaf, with no chunk skip
+    L = fat.num_leaves
+    live = tp > 0
+    clo, chi = block_trace.group_boxes(fat, 32)
+    size = torch.bincount(torch.arange(L, device=op.device) // 32)
+    need = 0
+    for s in range(0, op.shape[0], 1 << 20):
+        sl = slice(s, s + (1 << 20))
+        keep = live[sl]
+        hit = binned._slab_pass(clo, chi, op[sl][keep], ip[sl][keep], tp[sl][keep], tmin)
+        need += int(keep.sum()) * clo.shape[0] + int((hit * size).sum())
+    tests_all = int(live.sum()) * L
+    # bytes: every ray's bound (a group with no live lane needs nothing
+    # else), the origin and inverse direction of each live ray, the leaf
+    # boxes, and count and slots written once
+    nbytes = op.shape[0] * 4 + int(live.sum()) * 24 + L * 24 + ck.numel() * 4 + sk.numel() * 4
+    ops_ms = need * EMIT_OPS / PEAK_F32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+    bound = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    return dict(ms=ms, plain_ms=plain_ms, max_abs_err=float(err), rows_differ=rows,
+                bound_ms=bound[0], bound_by=bound[1], nbytes=nbytes, tests=need,
+                tests_all=tests_all, bound_all_ms=max(tests_all * EMIT_OPS / PEAK_F32_FLOPS * 1e3,
+                                                      bytes_ms))
+
+
+def _k5_work(fat, bins, info):
+    """K5's work on one wave: the lanes of real pairs, the ones whose own ray
+    passes the slab pretest of its bin's leaf, the triangle tests of each
+    (a lane against its leaf's real triangles), the bytes the bin step
+    needs, and the leaf stagings (a CTA's run of ``info["run_bins"]`` bins
+    visits each of its leaves once per ``info["pass_lanes"]`` wanting lanes;
+    ``info`` is ``binned.kernel_info("bin")``) beside the runs and bins ->
+    dict."""
     import torch
     from stratum_tpu_torch.ops import binned, block_trace
     from stratum_tpu_torch.ops.packet import leaf_counts
 
+    nv = leaf_counts(fat)
+    run_bins, pass_lanes = info["run_bins"], info["pass_lanes"]
+    ray, ok = binned.lane_rays(bins)
+    leaf = bins.bin_leaf.repeat_interleave(binned.LANES)[ok].long()
+    run = (torch.arange(ok.numel(), device=ok.device) // (run_bins * binned.LANES))[ok]
+    ray = ray[ok].long()
+    tn, tf = block_trace._leaf_slab(fat.leaf_lo[leaf], fat.leaf_hi[leaf], bins.origin[ray],
+                                    bins.inv_dir[ray])
+    want = (tn <= tf) & (tf >= bins.t_min) & (tn < bins.t_bound[ray])
+    L = fat.num_leaves
+    _, per_visit = torch.unique(run[want] * L + leaf[want], return_counts=True)
+    # bytes, each input once: bin_leaf and pair_id; the origin, inverse
+    # direction and bound of each ray in a real pair; the features of each
+    # ray that passes a pretest; the box and count of each leaf the bins
+    # hold; the real triangles' features of each leaf a lane passes; and
+    # each ray's word
+    nbins = bins.bin_leaf.numel()
+    nbytes = (nbins * 4 + bins.pair_id.numel() * 4 + torch.unique(ray).numel() * 28
+              + torch.unique(ray[want]).numel() * 40 + torch.unique(bins.bin_leaf).numel() * 28
+              + int(nv[torch.unique(leaf[want])].sum()) * 160 + bins.n * 8)
+    return dict(lanes=int(ok.sum()), lanes_want=int(want.sum()),
+                tests_all=int(nv[leaf].sum()), tests=int(nv[leaf[want]].sum()), nbytes=nbytes,
+                stagings=int(((per_visit + pass_lanes - 1) // pass_lanes).sum()),
+                runs=-(-nbins // run_bins), bins=nbins)
+
+
+def _binned_wave(fat, kind, o, d, t, stats, hb):
+    """Phase 6 on one captured binned wave: the emission kernel against the
+    plain ``_emit``, K5 against bin_min_plain on the wave's own bins, and the
+    wrapper's result against the block kernel's (``hb``) on the lanes whose
+    group dropped no pair."""
+    import torch
+    from stratum_tpu_torch.ops import binned, block_trace
+
     bound = t if kind == "closest" else t * block_trace.SHADOW_EPS
     bins = binned.bin_pairs(fat, o, d, bound)
     assert bins.stats == stats, (bins.stats, stats)
+    em = _emission(fat, o, d, bound, bins.g, bins.pcap)
     words, ms = _timed(lambda: binned.launch(fat, bins, kind), reps=3)
     plain, plain_ms = _timed(lambda: binned.bin_min_plain(fat, bins), warmup=False)
     hk, hp = _words_record(words), _words_record(plain)
@@ -284,18 +377,8 @@ def _binned_wave(fat, kind, o, d, t, stats, hb):
     _check_closest(f"K5 {kind} vs plain", c)
     live = t > 0
     kept = live & ~bins.lost
-    # K5's work: each lane of a real pair against its bin leaf's triangles
-    pair = bins.pair_id.repeat_interleave(bins.g)
-    ray = (pair // bins.pcap) * bins.g + torch.arange(pair.numel(), device=pair.device) % bins.g
-    lane_live = (pair >= 0) & (ray < bins.n)
-    lane_leaf = bins.bin_leaf.repeat_interleave(binned.LANES)
-    lanes = int(lane_live.sum())
-    tests = int(leaf_counts(fat)[lane_leaf[lane_live].long()].sum())
-    del pair, ray, lane_live, lane_leaf
-    L, K = fat.leaf_tri.shape
-    nbytes = (bins.bin_leaf.numel() * 4 + bins.pair_id.numel() * 4 + bins.n * (40 + 16)
-              + L * K * 160)
-    bound_ms, bound_by = _bound(tests, nbytes)
+    work = _k5_work(fat, bins, binned.kernel_info("bin"))
+    bound_ms, bound_by = _bound(work["tests"], work["nbytes"])
     if kind == "closest":
         hn = binned.binned_closest(fat, o, d, t)
         cb = _compare_closest(fat, o, d, hn, hb, kept)
@@ -314,10 +397,42 @@ def _binned_wave(fat, kind, o, d, t, stats, hb):
     share_lost = float((bins.lost & live).sum()) / max(int(live.sum()), 1)
     print(f"[6 binned waves] {kind} wave ({o.shape[0]} lanes, {int(live.sum())} live): "
           f"{bins.stats}, live lanes in groups that lost pairs {share_lost:.6f}; "
-          f"K5 {ms:.3f} ms (bound {bound_ms:.3f} ms, {bound_by}; {lanes} lanes, {tests} tests), "
-          f"plain {plain_ms:.3f} ms", flush=True)
+          f"emission kernel {em['ms']:.3f} ms (bound {em['bound_ms']:.3f} ms, {em['bound_by']}; "
+          f"{em['tests']} slab tests, {em['tests_all']} without the chunk skip, bound "
+          f"{em['bound_all_ms']:.3f} ms; {em['nbytes']} bytes), torch emission "
+          f"{em['plain_ms']:.3f} ms, count and slots equal; K5 {ms:.3f} ms (bound "
+          f"{bound_ms:.3f} ms, {bound_by}; {work['nbytes']} bytes; "
+          f"{work['lanes']} lanes, {work['lanes_want']} past the pretest, {work['tests']} "
+          f"tests, {work['tests_all']} for every lane; {work['stagings']} leaf stagings for "
+          f"{work['runs']} runs of {work['bins']} bins), plain {plain_ms:.3f} ms", flush=True)
     return dict(c, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                lanes=lanes, tests=tests, stats=bins.stats, lost_share=share_lost, vs_block=vs_block)
+                lanes=work["lanes"], lanes_want=work["lanes_want"], tests=work["tests"],
+                tests_all=work["tests_all"], stagings=work["stagings"], runs=work["runs"],
+                stats=bins.stats, lost_share=share_lost, vs_block=vs_block, emit=em)
+
+
+def _binned_sweep(fat, o, d, t, lanes: int = 1 << 17):
+    """On the first ``lanes`` lanes of a closest wave, the emission kernel
+    against ``_emit`` bit for bit in the modes ``RenderConfig.binned_em``
+    selects, at group sizes of each of its code paths (one lane: g = 1; one
+    warp: 32; across warps: 64, 128), pcap 3 and 32. The
+    per-wave checks hold only the path's own g = 8, em = "ray"; the
+    ``cuda``-marked test covers more but runs where JAX is installed ->
+    (configurations, lanes)."""
+    import torch
+    from stratum_tpu_torch.ops import binned, block_trace
+
+    o, d, t = o[:lanes], d[:lanes], t[:lanes]
+    configs = 0
+    for g in (1, 32, 64, 128):
+        op, ip, tp = binned.pad_wave(o, d, t, g)
+        for em in ("ray", "group"):
+            for pcap in (3, 32):
+                ck, sk = binned.emit_launch(fat, op, ip, tp, block_trace.T_MIN, g, pcap, em)
+                cp, sp = binned._emit(fat, op, ip, tp, block_trace.T_MIN, g, pcap, em)
+                assert torch.equal(ck, cp) and torch.equal(sk, sp), (g, em, pcap)
+                configs += 1
+    return configs, o.shape[0]
 
 
 MB_ITERS = 8  # visits per kernel-against-plain comparison of T1-T3
@@ -844,10 +959,13 @@ def main() -> int:
         return launches, img, dict(ms_spp=ms_spp, mrays=mrays, peak_gib=peak_gib, mean=mean)
 
     launches, img5, main5 = timed_samples(cfg, "5 main path")
-    assert launches == {"block closest": 25, "block occluded": 5,
+    assert launches == {"block closest": 25, "block occluded": 5, "binned emit": 0,
                         "binned closest": 0, "binned occluded": 0}, launches
 
     # ---- 6: the binned path -------------------------------------------------
+    for name, info in (("binned_min_kernel (K5)", binned.kernel_info("bin")),
+                       ("binned_emit_kernel (g=8, pcap=16)", binned.kernel_info("emit", L))):
+        print(f"[6 kernel] {name}: {info}", flush=True)
     cfg6 = integrator.RenderConfig(width=W, height=H, **BENCH, **BINNED)
     waves = {}
     integrator.render_path_with_counts(scene, view, cfg6, 0, capture=waves)
@@ -855,6 +973,10 @@ def main() -> int:
     assert [x[0].shape[0] for x in waves["binned_closest"]] == [W * H] * 4
     ((o, w, t, st_o),) = waves["binned_occluded"]
     assert t.shape[0] == 5 * W * H
+    configs, sweep_lanes = _binned_sweep(fat, *waves["binned_closest"][0][:3])
+    print(f"[6 sweep] emission kernel equal to _emit bit for bit in {configs} configurations "
+          f"(g 1/32/64/128, em ray/group, pcap 3/32) on {sweep_lanes} lanes of closest wave 1",
+          flush=True)
     k5 = []
     for o_, d_, tm_, st in waves["binned_closest"]:
         hb = block_trace.block_closest(fat, o_, d_, tm_)
@@ -865,7 +987,7 @@ def main() -> int:
     del waves, hb, o, w, t
     torch.cuda.empty_cache()
     launches6, img6, main6 = timed_samples(cfg6, "6 binned path")
-    assert launches6 == {"block closest": 5, "block occluded": 0,
+    assert launches6 == {"block closest": 5, "block occluded": 0, "binned emit": 25,
                          "binned closest": 20, "binned occluded": 5}, launches6
     print(f"[6 binned path] {main6['ms_spp']:.1f} ms/spp vs {main5['ms_spp']:.1f} (phase 5); "
           f"image mean {main6['mean']:.6f} vs {main5['mean']:.6f} "
@@ -900,11 +1022,14 @@ def main() -> int:
     # closest wave 1's and the deferred wave's at gs=1, its launches those of
     # the gs=1 sample (phase 7). K5's are means over the binned path's four
     # closest waves and its deferred wave, its launches those of phase 6's
-    # timed run. A flag output's max_abs_err is max |kernel - plain| over
-    # its 0/1 flags. bound_ms: see _bound and _needed_tri_tests, and
-    # _binned_wave for K5.
+    # timed run; the emission kernel's are means over all five binned waves.
+    # A flag output's max_abs_err is max |kernel - plain| over its 0/1
+    # flags; the emission's over its counts and slot rows. bound_ms: see _bound and _needed_tri_tests, _k5_work for K5 and
+    # _emission for the emission kernel.
     def avg(rows, key):
         return sum(r[key] for r in rows) / len(rows)
+
+    emits = [c["emit"] for c in k5 + [k5o]]
 
     common = dict(route="cuda", library_ms=None)
     bt = dict(common, source="stratum_tpu_torch/csrc/block_trace.cu")
@@ -950,15 +1075,32 @@ def main() -> int:
              agree_block_undropped=min(c["vs_block"] for c in k5),
              wave_ms=[c["ms"] for c in k5], wave_bound_ms=[c["bound_ms"] for c in k5],
              wave_plain_ms=[c["plain_ms"] for c in k5], lanes=[c["lanes"] for c in k5],
-             tri_tests=[c["tests"] for c in k5],
+             lanes_want=[c["lanes_want"] for c in k5], tri_tests=[c["tests"] for c in k5],
+             tri_tests_all=[c["tests_all"] for c in k5],
+             leaf_stagings=[c["stagings"] for c in k5], runs=[c["runs"] for c in k5],
              stats=[c["stats"] for c in k5], lost_share=[c["lost_share"] for c in k5]),
         dict(common, name="binned occluded (K5)", source="stratum_tpu_torch/csrc/binned.cu",
              replaces="stratum_tpu/ops/binned.py:68",
              launches=launches6["binned occluded"], max_abs_err=k5o["max_abs_err"],
              ms=k5o["ms"], plain_ms=k5o["plain_ms"], bound_ms=k5o["bound_ms"],
              bound_by=k5o["bound_by"], agree=k5o["agree"],
-             agree_block_undropped=k5o["vs_block"], lanes=k5o["lanes"], tri_tests=k5o["tests"],
+             agree_block_undropped=k5o["vs_block"], lanes=k5o["lanes"],
+             lanes_want=k5o["lanes_want"], tri_tests=k5o["tests"],
+             tri_tests_all=k5o["tests_all"], leaf_stagings=k5o["stagings"], runs=k5o["runs"],
              stats=k5o["stats"], lost_share=k5o["lost_share"]),
+        dict(common, name="binned emission", source="stratum_tpu_torch/csrc/binned.cu",
+             replaces="stratum_tpu/ops/binned.py:146-275",
+             pallas=False, note="the reference's jnp emission (emit_slice), not a Pallas kernel",
+             launches=launches6["binned emit"],
+             max_abs_err=max(e["max_abs_err"] for e in emits),
+             slot_rows_differ=sum(e["rows_differ"] for e in emits),
+             ms=avg(emits, "ms"), plain_ms=avg(emits, "plain_ms"),
+             bound_ms=avg(emits, "bound_ms"), bound_by=emits[0]["bound_by"],
+             wave_ms=[e["ms"] for e in emits], wave_plain_ms=[e["plain_ms"] for e in emits],
+             wave_bound_ms=[e["bound_ms"] for e in emits],
+             wave_bound_all_ms=[e["bound_all_ms"] for e in emits],
+             slab_tests=[e["tests"] for e in emits],
+             slab_tests_all=[e["tests_all"] for e in emits]),
     ] + t_kernels
     print(json.dumps({"kernels": kernels, "paths": {"main": main5, "binned": main6}}))
     print(smi)

@@ -1,11 +1,14 @@
 """Binned pair-stream tracer (counterpart of stratum_tpu/ops/binned.py):
 pairs of (ray group, leaf) binned by leaf, one leaf per 128-lane bin.
 
-Kernel of this module (source ``csrc/binned.cu``):
+Kernels of this module (source ``csrc/binned.cu``):
 
 * K5, the bin step: replaces ``binned._bin_kernel`` (binned.py:68), reached
   through ``_binned_trace`` (:124) and its ``pl.pallas_call`` (:362) from
   ``pallas_closest_binned`` (:460) and ``pallas_occluded_binned`` (:554).
+* The emission kernel: replaces the reference's emission, the jnp
+  ``emit_slice`` inside ``_binned_trace`` (:146-275; a ``lax.scan`` over
+  64-leaf chunks inside ``lax.map``), which is not a Pallas kernel.
 
 The pipeline, in the reference's order:
 
@@ -13,27 +16,28 @@ The pipeline, in the reference's order:
    (``em="ray"``, reduced to per-group bits) or one interval test per group
    (``em="group"``, conservative) against every leaf AABB give each group its
    passing leaves; ``count`` [NG] is the raw number and the first ``pcap`` of
-   them, in leaf order, fill a [NG, pcap] table. The leaf axis is padded to
-   a multiple of 64 with NaN boxes, like the reference's 64-leaf chunks
-   (a NaN box passes no test; an inverted one would pass every ray's).
-   Groups with no live lane (every t bound 0) emit nothing and are skipped.
+   them, in leaf order, fill a [NG, pcap] table. Groups with no live lane
+   (every t bound 0) emit nothing.
 2. **Sort.** The pairs, sorted by leaf (pair id ascending within a leaf),
    cut to ``mcap``.
 3. **Pad.** Each leaf's run is padded to a multiple of ``sb * 128 / g``
    pairs, so each 128-lane bin holds pairs of one leaf.
-4. **Bin step** (K5). For each lane (one pair, one ray of its group) the
-   closest valid triangle of the bin's leaf under the reference accept rule,
-   folded into the ray's answer as a 64-bit ``(t bits << 32) | slot`` minimum
-   (positive f32 bit patterns order like their values, and a minimum does
-   not depend on the order the lanes land in).
+4. **Bin step** (K5). For each lane (one pair, one ray of its group) whose
+   own ray passes the emission's slab test of the bin's leaf (``em="ray"``'s
+   per-ray bit), the closest valid triangle among the leaf's real ones under
+   the reference accept rule, folded into the ray's answer as a 64-bit
+   ``(t bits << 32) | slot`` minimum (positive f32 bit patterns order like
+   their values, and a minimum does not depend on the order the lanes land
+   in). A lane whose ray misses the box, or is dead, has no hit there.
 5. **Resolve.** That per-ray minimum is the closest hit; occlusion tests it
    against ``t_max * (1 - 1e-3)``.
 
-``binned_closest`` / ``binned_occluded`` launch the kernel when the rays lie
-on a CUDA device and use :func:`bin_min_plain` only when they lie on the
-CPU; the rest of the pipeline is the same torch code on both. ``LAUNCHES``
-counts kernel launches. Dropped pairs (``pcap`` or ``mcap`` overflow) are
-misses, as in the reference; ``stats`` counts them.
+Steps 1 and 4 run as kernels when the rays lie on a CUDA device (no
+fallback: a build or launch failure raises) and as their plain versions,
+:func:`_emit` and :func:`bin_min_plain`, only when they lie on the CPU;
+sort and padding are the same torch code on both. ``LAUNCHES`` counts kernel
+launches. Dropped pairs (``pcap`` or ``mcap`` overflow) are misses, as in
+the reference; ``stats`` counts them.
 """
 
 from __future__ import annotations
@@ -56,17 +60,17 @@ from stratum_tpu_torch.ops.block_trace import (
 )
 from stratum_tpu_torch.ops.intersect import T_MAX
 from stratum_tpu_torch.ops.mxu import ray_features
-from stratum_tpu_torch.ops.packet import FatBVH, safe_inv
+from stratum_tpu_torch.ops.packet import FatBVH, leaf_counts, safe_inv
 
-LANES = 128  # lanes per bin: one CTA of the kernel
-LEAF_PAD = 64  # the leaf axis is padded to a multiple of this with NaN boxes
-# slab tests per emission pass: bounds the [rays, leaves] temporaries to
+LANES = 128  # lanes per bin
+LEAF_PAD = 64  # the plain emission pads the leaf axis to a multiple of this with NaN boxes
+# slab tests per plain emission pass: bounds the [rays, leaves] temporaries to
 # 128 MB of f32 each (a ray chunk, whole groups, against every leaf)
 EMIT_ELEMS = 1 << 25
 MISS = (0x7F800000 << 32) | 0x7FFFFFFF  # +inf t, no slot: above every hit
 PLAIN_LANES = 1 << 16  # lanes per plain-version MT pass
 
-LAUNCHES = {"closest": 0, "occluded": 0}
+LAUNCHES = {"emit": 0, "closest": 0, "occluded": 0}
 
 
 class Bins(NamedTuple):
@@ -75,6 +79,10 @@ class Bins(NamedTuple):
     bin_leaf: torch.Tensor  # i32 [nbins] leaf of each 128-lane bin
     pair_id: torch.Tensor  # i32 [nbins * 128 / g] group * pcap + p; -1 = padding
     rays: torch.Tensor  # f32 [n, 10] Plucker ray features
+    origin: torch.Tensor  # f32 [n, 3] (the bin step's slab pretest)
+    inv_dir: torch.Tensor  # f32 [n, 3] safe_inv(direction)
+    t_bound: torch.Tensor  # f32 [n] emission bound (0 = a dead lane)
+    t_min: float
     g: int
     pcap: int
     stats: dict  # pairs, dropped_pcap, dropped_mcap, bins_used (python ints)
@@ -85,9 +93,11 @@ class Bins(NamedTuple):
         return self.rays.shape[0]
 
 
-def _pass_ray(lo, hi, o, inv, tb, t_min, g):
-    """Per-ray slab tests reduced to group bits (binned.py:223-246)."""
-    t0x = (lo[None, :, 0] - o[:, 0:1]) * inv[:, 0:1]  # [S, L64]
+def _slab_pass(lo, hi, o, inv, tb, t_min):
+    """Per-ray slab tests of S rays against Lx boxes -> bool [S, Lx]
+    (binned.py:247-270): subtract, multiply, min, max and compares only,
+    so the kernels compute the same bits."""
+    t0x = (lo[None, :, 0] - o[:, 0:1]) * inv[:, 0:1]  # [S, Lx]
     t1x = (hi[None, :, 0] - o[:, 0:1]) * inv[:, 0:1]
     t0y = (lo[None, :, 1] - o[:, 1:2]) * inv[:, 1:2]
     t1y = (hi[None, :, 1] - o[:, 1:2]) * inv[:, 1:2]
@@ -101,8 +111,12 @@ def _pass_ray(lo, hi, o, inv, tb, t_min, g):
         torch.minimum(torch.maximum(t0x, t1x), torch.maximum(t0y, t1y)),
         torch.maximum(t0z, t1z),
     )
-    p = (tn <= tf) & (tf >= t_min) & (tn < tb[:, None])
-    return p.view(-1, g, lo.shape[0]).any(dim=1)
+    return (tn <= tf) & (tf >= t_min) & (tn < tb[:, None])
+
+
+def _pass_ray(lo, hi, o, inv, tb, t_min, g):
+    """Per-ray slab tests reduced to group bits (binned.py:223-246)."""
+    return _slab_pass(lo, hi, o, inv, tb, t_min).view(-1, g, lo.shape[0]).any(dim=1)
 
 
 def _pass_group(lo, hi, o, inv, tb, t_min, g):
@@ -138,15 +152,17 @@ def _pass_group(lo, hi, o, inv, tb, t_min, g):
     return (tn_lo <= tf_hi) & (tf_hi >= t_min) & (tn_lo < tb_g[:, None])
 
 
-def _emit(fat: FatBVH, o, d, tb, t_min, g, pcap, em):
-    """Step 1 on a wave padded to whole groups -> (count [NG] raw,
-    slots [NG, pcap] i32, -1 past the group's passing leaves)."""
+def _emit(fat: FatBVH, o, inv, tb, t_min, g, pcap, em):
+    """Step 1 on a wave padded to whole groups, plain version of
+    :func:`emit_launch` -> (count [NG] raw, slots [NG, pcap] i32, -1 past
+    the group's passing leaves). The leaf axis is padded to a multiple of
+    64 with NaN boxes, like the reference's 64-leaf chunks (a NaN box
+    passes no test; an inverted one would pass every ray's)."""
     ng = o.shape[0] // g
     L = fat.num_leaves
     L64 = -(-L // LEAF_PAD) * LEAF_PAD
     lo = torch.nn.functional.pad(fat.leaf_lo, (0, 0, 0, L64 - L), value=float("nan"))
     hi = torch.nn.functional.pad(fat.leaf_hi, (0, 0, 0, L64 - L), value=float("nan"))
-    inv = safe_inv(d)
     dev = o.device
     count = torch.zeros(ng, dtype=torch.int32, device=dev)
     slots = torch.full((ng, pcap), -1, dtype=torch.int32, device=dev)
@@ -168,6 +184,73 @@ def _emit(fat: FatBVH, o, d, tb, t_min, g, pcap, em):
     return count, slots
 
 
+def _lib():
+    from stratum_tpu_torch.utils import cuda_build
+
+    lib = cuda_build.load("binned")
+    if not getattr(lib, "_stratum_bound", False):
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.binned_emit.argtypes = [ptr] * 5 + [i32] * 5 + [f32] + [ptr] * 3
+        lib.binned_min.argtypes = [ptr] * 10 + [i32] * 5 + [f32] + [ptr] * 2
+        lib.binned_info.argtypes = [i32] * 4 + [ptr]
+        for fn in (lib.binned_emit, lib.binned_min, lib.binned_info):
+            fn.restype = ctypes.c_int
+        lib._stratum_bound = True
+    return lib
+
+
+def emit_launch(fat: FatBVH, o, inv, tb, t_min, g, pcap, em):
+    """One emission-kernel launch over a wave padded to whole groups: the
+    same (count, slots) as :func:`_emit`, bit for bit. The kernel holds every
+    leaf box in shared memory (24 B a leaf, up to ~9,000 leaves) and
+    refuses more."""
+    dev = o.device
+    if dev.type != "cuda":
+        raise ValueError("the emission kernel runs on CUDA tensors only")
+    L = fat.num_leaves
+    npad = o.shape[0]
+    if npad % g:
+        raise ValueError(f"{npad} rays are not whole groups of {g}")
+    if pcap < 1:
+        raise ValueError(f"pcap ({pcap}) must be at least 1")
+    for x, name, shape in ((o, "origin", (npad, 3)), (inv, "inv_dir", (npad, 3)),
+                           (tb, "t_bound", (npad,)), (fat.leaf_lo, "leaf_lo", (L, 3)),
+                           (fat.leaf_hi, "leaf_hi", (L, 3))):
+        _check(x, name, torch.float32, shape, dev)
+    ng = npad // g
+    count = torch.empty(ng, dtype=torch.int32, device=dev)
+    slots = torch.empty((ng, pcap), dtype=torch.int32, device=dev)
+    if ng == 0:
+        return count, slots
+    rc = _lib().binned_emit(
+        o.data_ptr(), inv.data_ptr(), tb.data_ptr(), fat.leaf_lo.data_ptr(),
+        fat.leaf_hi.data_ptr(), npad, L, g, pcap, int(em == "group"), t_min,
+        count.data_ptr(), slots.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"binned emission kernel launch failed: cudaError {rc}")
+    LAUNCHES["emit"] += 1
+    return count, slots
+
+
+def emit(fat: FatBVH, o, inv, tb, t_min, g, pcap, em):
+    """Step 1: the emission kernel on CUDA tensors, :func:`_emit` on CPU
+    ones."""
+    if o.device.type == "cpu":
+        return _emit(fat, o, inv, tb, t_min, g, pcap, em)
+    return emit_launch(fat, o, inv, tb, t_min, g, pcap, em)
+
+
+def pad_wave(origin, direction, t_bound, g: int):
+    """The emission's input: the wave padded to whole groups of ``g`` (origin
+    0, direction 1.0, bound 0: dead lanes) -> contiguous (origin, inverse
+    direction, bound)."""
+    pad = -origin.shape[0] % g
+    return (torch.nn.functional.pad(origin, (0, 0, 0, pad)).contiguous(),
+            safe_inv(torch.nn.functional.pad(direction, (0, 0, 0, pad), value=1.0)).contiguous(),
+            torch.nn.functional.pad(t_bound, (0, pad)).contiguous())
+
+
 def bin_pairs(fat: FatBVH, origin, direction, t_bound, t_min=T_MIN, g: int = 8,
               pcap: int = 16, mcap: int | None = None, sb: int = 1,
               em: str = "ray") -> Bins:
@@ -183,11 +266,8 @@ def bin_pairs(fat: FatBVH, origin, direction, t_bound, t_min=T_MIN, g: int = 8,
     dev = origin.device
     if mcap is None:
         mcap = max(n // 2, 1 << 14)
-    npad = -(-n // g) * g
-    o = torch.nn.functional.pad(origin, (0, 0, 0, npad - n))
-    d = torch.nn.functional.pad(direction, (0, 0, 0, npad - n), value=1.0)
-    tb = torch.nn.functional.pad(t_bound, (0, npad - n))
-    count, slots = _emit(fat, o, d, tb, t_min, g, pcap, em)
+    o, inv, tb = pad_wave(origin, direction, t_bound, g)
+    count, slots = emit(fat, o, inv, tb, t_min, g, pcap, em)
 
     # 2. sort the pairs by leaf (stable: pair ids ascend within a leaf)
     kept = torch.clamp(count, max=pcap)
@@ -203,51 +283,35 @@ def bin_pairs(fat: FatBVH, origin, direction, t_bound, t_min=T_MIN, g: int = 8,
         order = order[:mcap]
     skey, spid = key[order], pid[order].to(torch.int32)
 
-    # 3. pad each leaf's run to whole steps of sb bins (cumsum renumber)
-    bw = LANES // g
-    pw = sb * bw
-    m = skey.numel()
-    if m:
-        idx = torch.arange(m, device=dev)
-        first = torch.ones(m, dtype=torch.bool, device=dev)
-        first[1:] = skey[1:] != skey[:-1]
-        start = torch.cummax(torch.where(first, idx, -1), dim=0).values
-        prevlen = idx - torch.cat([start.new_zeros(1), start[:-1]])
-        padb = torch.where(first & (idx > 0), (pw - prevlen % pw) % pw, 0)
-        dst = idx + torch.cumsum(padb, dim=0)
-        nsteps = int(dst[-1]) // pw + 1
-    else:
-        dst, nsteps = torch.zeros(0, dtype=torch.int64, device=dev), 0
-    pleaf = torch.full((nsteps * pw,), -1, dtype=torch.int32, device=dev)
-    pleaf[dst] = skey
+    # 3. pad each leaf's run to whole steps of sb bins
+    pw = sb * (LANES // g)
+    L = fat.num_leaves
+    runs = torch.bincount(skey, minlength=L)  # kept pairs per leaf
+    steps = (runs + pw - 1) // pw
+    start = torch.cumsum(runs, dim=0) - runs  # a leaf's first sorted pair
+    pstart = (torch.cumsum(steps, dim=0) - steps) * pw  # and its first padded slot
+    dst = pstart[skey] + torch.arange(skey.numel(), device=dev) - start[skey]
+    # one host sync for the table size and the drop count
+    nsteps, dropped_pcap = torch.stack(
+        [steps.sum(), torch.clamp(count - pcap, min=0).sum()]).tolist()
     pair_id = torch.full((nsteps * pw,), -1, dtype=torch.int32, device=dev)
     pair_id[dst] = spid
+    bin_leaf = torch.repeat_interleave(torch.arange(L, dtype=torch.int32, device=dev),
+                                       steps * sb, output_size=nsteps * sb)
     stats = {
         "pairs": pairs,
-        "dropped_pcap": int(torch.clamp(count - pcap, min=0).sum()),
+        "dropped_pcap": dropped_pcap,
         "dropped_mcap": max(pairs - mcap, 0),
         "bins_used": nsteps,  # the reference counts steps of sb bins
     }
     return Bins(
-        bin_leaf=pleaf[::pw].repeat_interleave(sb).contiguous(),
+        bin_leaf=bin_leaf,
         pair_id=pair_id,
         rays=ray_features(origin, direction).contiguous(),
+        origin=o[:n], inv_dir=inv[:n], t_bound=tb[:n], t_min=float(t_min),
         g=g, pcap=pcap, stats=stats,
         lost=lost_grp.repeat_interleave(g)[:n],
     )
-
-
-def _lib():
-    from stratum_tpu_torch.utils import cuda_build
-
-    lib = cuda_build.load("binned")
-    if not getattr(lib, "_stratum_bound", False):
-        lib.binned_min.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
-        )
-        lib.binned_min.restype = ctypes.c_int
-        lib._stratum_bound = True
-    return lib
 
 
 def launch(fat: FatBVH, bins: Bins, kind: str):
@@ -259,19 +323,30 @@ def launch(fat: FatBVH, bins: Bins, kind: str):
         raise ValueError("the binned kernel runs on CUDA tensors only")
     L, K = fat.leaf_tri.shape
     nbins = bins.bin_leaf.shape[0]
+    n = bins.n
+    counts = leaf_counts(fat)
+    f32, i32 = torch.float32, torch.int32
     for x, name, dt, shape in (
-        (bins.bin_leaf, "bin_leaf", torch.int32, (nbins,)),
-        (bins.pair_id, "pair_id", torch.int32, (nbins * LANES // bins.g,)),
-        (bins.rays, "rays", torch.float32, (bins.n, 10)),
-        (fat.leaf_feat, "leaf_feat", torch.float32, (L, K, 10, 4)),
+        (bins.bin_leaf, "bin_leaf", i32, (nbins,)),
+        (bins.pair_id, "pair_id", i32, (nbins * LANES // bins.g,)),
+        (bins.rays, "rays", f32, (n, 10)),
+        (bins.origin, "origin", f32, (n, 3)),
+        (bins.inv_dir, "inv_dir", f32, (n, 3)),
+        (bins.t_bound, "t_bound", f32, (n,)),
+        (fat.leaf_lo, "leaf_lo", f32, (L, 3)),
+        (fat.leaf_hi, "leaf_hi", f32, (L, 3)),
+        (counts, "leaf_count", i32, (L,)),
+        (fat.leaf_feat, "leaf_feat", f32, (L, K, 10, 4)),
     ):
         _check(x, name, dt, shape, dev)
-    words = torch.full((bins.n,), MISS, dtype=torch.int64, device=dev)
+    words = torch.full((n,), MISS, dtype=torch.int64, device=dev)
     if nbins == 0:
         return words
     rc = _lib().binned_min(
         bins.bin_leaf.data_ptr(), bins.pair_id.data_ptr(), bins.rays.data_ptr(),
-        fat.leaf_feat.data_ptr(), nbins, bins.n, K, bins.g, bins.pcap,
+        bins.origin.data_ptr(), bins.inv_dir.data_ptr(), bins.t_bound.data_ptr(),
+        fat.leaf_lo.data_ptr(), fat.leaf_hi.data_ptr(), counts.data_ptr(),
+        fat.leaf_feat.data_ptr(), nbins, n, K, bins.g, bins.pcap, bins.t_min,
         words.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
@@ -280,27 +355,60 @@ def launch(fat: FatBVH, bins: Bins, kind: str):
     return words
 
 
+def kernel_info(kernel: str, num_leaves: int = 0, g: int = 8, pcap: int = 16) -> dict:
+    """Registers per thread, static and dynamic shared memory (bytes),
+    resident CTAs per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)
+    and local (spill) bytes per thread of the compiled K5 (``kernel="bin"``)
+    or emission kernel (``"emit"``, whose shared memory depends on the leaf
+    count, ``g`` and ``pcap``). K5's also holds its schedule: ``run_bins``
+    bins per CTA, each leaf of a run visited once per ``pass_lanes`` lanes
+    that pass the pretest."""
+    if kernel not in ("bin", "emit"):
+        raise ValueError(f"kernel must be 'bin' or 'emit', not {kernel!r}")
+    names = ("registers", "static_smem", "dynamic_smem", "ctas_per_sm", "local_bytes")
+    if kernel == "bin":
+        names += ("run_bins", "pass_lanes")
+    out = (ctypes.c_int * 7)()
+    rc = _lib().binned_info(int(kernel == "emit"), num_leaves, g, pcap, out)
+    if rc != 0:
+        raise RuntimeError(f"binned_info failed: cudaError {rc}")
+    return dict(zip(names, out))
+
+
+def lane_rays(bins: Bins):
+    """Per lane of every bin: (its ray, whether it carries a pair of a real
+    ray). Lane ``j`` of a bin is ray ``j % g`` of the bin's pair ``j // g``."""
+    pair = bins.pair_id.repeat_interleave(bins.g)
+    ray = (pair // bins.pcap) * bins.g + torch.arange(pair.numel(), device=pair.device) % bins.g
+    return ray, (pair >= 0) & (ray < bins.n)
+
+
 def bin_min_plain(fat: FatBVH, bins: Bins):
     """Plain torch twin of :func:`launch` (same output): leaf run by leaf
-    run, exact f32 MT of every lane against the bin's leaf, lower slot on
-    equal t, folded per ray with ``scatter_reduce("amin")``."""
+    run, the lanes whose own ray passes the leaf's slab test, exact f32 MT
+    against the leaf's real triangles, lower slot on equal t, folded per ray
+    with ``scatter_reduce("amin")``."""
     dev = bins.rays.device
     L, K = fat.leaf_tri.shape
     rows = leaf_rows(fat)
+    nv = leaf_counts(fat).tolist()
     words = torch.full((bins.n,), MISS, dtype=torch.int64, device=dev)
-    pair = bins.pair_id.repeat_interleave(bins.g)  # per lane
-    ray = (pair // bins.pcap) * bins.g + torch.arange(
-        pair.numel(), device=dev) % bins.g
-    ok = (pair >= 0) & (ray < bins.n)
+    ray, ok = lane_rays(bins)
     leaves, runs = torch.unique_consecutive(bins.bin_leaf, return_counts=True)
     ends = (torch.cumsum(runs, dim=0) * LANES).tolist()
     for leaf, start, end in zip(leaves.tolist(), [0] + ends[:-1], ends):
-        if leaf < 0:
-            continue  # an empty bin: misses only
+        if leaf < 0 or nv[leaf] == 0:
+            continue  # an empty bin or leaf: misses only
+        lo, hi = fat.leaf_lo[leaf:leaf + 1], fat.leaf_hi[leaf:leaf + 1]
         for s in range(start, end, PLAIN_LANES):
             sl = slice(s, min(s + PLAIN_LANES, end))
             r = ray[sl][ok[sl]]
-            abs_a, stn, valid = _classify(mt_quantities(bins.rays[r], rows[leaf]))
+            r = r[_slab_pass(lo, hi, bins.origin[r], bins.inv_dir[r], bins.t_bound[r],
+                             bins.t_min)[:, 0]]
+            if r.numel() == 0:
+                continue
+            q = mt_quantities(bins.rays[r], rows[leaf, :, :nv[leaf] * 4])
+            abs_a, stn, valid = _classify(q)
             tt = torch.where(valid, stn / torch.where(valid, abs_a, 1.0), float("inf"))
             tk, k = torch.min(tt, dim=1)
             hit = torch.isfinite(tk)
@@ -349,4 +457,3 @@ def binned_occluded(fat: FatBVH, origin, direction, t_max, t_min=T_MIN,
     t, _ = unpack(bin_min(fat, bins, "occluded"))
     blocked = t < limit
     return (blocked, bins) if with_stats else blocked
-

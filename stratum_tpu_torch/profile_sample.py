@@ -1,10 +1,11 @@
 """Where one path-traced sample's time goes, layer by layer.
 
-    python3 -m stratum_tpu_torch.profile_sample [--seed N]
+    python3 -m stratum_tpu_torch.profile_sample [--seed N] [--binned]
 
 Builds the full atrium and renders it on ``cuda:0`` at 1920x1080 with the
-bench configuration (Disney, 4 bounces, presample 4096, coherent tiles 16),
-through ``render_path_with_counts``: one warm-up sample, then
+bench configuration (Disney, 4 bounces, presample 4096, coherent tiles 16;
+with ``--binned`` also ``binned_secondary=8, binned_shadow=8``), through
+``render_path_with_counts``: one warm-up sample, then
 
 1. the wall time of two plain samples (host clock, ending in a device
    synchronise);
@@ -15,7 +16,12 @@ through ``render_path_with_counts``: one warm-up sample, then
    whose list phase builds each CTA's front-to-back candidate list), the
    rest of the tracer wrappers,
    ``finalize_hit``, and the glue (everything else: camera, shading,
-   Disney, NEE, RNG, sort, accumulation);
+   Disney, NEE, RNG, sort, accumulation). With ``--binned`` the binned
+   tracer's layers come apart too: emission (``binned.emit``: the emission
+   kernel on the card), sort and padding (the rest of ``binned.bin_pairs``),
+   the bin step (``binned.launch``, K5) and the resolve (the rest of
+   ``binned_closest`` / ``binned_occluded``); the block tracer's layers then
+   hold the primary wave only;
 3. a torch.profiler trace of one sample: device busy time (the summed
    durations of the device's kernels, copies and fills, which run on one
    stream and do not overlap), its share of the plain sample's wall time,
@@ -35,17 +41,23 @@ import time
 
 import torch
 
-from stratum_tpu_torch.ops import block_trace
+from stratum_tpu_torch.ops import binned, block_trace
 from stratum_tpu_torch.render import camera, integrator
 from stratum_tpu_torch.scene import builtin, flatten
 
 BENCH = dict(max_bounces=4, bsdf="disney", presample_lights=4096, coherent_tiles=16)
-_PATCHED = (  # (module attribute, layer)
-    ("_prepare", "prep"),
-    ("launch", "kernel"),
-    ("block_closest", "trace"),
-    ("block_occluded", "trace"),
-    ("finalize_hit", "finalize_hit"),
+BINNED = dict(binned_secondary=8, binned_shadow=8)
+_PATCHED = (  # (module, attribute, layer)
+    (block_trace, "_prepare", "prep"),
+    (block_trace, "launch", "kernel"),
+    (block_trace, "block_closest", "trace"),
+    (block_trace, "block_occluded", "trace"),
+    (block_trace, "finalize_hit", "finalize_hit"),
+    (binned, "emit", "emit"),
+    (binned, "bin_pairs", "bin_pairs"),
+    (binned, "launch", "bin_step"),
+    (binned, "binned_closest", "binned"),
+    (binned, "binned_occluded", "binned"),
 )
 
 
@@ -56,12 +68,12 @@ def _sync(device):
 
 @contextlib.contextmanager
 def timed_layers(device):
-    """Time every call of the block tracer's layers (ms, calls) while the
-    context is open; the module's functions are restored on exit."""
-    acc = {layer: [0.0, 0] for _, layer in _PATCHED}
+    """Time every call of the tracers' layers (ms, calls) while the
+    context is open; the modules' functions are restored on exit."""
+    acc = {layer: [0.0, 0] for _, _, layer in _PATCHED}
     saved = []
-    for name, layer in _PATCHED:
-        real = getattr(block_trace, name)
+    for mod, name, layer in _PATCHED:
+        real = getattr(mod, name)
 
         def timed(*a, _real=real, _layer=layer, **k):
             _sync(device)
@@ -72,20 +84,22 @@ def timed_layers(device):
             acc[_layer][1] += 1
             return out
 
-        saved.append((name, real))
-        setattr(block_trace, name, timed)
+        saved.append((mod, name, real))
+        setattr(mod, name, timed)
     try:
         yield acc
     finally:
-        for name, real in saved:
-            setattr(block_trace, name, real)
+        for mod, name, real in saved:
+            setattr(mod, name, real)
 
 
 def layer_split(scene, view, cfg, seed: int) -> dict:
     """One sample with each layer timed alone -> {layer: ms}, plus calls.
-    ``trace_other`` is the tracer wrappers' time outside prep and kernel
-    (slicing, and on CPU tensors the plain versions); ``glue`` is the
-    sample's time outside the tracer wrappers and ``finalize_hit``."""
+    ``trace_other`` is the block tracer wrappers' time outside prep and
+    kernel (slicing, and on CPU tensors the plain versions); ``sort_pad``
+    is ``bin_pairs`` outside the emission, ``resolve`` the binned wrappers
+    outside ``bin_pairs`` and the bin step; ``glue`` is the sample's time
+    outside the tracer wrappers and ``finalize_hit``."""
     dev = scene.device
     _sync(dev)
     t0 = time.perf_counter()
@@ -99,8 +113,12 @@ def layer_split(scene, view, cfg, seed: int) -> dict:
         prep=ms["prep"],
         kernel=ms["kernel"],
         trace_other=ms["trace"] - ms["prep"] - ms["kernel"],
+        emit=ms["emit"],
+        sort_pad=ms["bin_pairs"] - ms["emit"],
+        bin_step=ms["bin_step"],
+        resolve=ms["binned"] - ms["bin_pairs"] - ms["bin_step"],
         finalize_hit=ms["finalize_hit"],
-        glue=total - ms["trace"] - ms["finalize_hit"],
+        glue=total - ms["trace"] - ms["binned"] - ms["finalize_hit"],
         calls={layer: v[1] for layer, v in acc.items()},
     )
 
@@ -130,6 +148,8 @@ def device_profile(scene, view, cfg, seed: int, top: int = 8):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--binned", action="store_true",
+                    help="profile the binned path (binned_secondary=8, binned_shadow=8)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_sample: torch.cuda.is_available() is false")
@@ -144,7 +164,7 @@ def main() -> int:
     node, cam = flatten.find_camera(g.root)
     W, H = 1920, 1080
     view = camera.make_view(node.to_world(), cam.fovy, W, H, device=dev)
-    cfg = integrator.RenderConfig(width=W, height=H, **BENCH)
+    cfg = integrator.RenderConfig(width=W, height=H, **BENCH, **(BINNED if args.binned else {}))
     integrator.render_path_with_counts(scene, view, cfg, 0)  # warm-up
     torch.cuda.synchronize()
 
@@ -158,7 +178,9 @@ def main() -> int:
     print(f"[wall] plain samples {walls[0]:.3f} / {walls[1]:.3f} ms, mean {wall:.3f} ms")
 
     split = layer_split(scene, view, cfg, args.seed)
-    for layer in ("prep", "kernel", "trace_other", "finalize_hit", "glue"):
+    binned_layers = ("emit", "sort_pad", "bin_step", "resolve") if args.binned else ()
+    layers = ("prep", "kernel", "trace_other", *binned_layers, "finalize_hit", "glue")
+    for layer in layers:
         print(f"[layer] {layer}: {split[layer]:.3f} ms "
               f"({100 * split[layer] / split['sample']:.1f} % of {split['sample']:.3f} ms)")
     print(f"[layer] calls: {split['calls']}")
@@ -173,7 +195,8 @@ def main() -> int:
         print(f"[device] op {name}: {ms:.3f} ms")
     print(smi)
     print(json.dumps(dict(
-        device=smi, wall_ms=wall, split_ms={k: v for k, v in split.items() if k != "calls"},
+        device=smi, binned=args.binned, wall_ms=wall,
+        split_ms={k: v for k, v in split.items() if k != "calls"},
         calls=split["calls"], device_busy_ms=busy,
         busy_share=None if busy is None else busy / wall,
         top_ops_ms=ops,

@@ -210,7 +210,9 @@ def test_overflow_counts_and_lost_lanes(cases):
 
 def test_bin_min_plain_matches_a_brute_loop(cases):
     """The plain bin step against a per-lane loop in numpy (f32, the same
-    accept rule and sum order): the same words, bit for bit."""
+    slab pretest of the lane's own ray against the bin's leaf box, the same
+    accept rule and sum order, every slot of the leaf, padding included):
+    the same words, bit for bit."""
     for name, g in (("atrium", 8), ("random", 16)):
         c = cases[name]
         bins = binned.bin_pairs(c["fat"], _t(c["o"]), _t(c["d"]), _t(c["t_max"]), g=g,
@@ -219,13 +221,23 @@ def test_bin_min_plain_matches_a_brute_loop(cases):
         L, K = c["fat"].leaf_tri.shape
         rows = block_trace.leaf_rows(c["fat"]).numpy().reshape(L, 10, K, 4)
         rays = bins.rays.numpy()
+        lo, hi = c["fat"].leaf_lo.numpy(), c["fat"].leaf_hi.numpy()
+        org, inv, tb = bins.origin.numpy(), bins.inv_dir.numpy(), bins.t_bound.numpy()
         want = np.full(bins.n, binned.MISS, np.int64)
         bw = binned.LANES // g
+        skipped = 0
         for b, leaf in enumerate(bins.bin_leaf.tolist()):
             for lane in range(binned.LANES):
                 pid = int(bins.pair_id[b * bw + lane // g])
                 ray = pid // bins.pcap * g + lane % g
                 if leaf < 0 or pid < 0 or ray >= bins.n:
+                    continue
+                t0 = (lo[leaf] - org[ray]) * inv[ray]
+                t1 = (hi[leaf] - org[ray]) * inv[ray]
+                tn = max(np.minimum(t0, t1).max(), np.float32(0.0))
+                tf = np.maximum(t0, t1).min()
+                if not (tn <= tf and tf >= np.float32(bins.t_min) and tn < tb[ray]):
+                    skipped += 1
                     continue
                 q = rays[ray, 0] * rows[leaf, 0]
                 for f in range(1, 10):
@@ -241,7 +253,7 @@ def test_bin_min_plain_matches_a_brute_loop(cases):
                     w = (int(tt[k].view(np.int32)) << 32) | (leaf * K + k)
                     want[ray] = min(want[ray], w)
         np.testing.assert_array_equal(words, want)
-        assert (words != binned.MISS).sum() > 100
+        assert (words != binned.MISS).sum() > 100 and skipped > 100
 
 
 def test_wrappers_take_the_plain_version_on_cpu(cases):

@@ -183,11 +183,32 @@ def test_profile_layer_split_attributes_the_tracer_calls(case):
     split = profile_sample.layer_split(
         case["ps"], case["pview"], integrator.RenderConfig(**BENCH), 0
     )
-    assert split["calls"] == {"prep": 0, "kernel": 0, "trace": 6, "finalize_hit": 5}
+    assert split["calls"] == {"prep": 0, "kernel": 0, "trace": 6, "finalize_hit": 5,
+                              "emit": 0, "bin_pairs": 0, "bin_step": 0, "binned": 0}
     parts = [split[k] for k in ("prep", "kernel", "trace_other", "finalize_hit", "glue")]
     assert min(parts) >= 0.0 and split["trace_other"] > 0.0
     assert sum(parts) == pytest.approx(split["sample"], rel=1e-9)
     assert (block_trace.block_closest, block_trace._prepare, block_trace.finalize_hit) == real
+
+
+def test_profile_layer_split_of_the_binned_path(case):
+    """``profile_sample --binned``'s split on CPU tensors: the primary wave
+    on the block tracer, four binned closest waves and the binned deferred
+    wave, each through the emission (plain ``_emit`` here, no kernel), sort
+    and padding and the resolve; the layers add up to the sample and the
+    binned module's functions are restored afterwards."""
+    from stratum_tpu_torch import profile_sample
+
+    real = binned.emit, binned.bin_pairs, binned.launch, binned.binned_closest
+    cfg = integrator.RenderConfig(**BENCH, **profile_sample.BINNED)
+    split = profile_sample.layer_split(case["ps"], case["pview"], cfg, 0)
+    assert split["calls"] == {"prep": 0, "kernel": 0, "trace": 1, "finalize_hit": 5,
+                              "emit": 5, "bin_pairs": 5, "bin_step": 0, "binned": 5}
+    parts = [split[k] for k in ("prep", "kernel", "trace_other", "emit", "sort_pad",
+                                "bin_step", "resolve", "finalize_hit", "glue")]
+    assert min(parts) >= 0.0 and split["emit"] > 0.0 and split["resolve"] > 0.0
+    assert sum(parts) == pytest.approx(split["sample"], rel=1e-9)
+    assert (binned.emit, binned.bin_pairs, binned.launch, binned.binned_closest) == real
 
 
 @pytest.mark.parametrize("depth", [0, 1, 3])
