@@ -23,8 +23,9 @@ Phases, each printing its results:
    per-2048-block figure on every wave. Then K3 (the same kernel at group
    size 1) on closest wave 1 and the deferred wave, against the same plain
    results, timed beside K1/K2;
-4. parity: the tiny atrium at 64x32, seeds 0-3, against the JAX reference's
-   golden images (tests/golden/torch_atrium_tiny.npz);
+4. parity: the tiny atrium at 64x32, seeds 0-3, on the block kernel
+   (``tracer="pallas"``), against the JAX reference's golden images
+   (tests/golden/torch_atrium_tiny.npz);
 5. main path: ``render_path_with_counts`` on the full atrium at 1920x1080
    with the bench configuration (Disney, 4 bounces, presample 4096,
    coherent tiles 16): 1 warm-up and 4 timed samples; the kernel launch
@@ -58,7 +59,31 @@ Phases, each printing its results:
    with the card full, both by T1 ``epi`` (tensor cores) and by K1 (its
    exact-f32 counterpart), and by K1 at 21 real slots per leaf (the
    atrium's entered leaves hold ~21 triangles; K1 visits only a leaf's
-   real triangles).
+   real triangles);
+9. past the shared-memory budgets: a synthetic atrium (``BIG_ATRIUM``,
+   ~10,400 SAH leaves) whose gs=1 lists need 16,384 keys and whose emission
+   boxes need more than 227 KB. On its camera wave and a shadow wave from
+   its hits: K3 in the global list mode against the plain walk, its per-CTA
+   lists bit for bit against ``candidate_lists(..., block=128,
+   live_only=True)``, the tiled emission against ``_emit`` bit for bit,
+   with times, scratch and shared bytes. Then on the full atrium's primary
+   and shadow waves the forced global list mode (gs 4 and 1) and the forced
+   tiled emission against the default modes, bit for bit, both timed;
+10. the Cornell path: ``render_path_with_counts`` on the Cornell box at
+   1920x1080 with bench.py's cornell_e2e configuration (Lambert, 4 bounces,
+   presample 4096, ``tracer="auto"``), which must resolve to the dense
+   tracer with a shadow wave per bounce (no deferred wave) and launch no
+   kernel; its primary wave against ``intersect_brute_force`` (the same
+   triangle on non-degenerate rays, t within 2^-12) and its product against
+   float64 (TF32 off); 1 warm-up and 4 timed samples (ms/spp, Mrays/s,
+   peak memory) and the device busy share of one profiled sample;
+11. the reference's golden images (cornell_path, cornell_disney,
+   spheres_disney) through ``render_path_progressive`` within twice the CPU
+   tests' bounds; the white furnace (environment pixels exactly 0.5, the
+   sphere within 4 % of 0.4); ``render_direct`` on the Cornell box at
+   1080p with ``auto`` and ``brute``, finite and in agreement;
+12. ``tests/test_torch_cuda.py`` in a subprocess (``--noconftest``): every
+   test must pass, none skip.
 
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 result line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -254,6 +279,78 @@ def _words_record(words):
     t, slot = binned.unpack(words)
     hit = torch.isfinite(t)
     return block_trace._slot_record(t, torch.where(hit, slot, -1))
+
+
+def _bounce_rays(scene, tile, lo, hi, o, d, h, rng):
+    """Cosine-sampled bounce rays and shadow rays toward presampled lights
+    (rows of ``tile``) from the block tracer's hits ``h`` of rays (o, d);
+    misses become dead lanes -> ((o2, d2, t_max2), (o3, w3, t_max3))."""
+    import numpy as np
+    import torch
+    from stratum_tpu_torch.core import math as smath
+    from stratum_tpu_torch.ops import block_trace
+    from stratum_tpu_torch.ops.intersect import T_MAX, ray_offset
+    from stratum_tpu_torch.render import integrator
+    from stratum_tpu_torch.render.shading import shading_point_from_row
+
+    n, dev = o.shape[0], o.device
+    hf = block_trace.finalize_hit(scene.slot_payload, o, d, h)
+    sp = shading_point_from_row(hf.payload[:, :32], hf.tri, hf.bary, d)
+    u = torch.from_numpy(rng.random((n, 2), dtype=np.float32)).to(dev)
+    d2 = smath.to_world(smath.sample_cos_hemisphere(u[:, 0], u[:, 1]), sp.geom_normal)
+    o2 = ray_offset(sp.position, sp.geom_normal)
+    tm2 = torch.where(hf.hit, T_MAX, 0.0)
+    idx = torch.from_numpy(rng.integers(0, tile.shape[0], n)).to(dev)
+    ls = integrator.tile_row_sample(tile, idx)
+    wi, dist, cos_l, _ = integrator.light_segment(ls, sp.position, o2, lo, hi)
+    tm3 = torch.where(hf.hit & (cos_l > 0), dist, 0.0)
+    return (o2, d2, tm2), (o2, wi, tm3)
+
+
+def _zero_launches():
+    from stratum_tpu_torch.ops import binned, block_trace
+
+    for counts in (block_trace.LAUNCHES, binned.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def _timed_samples(scene, view, cfg_run, label, scene_name, smi):
+    """1 warm-up and 4 timed samples of ``render_path_with_counts`` with
+    every launch counter zeroed just before and read just after ->
+    (launches, last image, dict of ms/spp, Mrays/s, peak GiB, image mean)."""
+    import torch
+    from stratum_tpu_torch.ops import binned, block_trace
+    from stratum_tpu_torch.render import integrator
+
+    W, H = cfg_run.width, cfg_run.height
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    samples, times, total_rays = 5, [], 0
+    for seed in range(samples):
+        t0 = time.perf_counter()
+        img, n = integrator.render_path_with_counts(scene, view, cfg_run, seed)
+        n = int(n)  # synchronizes, like the reference bench's fetch
+        torch.cuda.synchronize()
+        if seed > 0:  # sample 0 is the warm-up
+            times.append(time.perf_counter() - t0)
+            total_rays += n
+    launches = {f"block {k}": v for k, v in block_trace.LAUNCHES.items()}
+    launches.update({f"binned {k}": v for k, v in binned.LAUNCHES.items()})
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    mean = float(img.mean())
+    ms_spp = sum(times) / len(times) * 1e3
+    mrays = total_rays / sum(times) / 1e6
+    print(f"[{label}] {scene_name} {W}x{H} {cfg_run.max_bounces} bounces {cfg_run.bsdf} "
+          f"({integrator.resolved_tracer(scene, cfg_run)}): "
+          f"{ms_spp:.1f} ms/spp, {mrays:.3f} Mrays/s ({total_rays // len(times)} rays/spp), "
+          f"launches/sample {{{', '.join(f'{k}: {v / samples}' for k, v in launches.items())}}}, "
+          f"peak {peak_gib:.2f} GiB, image mean {mean:.6f} | {smi}", flush=True)
+    assert bool(torch.isfinite(img).all()) and mean > 0
+    assert total_rays // len(times) > W * H
+    return launches, img, dict(ms_spp=ms_spp, mrays=mrays, peak_gib=peak_gib, mean=mean,
+                               rays_per_sample=total_rays // len(times))
 
 
 def _build():
@@ -738,6 +835,350 @@ def _microbench():
                   flush=True)
     return entries
 
+# ---- phases 9-12 -----------------------------------------------------------------
+
+# a synthetic atrium past both shared-memory budgets: 1,836,000 triangles in
+# ~10,400 SAH leaves (the atrium's ~176 triangles a leaf), so at gs = 1 a
+# CTA's list needs 16,384 keys (> MAX_LIST_KEYS) and the emission's boxes at
+# g = 8, pcap = 16 more than 227 KB
+BIG_ATRIUM = dict(columns=6, stacks=88, slices=176)
+BIG_LEAVES = (10000, 12000)  # the leaf count asked of it
+BIG_FRAME = (512, 288)  # camera rays of the past-the-budget waves
+CORNELL = dict(max_bounces=4, presample_lights=4096)  # bench.py's cornell_e2e cfg2
+EDGE = 1e-4  # barycentric margin of a non-degenerate hit
+F64_REL = 1e-5  # dense product against float64, relative to its magnitude (TF32: ~1e-3)
+GOLDENS = {  # tests/update_goldens.py:41-52 (48x48, rr_depth=100)
+    "cornell_path": ("cornell_box", {}, 16, dict(max_bounces=3)),
+    "cornell_disney": ("cornell_box", {}, 16, dict(max_bounces=3, bsdf="disney")),
+    "spheres_disney": ("material_spheres", dict(stacks=12, slices=24), 8,
+                       dict(max_bounces=4, bsdf="disney")),
+}
+FURNACE_REL = 0.04  # sphere mean against albedo x radiance (tests/test_torch_dense_path.py)
+DIRECT_MEAN_REL = 1e-3  # render_direct, auto (mxu) against brute
+DIRECT_PIXEL_SHARE = 0.999
+GPU_TESTS = 10  # tests in tests/test_torch_cuda.py
+
+
+def _modes_equal(fat, o, d, bound, occluded, gs):
+    """The forced global list mode against the default (shared) mode on one
+    wave: outputs and per-CTA lists bit for bit, both timed -> dict."""
+    import torch
+    from stratum_tpu_torch.ops import block_trace
+
+    prep = block_trace._prepare(fat, o, d, bound, gs)
+    _, ms = _timed(lambda: block_trace.launch(fat, prep, occluded), reps=3)
+    _, ms_g = _timed(lambda: block_trace.launch(fat, prep, occluded, list_mode="global"), reps=3)
+    want = block_trace.launch(fat, prep, occluded, stats="lists")
+    got = block_trace.launch(fat, prep, occluded, stats="lists", list_mode="global")
+    for a, b in zip(got[:-1] + tuple(got[-1]), want[:-1] + tuple(want[-1])):
+        assert torch.equal(a, b), (occluded, gs)
+    G = prep.group_lo.shape[0]
+    n_cta = prep.rays.shape[0] // block_trace.CTA
+    return dict(gs=gs, ms_shared=ms, ms_global=ms_g, groups=G,
+                shared_bytes=8 * block_trace.list_keys(G),
+                scratch_bytes=8 * block_trace.list_keys(G)
+                * block_trace.list_scratch_ctas(G, n_cta))
+
+
+def _tiles_equal(fat, o, d, bound, g=8, pcap=16):
+    """The forced tiled emission against the default on one wave, both
+    emission modes, count and slots bit for bit, timed -> dict."""
+    import torch
+    from stratum_tpu_torch.ops import binned, block_trace
+
+    op, ip, tp = binned.pad_wave(o, d, bound, g)
+    out = {}
+    for em in ("ray", "group"):
+        (c0, s0), ms = _timed(lambda: binned.emit_launch(
+            fat, op, ip, tp, block_trace.T_MIN, g, pcap, em), reps=3)
+        (c1, s1), ms_t = _timed(lambda: binned.emit_launch(
+            fat, op, ip, tp, block_trace.T_MIN, g, pcap, em, "tiled"), reps=3)
+        assert torch.equal(c0, c1) and torch.equal(s0, s1), em
+        out[em] = dict(ms=ms, ms_tiled=ms_t)
+    L = fat.num_leaves
+    tile = binned.emit_tile_leaves(L, g, pcap, "tiled")
+    return dict(out, tile_leaves=tile, tiles=-(-L // tile),
+                smem=binned.emit_smem(L, g, pcap), smem_tiled=binned.emit_smem(tile, g, pcap))
+
+
+def _past_budgets(dev, atrium, atrium_waves, rng):
+    """Phase 9: a synthetic atrium past both shared-memory budgets. On its
+    camera wave and a shadow wave from its hits, at gs = 1: K3 against the
+    plain walk, its per-CTA lists (global mode) bit for bit against
+    ``candidate_lists(..., block=128, live_only=True)``, the emission kernel
+    (tiled) against ``_emit`` bit for bit; then, on the full atrium, the
+    forced global list mode and the forced tiled emission against the
+    default modes, bit for bit -> dict of results."""
+    import numpy as np
+    import torch
+    from stratum_tpu_torch.ops import binned, block_trace
+    from stratum_tpu_torch.ops.intersect import T_MAX
+    from stratum_tpu_torch.render import camera, integrator
+    from stratum_tpu_torch.scene import builtin, flatten
+
+    t0 = time.perf_counter()
+    g = builtin.atrium(**BIG_ATRIUM)
+    big, stats = flatten.flatten(g.root, device=dev)
+    fat = big.fat_bvh
+    L = fat.num_leaves
+    keys, tile = block_trace.list_keys(L), binned.emit_tile_leaves(L, 8, 16)
+    print(f"[9 past the budgets] atrium {BIG_ATRIUM}: {stats.num_triangles} triangles, "
+          f"{L} leaves, built in {time.perf_counter() - t0:.2f} s; gs=1 lists of {keys} keys "
+          f"({block_trace.resolve_list_mode(L)} mode; shared memory holds "
+          f"{block_trace.MAX_LIST_KEYS}); emission boxes of all leaves "
+          f"{binned.emit_smem(L, 8, 16)} B > {binned.EMIT_SMEM_BUDGET} B: tiles of {tile} "
+          f"leaves ({binned.emit_smem(tile, 8, 16)} B)", flush=True)
+    assert BIG_LEAVES[0] <= L <= BIG_LEAVES[1], L
+    assert block_trace.resolve_list_mode(L) == "global" and tile < L
+    for occluded in (False, True):
+        print(f"[9 kernel] block_trace_kernel<{str(occluded).lower()}, global lists> at "
+              f"gs=1 (G={L}): {block_trace.kernel_info(occluded, L, 'global')}", flush=True)
+    print(f"[9 kernel] binned_emit_kernel (g=8, pcap=16) at {L} leaves: "
+          f"{binned.kernel_info('emit', L)}", flush=True)
+    W, H = BIG_FRAME
+    node, cam = flatten.find_camera(g.root)
+    view = camera.make_view(node.to_world(), cam.fovy, W, H, device=dev)
+    px, py = camera.pixel_grid_tiled(W, H, *camera.tile_dims(W, H), dev)
+    jitter = torch.from_numpy(rng.random((W * H, 2), dtype=np.float32)).to(dev)
+    o, d = camera.generate_rays(view, px, py, jitter, W, H)
+    o, tm = o.contiguous(), torch.full((W * H,), T_MAX, device=dev)
+    lo, hi = big.geo.positions.amin(dim=0), big.geo.positions.amax(dim=0)
+    cfg = integrator.RenderConfig(width=W, height=H, **BENCH)
+    rows = integrator.light_tile_for(big, cfg, 0, lo, hi)
+    res = {}
+    hk = None
+    for occluded in (False, True):
+        if occluded:
+            _, (o, d, tm) = _bounce_rays(big, rows, lo, hi, o, d, hk, rng)
+        bound = tm * block_trace.SHADOW_EPS if occluded else tm
+        kind = "occluded" if occluded else "closest"
+        prep = block_trace._prepare(fat, o, d, bound, gs=1)
+        _, ms = _timed(lambda: block_trace.launch(fat, prep, occluded), reps=3)
+        *_, lists = block_trace.launch(fat, prep, occluded, stats="lists")
+        per_cta = _check_lists(fat, o, d, bound, lists, 1)
+        prep4 = block_trace._prepare(fat, o, d, bound)
+        _, ms4 = _timed(lambda: block_trace.launch(fat, prep4, occluded), reps=3)
+        if occluded:
+            ok = block_trace.block_occluded(fat, o, d, tm, gs=1)
+            op, plain_ms = _timed(lambda: block_trace.block_occluded_plain(fat, o, d, tm),
+                                  warmup=False)
+            agree = _check_occluded("K3 occluded (global lists) vs plain", ok, op, tm > 0)
+        else:
+            hk = block_trace.block_closest(fat, o, d, tm, gs=1)
+            hp, plain_ms = _timed(lambda: block_trace.block_closest_plain(fat, o, d, tm),
+                                  warmup=False)
+            agree = _compare_closest(fat, o, d, hk, hp, tm > 0)
+            _check_closest("K3 closest (global lists) vs plain", agree)
+        em = _emission(fat, o, d, bound, 8, 16)
+        G = prep.group_lo.shape[0]
+        n_cta = prep.rays.shape[0] // block_trace.CTA
+        scratch = 8 * keys * block_trace.list_scratch_ctas(G, n_cta)
+        print(f"[9 past the budgets] {kind} wave ({o.shape[0]} lanes, {int((tm > 0).sum())} "
+              f"live): K3 with global lists {ms:.3f} ms ({n_cta} CTAs, scratch {scratch} B, "
+              f"lists equal to the plain list phase, {per_cta:.2f} groups per CTA), K1/K2 at "
+              f"gs=4 with shared lists {ms4:.3f} ms ({8 * block_trace.list_keys(prep4.group_lo.shape[0])} "
+              f"B of keys a CTA), plain {plain_ms:.3f} ms; tiled emission {em['ms']:.3f} ms "
+              f"(bound {em['bound_ms']:.3f} ms, {em['bound_by']}), torch emission "
+              f"{em['plain_ms']:.3f} ms, count and slots equal", flush=True)
+        res[kind] = dict(agree, ms_global=ms, ms_gs4_shared=ms4, plain_ms=plain_ms,
+                         ncand_cta=per_cta, scratch_bytes=scratch, ctas=n_cta,
+                         emit=dict(ms=em["ms"], plain_ms=em["plain_ms"],
+                                   bound_ms=em["bound_ms"], bound_by=em["bound_by"]))
+    res.update(leaves=L, triangles=stats.num_triangles, list_keys=keys, emit_tile=tile,
+               emit_smem_all=binned.emit_smem(L, 8, 16),
+               emit_smem_tiled=binned.emit_smem(tile, 8, 16))
+    del big, fat, prep, prep4, lists
+    torch.cuda.empty_cache()
+
+    # the full atrium: forced modes against the defaults
+    fat = atrium.fat_bvh
+    forced = {}
+    for kind, (o, d, bound) in atrium_waves.items():
+        occluded = kind == "occluded"
+        forced[kind] = [_modes_equal(fat, o, d, bound, occluded, gs) for gs in (4, 1)]
+        forced[kind + " emission"] = _tiles_equal(fat, o, d, bound)
+        for m in forced[kind]:
+            print(f"[9 forced modes] atrium {kind} wave ({o.shape[0]} lanes) gs={m['gs']}: "
+                  f"shared lists {m['ms_shared']:.3f} ms ({m['shared_bytes']} B), forced "
+                  f"global {m['ms_global']:.3f} ms (scratch {m['scratch_bytes']} B), results "
+                  f"and lists equal", flush=True)
+        e = forced[kind + " emission"]
+        print(f"[9 forced modes] atrium {kind} wave emission (g=8, pcap=16): "
+              + ", ".join(f"em={em} one tile {e[em]['ms']:.3f} ms, {e['tiles']} tiles of "
+                          f"{e['tile_leaves']} {e[em]['ms_tiled']:.3f} ms" for em in ("ray", "group"))
+              + f" ({e['smem']} / {e['smem_tiled']} B); count and slots equal", flush=True)
+    res["atrium_forced"] = forced
+    return res
+
+
+def _dense_checks(scene, o, d, tm):
+    """One primary wave of the Cornell path: the dense tracer against
+    ``intersect_brute_force`` (the same tri on non-degenerate rays, t within
+    T_REL) and its product against a float64 product -> dict."""
+    import torch
+    from stratum_tpu_torch.ops import intersect, mxu
+
+    hm = mxu.intersect_mxu(o, d, scene.tri_features, t_max=tm)
+    hb = intersect.intersect_brute_force(o, d, scene.geo.positions, scene.geo.indices, t_max=tm)
+    w = 1.0 - hb.bary.sum(dim=1)
+    clean = (hb.tri >= 0) & (hb.bary.amin(dim=1) > EDGE) & (w > EDGE)
+    rel = (hm.t - hb.t).abs() / hb.t.clamp(min=1e-30)
+    # a tie: two (coplanar) triangles at the same t, either may win
+    tie = (hm.tri != hb.tri) & (hm.tri >= 0) & (hb.tri >= 0) & (rel <= T_REL)
+    agree = float(((hm.tri == hb.tri) | tie).float().mean())
+    assert agree >= BATCH_AGREE, agree
+    assert not bool((clean & (hm.tri != hb.tri) & ~tie).any())
+    assert int((clean & tie).sum()) <= 0.005 * int(clean.sum())
+    t_rel = float(rel[clean].max())
+    assert t_rel <= T_REL, t_rel
+    n = min(o.shape[0], mxu.RAY_CHUNK)
+    rays = mxu.ray_features(o[:n], d[:n])
+    feat = scene.tri_features
+    c = feat.shape[0]
+    q = torch.stack(mxu._chunk_quants(rays, feat), dim=-1)  # a, u, v, t (u, v, t divided)
+    f64 = (rays.double() @ feat.double().permute(1, 0, 2).reshape(10, c * 4)).view(n, c, 4)
+    mag = (rays.double().abs() @ feat.double().abs().permute(1, 0, 2).reshape(10, c * 4))
+    a_ratio = float(((q[..., 0].double() - f64[..., 0]).abs()
+                     / (F64_REL * mag.view(n, c, 4)[..., 0]).clamp(min=1e-30)).max())
+    assert a_ratio <= 1.0, a_ratio
+    return dict(rays=o.shape[0], clean=int(clean.sum()), ties=int(tie.sum()), agree=agree,
+                tri_equal_clean=float((hm.tri == hb.tri)[clean].float().mean()),
+                t_rel_err=t_rel, f64_err_ratio=a_ratio)
+
+
+def _cornell(dev, smi):
+    """Phase 10: the Cornell path at full width, ``render_path_with_counts``
+    at 1920x1080 with bench.py's cornell_e2e configuration -> dict."""
+    import torch
+    from stratum_tpu_torch import profile_sample
+    from stratum_tpu_torch.render import camera, integrator
+    from stratum_tpu_torch.scene import builtin, flatten
+
+    g = builtin.cornell_box()
+    scene, stats = flatten.flatten(g.root, device=dev)
+    W, H = FRAME
+    node, cam = flatten.find_camera(g.root)
+    view = camera.make_view(node.to_world(), cam.fovy, W, H, device=dev)
+    cfg = integrator.RenderConfig(width=W, height=H, **CORNELL)
+    tracer = integrator.resolved_tracer(scene, cfg)
+    assert tracer == "mxu", tracer
+    waves = {}
+    integrator.render_path_with_counts(scene, view, cfg, 0, capture=waves)
+    # every bounce traces its own shadow wave: no deferred wave on a dense tracer
+    assert [w[0].shape[0] for w in waves["closest"]] == [W * H] * (cfg.max_bounces + 1)
+    assert [w[0].shape[0] for w in waves["occluded"]] == [W * H] * (cfg.max_bounces + 1)
+    checks = _dense_checks(scene, *waves["closest"][0])
+    print(f"[10 cornell] {stats.num_triangles} triangles ({scene.geo.num_triangles} padded): "
+          f"tracer {tracer}, {len(waves['closest'])} closest and {len(waves['occluded'])} "
+          f"per-bounce shadow waves of {W * H} lanes; primary wave vs intersect_brute_force: "
+          f"{checks}", flush=True)
+    del waves
+    launches, img, line = _timed_samples(scene, view, cfg, "10 cornell path", "cornell", smi)
+    assert not any(launches.values()), launches  # the dense path launches no kernel
+    busy, ops = profile_sample.device_profile(scene, view, cfg, 1)
+    line.update(checks=checks, tracer=tracer, device_busy_ms=busy,
+                busy_share=None if busy is None else busy / line["ms_spp"],
+                top_ops_ms=ops[:4])
+    share = ("not measured: the profiler recorded no device events" if busy is None
+             else f"{busy:.3f} ms of a {line['ms_spp']:.1f} ms sample, "
+                  f"{100 * busy / line['ms_spp']:.1f} %")
+    print(f"[10 cornell] device busy {share}; top ops "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in ops[:4]), flush=True)
+    return scene, view, line
+
+
+def _parity(img, ref):
+    """(mean relative difference, share of pixels within 1e-3) of an image
+    against a reference, asserted within the doubled CPU-test bounds."""
+    import numpy as np
+
+    mean_rel = abs(img.mean() - ref.mean()) / ref.mean()
+    pix = float(np.all(np.abs(img - ref) <= 1e-3 * (1 + np.abs(ref)), axis=-1).mean())
+    assert np.isfinite(img).all() and mean_rel <= PARITY_MEAN_REL and pix >= PARITY_PIXEL_SHARE
+    return float(mean_rel), pix
+
+
+def _goldens(dev, cornell_scene, cornell_view):
+    """Phase 11: the reference's golden images through
+    ``render_path_progressive``, the white furnace, and ``render_direct``
+    on the Cornell box at 1080p with ``auto`` and ``brute`` -> dict."""
+    import numpy as np
+    import torch
+    from stratum_tpu_torch.render import camera, integrator
+    from stratum_tpu_torch.scene import builtin, flatten
+
+    out = {}
+    for name, (scene_fn, kw, spp, cfg_kw) in GOLDENS.items():
+        g = getattr(builtin, scene_fn)(**kw)
+        scene, _ = flatten.flatten(g.root, device=dev)
+        node, cam = flatten.find_camera(g.root)
+        view = camera.make_view(node.to_world(), cam.fovy, 48, 48, device=dev)
+        cfg = integrator.RenderConfig(width=48, height=48, rr_depth=100, **cfg_kw)
+        img = integrator.render_path_progressive(scene, view, cfg, spp).cpu().numpy()
+        ref = np.load(ROOT / "tests" / "golden" / f"{name}.npy")
+        mean_rel, pix = _parity(img, ref)
+        out[name] = dict(mean=float(img.mean()), ref_mean=float(ref.mean()), mean_rel=mean_rel,
+                         pixels=pix)
+        print(f"[11 goldens] {name} ({integrator.resolved_tracer(scene, cfg)}, {spp} spp): "
+              f"mean {img.mean():.6f} vs {ref.mean():.6f} (rel {mean_rel:.2e}), pixels "
+              f"agreeing {pix:.4f}", flush=True)
+    g = builtin.furnace()
+    scene, _ = flatten.flatten(g.root, device=dev)
+    node, cam = flatten.find_camera(g.root)
+    n = 128
+    view = camera.make_view(node.to_world(), cam.fovy, n, n, device=dev)
+    img = integrator.render_path_progressive(
+        scene, view, integrator.RenderConfig(width=n, height=n, max_bounces=4), 16).cpu().numpy()
+    px, py = np.meshgrid(np.arange(n) + 0.5, np.arange(n) + 0.5)
+    tan = np.hypot(px - n / 2, py - n / 2) / (n / 2) * np.tan(np.radians(22.5))
+    env, sphere = tan > 0.3, tan < 0.2  # the sphere subtends tan(asin(1 / 4)) = 0.258
+    sphere_mean = float(img[sphere].mean())
+    print(f"[11 furnace] {n}x{n}, 16 spp: environment pixels all 0.5: "
+          f"{bool(np.all(img[env] == np.float32(0.5)))}; sphere mean {sphere_mean:.6f} "
+          f"(albedo x radiance 0.4, bound {FURNACE_REL:.0%})", flush=True)
+    assert np.all(img[env] == np.float32(0.5))
+    assert abs(sphere_mean - 0.4) <= FURNACE_REL * 0.4
+    out["furnace"] = dict(sphere_mean=sphere_mean, env_exact=True)
+    W, H = FRAME
+    imgs = {}
+    for tracer in ("auto", "brute"):
+        cfg = integrator.RenderConfig(width=W, height=H, tracer=tracer)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imgs[tracer] = integrator.render_direct(cornell_scene, cornell_view, cfg, 0)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        assert bool(torch.isfinite(imgs[tracer]).all())
+        out[f"direct_{tracer}_ms"] = ms
+    a, b = imgs["auto"].cpu().numpy(), imgs["brute"].cpu().numpy()
+    mean_rel = abs(a.mean() - b.mean()) / b.mean()
+    pix = float(np.all(np.abs(a - b) <= 1e-3 * (1 + np.abs(b)), axis=-1).mean())
+    print(f"[11 direct] cornell {W}x{H} render_direct: auto (mxu) {out['direct_auto_ms']:.1f} ms, "
+          f"brute {out['direct_brute_ms']:.1f} ms; means {a.mean():.6f} / {b.mean():.6f} "
+          f"(rel {mean_rel:.2e}), pixels agreeing {pix:.6f}", flush=True)
+    assert mean_rel <= DIRECT_MEAN_REL and pix >= DIRECT_PIXEL_SHARE
+    out["direct"] = dict(mean_rel=float(mean_rel), pixels=pix)
+    return out
+
+
+def _gpu_tests():
+    """Phase 12: tests/test_torch_cuda.py in a subprocess (no conftest: the
+    card has no JAX); every test must pass, none skip."""
+    import re
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider",
+         "tests/test_torch_cuda.py", "-m", "cuda", "-q"],
+        cwd=ROOT, capture_output=True, text=True, timeout=900,
+    )
+    last = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    print(f"[12 gpu tests] rc {proc.returncode}: {last} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    counts = {k: int(v) for v, k in re.findall(r"(\d+) (passed|failed|skipped|errors?)", last)}
+    assert proc.returncode == 0 and counts == {"passed": GPU_TESTS}, (counts, proc.stdout[-3000:])
+    return counts
+
 
 def main() -> int:
     import numpy as np
@@ -747,11 +1188,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from stratum_tpu_torch.core import math as smath
     from stratum_tpu_torch.ops import binned, block_trace
-    from stratum_tpu_torch.ops.intersect import T_MAX, ray_offset
+    from stratum_tpu_torch.ops.intersect import T_MAX
     from stratum_tpu_torch.render import camera, integrator
-    from stratum_tpu_torch.render.shading import shading_point_from_row
     from stratum_tpu_torch.scene import builtin, flatten
 
     dev = torch.device(DEVICE)
@@ -786,27 +1225,11 @@ def main() -> int:
     lo, hi = scene.geo.positions.amin(dim=0), scene.geo.positions.amax(dim=0)
     tile = integrator.light_tile_for(scene, cfg, 0, lo, hi)
 
-    def secondary_and_shadow(o, d, h):
-        """Cosine-sampled bounce rays and shadow rays toward presampled
-        lights from the hits of ``h`` (misses become dead lanes)."""
-        n = o.shape[0]
-        hf = block_trace.finalize_hit(scene.slot_payload, o, d, h)
-        sp = shading_point_from_row(hf.payload[:, :32], hf.tri, hf.bary, d)
-        u = torch.from_numpy(rng.random((n, 2), dtype=np.float32)).to(dev)
-        d2 = smath.to_world(smath.sample_cos_hemisphere(u[:, 0], u[:, 1]), sp.geom_normal)
-        o2 = ray_offset(sp.position, sp.geom_normal)
-        tm2 = torch.where(hf.hit, T_MAX, 0.0)
-        idx = torch.from_numpy(rng.integers(0, cfg.presample_lights, n)).to(dev)
-        ls = integrator.tile_row_sample(tile, idx)
-        wi, dist, cos_l, _ = integrator.light_segment(ls, sp.position, o2, lo, hi)
-        tm3 = torch.where(hf.hit & (cos_l > 0), dist, 0.0)
-        return (o2, d2, tm2), (o2, wi, tm3)
-
     sel = torch.from_numpy(np.sort(rng.choice(W * H, N_CHECK, replace=False))).to(dev)
     o1, d1 = o_full[sel], d_full[sel]
     hk1 = block_trace.block_closest(fat, o1, d1)
     hp1 = block_trace.block_closest_plain(fat, o1, d1)
-    (o2, d2, tm2), (o3, w3, tm3) = secondary_and_shadow(o1, d1, hk1)
+    (o2, d2, tm2), (o3, w3, tm3) = _bounce_rays(scene, tile, lo, hi, o1, d1, hk1, rng)
     hk2 = block_trace.block_closest(fat, o2, d2, tm2)
     hp2 = block_trace.block_closest_plain(fat, o2, d2, tm2)
     ok3 = block_trace.block_occluded(fat, o3, w3, tm3)
@@ -912,7 +1335,9 @@ def main() -> int:
     tw, th = 64, 32
     tiny, _ = flatten.flatten(builtin.atrium(columns=1, stacks=6, slices=12).root, device=dev)
     view_t = camera.make_view(gold["camera_to_world"], float(gold["fovy"]), tw, th, device=dev)
-    cfg_t = integrator.RenderConfig(width=tw, height=th, **BENCH)
+    # the golden is the reference's packet-tracer render: the port's block
+    # kernel keeps its structure (auto would pick the dense tracer here)
+    cfg_t = integrator.RenderConfig(width=tw, height=th, tracer="pallas", **BENCH)
     for i, seed in enumerate(gold["seeds"]):
         img, n = integrator.render_path_with_counts(tiny, view_t, cfg_t, int(seed))
         img = img.cpu().numpy()
@@ -927,38 +1352,7 @@ def main() -> int:
         assert rays_rel <= PARITY_RAYS_REL
 
     # ---- 5: main path -------------------------------------------------------
-    def timed_samples(cfg_run, label):
-        """1 warm-up and 4 timed samples with every launch counter zeroed
-        just before and read just after -> (launches, last image, line)."""
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for counts in (block_trace.LAUNCHES, binned.LAUNCHES):
-            for k in counts:
-                counts[k] = 0
-        samples, times, total_rays = 5, [], 0
-        for seed in range(samples):
-            t0 = time.perf_counter()
-            img, n = integrator.render_path_with_counts(scene, view, cfg_run, seed)
-            n = int(n)  # synchronizes, like the reference bench's fetch
-            torch.cuda.synchronize()
-            if seed > 0:  # sample 0 is the warm-up
-                times.append(time.perf_counter() - t0)
-                total_rays += n
-        launches = {f"block {k}": v for k, v in block_trace.LAUNCHES.items()}
-        launches.update({f"binned {k}": v for k, v in binned.LAUNCHES.items()})
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        mean = float(img.mean())
-        ms_spp = sum(times) / len(times) * 1e3
-        mrays = total_rays / sum(times) / 1e6
-        print(f"[{label}] atrium {W}x{H} {cfg_run.max_bounces} bounces disney: "
-              f"{ms_spp:.1f} ms/spp, {mrays:.3f} Mrays/s ({total_rays // len(times)} rays/spp), "
-              f"launches/sample {{{', '.join(f'{k}: {v / samples}' for k, v in launches.items())}}}, "
-              f"peak {peak_gib:.2f} GiB, image mean {mean:.6f} | {smi}", flush=True)
-        assert bool(torch.isfinite(img).all()) and mean > 0
-        assert total_rays // len(times) > W * H
-        return launches, img, dict(ms_spp=ms_spp, mrays=mrays, peak_gib=peak_gib, mean=mean)
-
-    launches, img5, main5 = timed_samples(cfg, "5 main path")
+    launches, img5, main5 = _timed_samples(scene, view, cfg, "5 main path", "atrium", smi)
     assert launches == {"block closest": 25, "block occluded": 5, "binned emit": 0,
                         "binned closest": 0, "binned occluded": 0}, launches
 
@@ -986,7 +1380,7 @@ def main() -> int:
     k5o = _binned_wave(fat, "occluded", o, w, t, st_o, hb)
     del waves, hb, o, w, t
     torch.cuda.empty_cache()
-    launches6, img6, main6 = timed_samples(cfg6, "6 binned path")
+    launches6, img6, main6 = _timed_samples(scene, view, cfg6, "6 binned path", "atrium", smi)
     assert launches6 == {"block closest": 5, "block occluded": 0, "binned emit": 25,
                          "binned closest": 20, "binned occluded": 5}, launches6
     print(f"[6 binned path] {main6['ms_spp']:.1f} ms/spp vs {main5['ms_spp']:.1f} (phase 5); "
@@ -996,9 +1390,7 @@ def main() -> int:
     # ---- 7: other configurations -------------------------------------------
     seed = 4  # phase 5's last sample
     for label, extra in (("binned_bounces=1", dict(binned_bounces=1)), ("gs=1", dict(gs=1))):
-        for counts in (block_trace.LAUNCHES, binned.LAUNCHES):
-            for k in counts:
-                counts[k] = 0
+        _zero_launches()
         img, _ = integrator.render_path_with_counts(
             scene, view, integrator.RenderConfig(width=W, height=H, **BENCH, **extra), seed)
         mean = float(img.mean())
@@ -1016,6 +1408,21 @@ def main() -> int:
 
     # ---- 8: the microbenchmark tools (T1-T4) ---------------------------------
     t_kernels = _microbench()
+
+    # ---- 9: past the shared-memory budgets -----------------------------------
+    torch.cuda.empty_cache()
+    ha = block_trace.block_closest(fat, o_full, d_full)
+    _, (o3a, w3a, tm3a) = _bounce_rays(scene, tile, lo, hi, o_full, d_full, ha, rng)
+    atrium_waves = {"closest": (o_full, d_full, torch.full_like(tm3a, T_MAX)),
+                    "occluded": (o3a, w3a, tm3a * block_trace.SHADOW_EPS)}
+    past = _past_budgets(dev, scene, atrium_waves, rng)
+    del ha, atrium_waves, o3a, w3a, tm3a
+    torch.cuda.empty_cache()
+
+    # ---- 10-12: the Cornell path, goldens and furnace, the GPU tests ---------
+    cornell_scene, cornell_view, cornell = _cornell(dev, smi)
+    gold = _goldens(dev, cornell_scene, cornell_view)
+    gpu = _gpu_tests()
 
     # ms / plain_ms / wrapper_ms of K1 are means per closest wave over the
     # main path's five waves; K2's are the deferred shadow wave's. K3's are
@@ -1049,23 +1456,27 @@ def main() -> int:
              wave_ncand_block=[c["ncand_block"] for c in closest_waves],
              tri_tests=[c["tests"] for c in closest_waves],
              rays=[c["rays"] for c in closest_waves],
-             live=[c["live"] for c in closest_waves]),
+             live=[c["live"] for c in closest_waves],
+             forced_global_lists=past["atrium_forced"]["closest"]),
         dict(bt, name="block_trace occluded (K2)",
              replaces="stratum_tpu/ops/pallas_trace.py:1242",
              launches=launches["block occluded"], max_abs_err=float(occ["mismatch"] > 0),
              ms=ms_o, plain_ms=plain_ms_o, bound_ms=bound_o[0], bound_by=bound_o[1],
              wrapper_ms=wrap_ms_o, agree=occ["agree"], mismatch=occ["mismatch"],
-             ncand_cta=per_cta_o, ncand_block=per_block_o, tri_tests=tests_o, rays=occ["rays"], live=occ["live"]),
+             ncand_cta=per_cta_o, ncand_block=per_block_o, tri_tests=tests_o, rays=occ["rays"],
+             live=occ["live"], forced_global_lists=past["atrium_forced"]["occluded"]),
         dict(bt, name="block_trace closest at gs=1 (K3)",
              replaces="stratum_tpu/ops/pallas_trace.py:532",
              launches=k3_launches["closest"], max_abs_err=k3c["max_abs_err"],
              ms=ms_k3, plain_ms=closest_waves[1]["plain_ms"], bound_ms=bound_k3[0],
-             bound_by=bound_k3[1], gs4_ms=closest_waves[1]["ms"], agree=k3c["agree"]),
+             bound_by=bound_k3[1], gs4_ms=closest_waves[1]["ms"], agree=k3c["agree"],
+             past_budget={k: v for k, v in past["closest"].items() if k != "emit"}),
         dict(bt, name="block_trace occluded at gs=1 (K3)",
              replaces="stratum_tpu/ops/pallas_trace.py:958",
              launches=k3_launches["occluded"], max_abs_err=float(k3o["mismatch"] > 0),
              ms=ms_k3o, plain_ms=plain_ms_o, bound_ms=bound_k3o[0], bound_by=bound_k3o[1],
-             gs4_ms=ms_o, agree=k3o["agree"], mismatch=k3o["mismatch"]),
+             gs4_ms=ms_o, agree=k3o["agree"], mismatch=k3o["mismatch"],
+             past_budget={k: v for k, v in past["occluded"].items() if k != "emit"}),
         dict(common, name="binned closest (K5)", source="stratum_tpu_torch/csrc/binned.cu",
              replaces="stratum_tpu/ops/binned.py:68",
              launches=launches6["binned closest"],
@@ -1100,9 +1511,19 @@ def main() -> int:
              wave_bound_ms=[e["bound_ms"] for e in emits],
              wave_bound_all_ms=[e["bound_all_ms"] for e in emits],
              slab_tests=[e["tests"] for e in emits],
-             slab_tests_all=[e["tests_all"] for e in emits]),
+             slab_tests_all=[e["tests_all"] for e in emits],
+             past_budget=dict(leaves=past["leaves"], tile_leaves=past["emit_tile"],
+                              smem_all=past["emit_smem_all"], smem_tiled=past["emit_smem_tiled"],
+                              closest=past["closest"]["emit"],
+                              occluded=past["occluded"]["emit"]),
+             forced_tiles={k: past["atrium_forced"][k + " emission"]
+                           for k in ("closest", "occluded")}),
     ] + t_kernels
-    print(json.dumps({"kernels": kernels, "paths": {"main": main5, "binned": main6}}))
+    print(json.dumps({"kernels": kernels,
+                      "paths": {"main": main5, "binned": main6, "cornell": cornell},
+                      "past_budgets": {k: past[k] for k in ("leaves", "triangles", "list_keys",
+                                                           "emit_tile")},
+                      "goldens": gold, "gpu_tests": gpu}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -13,8 +13,13 @@
 // compute what the reference computes, not a block-by-block copy of it.
 //
 // Emission (one thread per ray, 128 rays per CTA; g divides 128):
-//   * Every leaf box, and the box of every chunk of 32 consecutive leaves,
-//     sits in shared memory (759 leaves: 18.8 KB). A thread tests its own
+//   * The leaf boxes, and the box of every chunk of 32 consecutive leaves,
+//     sit in shared memory, a tile of `tile` leaves at a time, in leaf
+//     order. Where every box fits (759 leaves: 18.8 KB; up to ~9,400 leaves
+//     at g = 8, pcap = 16) there is one tile of all L leaves; past the
+//     227 KB a CTA may use, the wrapper picks tiles of a multiple of 32
+//     leaves (ops/binned.py EMIT_TILE), so the chunks and their order are
+//     the same and the tiles change no bit. A thread tests its own
 //     ray (em="ray") or its group's interval (em="group", whose per-group
 //     bounds come from shuffles, and through shared memory for g = 64, 128)
 //     against a chunk box first; only a chunk that some ray of the warp (of
@@ -22,6 +27,7 @@
 //     inside its chunk's, and the slab formula uses only subtract, multiply,
 //     min, max and compares, each monotone under rounding, so a ray that
 //     misses a chunk box misses every leaf in it: the skip changes no bit.
+//     The skip is decided per chunk, so per tile.
 //   * The 32 leaf bits of a chunk form a mask; the group's masks are OR-ed
 //     (shuffles, then shared memory for g > 32), and the group's first lane
 //     appends the set bits in ascending leaf order while the count is below
@@ -32,7 +38,8 @@
 //     group skip the leaf loop, and a CTA with no live lane writes empty
 //     rows before it stages any box (the dead tail of a sorted wave).
 //   What bounds it: slab tests, ~27 operations each (FP32 throughput); the
-//   rays and boxes are read once (28 B a ray), the slot table written once.
+//   rays and boxes are read once (28 B a ray), the slot table written once
+//   (each CTA reads every box once per tile, from L2).
 //
 // Bin step, K5 (128 threads per CTA, a run of kRun consecutive bins):
 //   * A run's bins are consecutive, so they share one leaf (bins of a leaf
@@ -126,9 +133,10 @@ __device__ __forceinline__ bool ray_pass(const float* box, int stride, const flo
                    box[4 * stride], box[5 * stride], o, iv, tb, t_min);
 }
 
-size_t emit_smem(int num_leaves, int g, int pcap) {
-  const int chunks = (num_leaves + kChunk - 1) / kChunk;
-  return (size_t)24 * (num_leaves + chunks) + (size_t)4 * (kLanes / g) * pcap;
+// Dynamic shared memory of an emission CTA that holds `tile` leaf boxes.
+size_t emit_smem(int tile, int g, int pcap) {
+  const int chunks = (tile + kChunk - 1) / kChunk;
+  return (size_t)24 * (tile + chunks) + (size_t)4 * (kLanes / g) * pcap;
 }
 
 __global__ void __launch_bounds__(kLanes)
@@ -137,16 +145,17 @@ binned_emit_kernel(const float* __restrict__ origin,   // [num_rays, 3]
                    const float* __restrict__ t_bound,  // [num_rays]
                    const float* __restrict__ leaf_lo,  // [L, 3]
                    const float* __restrict__ leaf_hi,  // [L, 3]
-                   int num_rays, int num_leaves, int g, int pcap, int group_mode,
-                   float t_min,
+                   int num_rays, int num_leaves, int tile, int g, int pcap,
+                   int group_mode, float t_min,
                    int* __restrict__ count,            // [num_rays / g]
                    int* __restrict__ slots)            // [num_rays / g, pcap]
 {
   extern __shared__ float sm[];
-  const int L = num_leaves, C = (L + kChunk - 1) / kChunk;
-  float* box = sm;                                     // [6][L]: lo x y z, hi x y z
-  float* cbox = sm + 6 * L;                            // [6][C] chunk boxes
-  int* sslot = reinterpret_cast<int*>(cbox + 6 * C);   // [128 / g][pcap]
+  // a tile of T leaves (all L, or a multiple of kChunk) and its CT chunks
+  const int L = num_leaves, T = tile, CT = (T + kChunk - 1) / kChunk;
+  float* box = sm;                                     // [6][T]: lo x y z, hi x y z
+  float* cbox = sm + 6 * T;                            // [6][CT] chunk boxes
+  int* sslot = reinterpret_cast<int*>(cbox + 6 * CT);  // [128 / g][pcap]
   __shared__ float sred[kGroupVals][kWarps];
   __shared__ unsigned sor[kWarps];
 
@@ -169,11 +178,6 @@ binned_emit_kernel(const float* __restrict__ origin,   // [num_rays, 3]
     return;
   }
 
-  for (int i = tid; i < 3 * L; i += kLanes) {
-    const int l = i / 3, a = i - 3 * l;
-    box[a * L + l] = leaf_lo[i];
-    box[(3 + a) * L + l] = leaf_hi[i];
-  }
   for (int i = tid; i < gpc * pcap; i += kLanes) sslot[i] = -1;
 
   float o[3] = {0.f, 0.f, 0.f}, iv[3] = {0.f, 0.f, 0.f};
@@ -215,41 +219,48 @@ binned_emit_kernel(const float* __restrict__ origin,   // [num_rays, 3]
       gv[k] = v;
     }
   }
-  __syncthreads();  // leaf boxes and slot rows in place
-  for (int c = tid; c < C; c += kLanes) {
-    const int l0 = c * kChunk, l1 = min(l0 + kChunk, L);
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      float mn = box[a * L + l0], mx = box[(3 + a) * L + l0];
-      for (int l = l0 + 1; l < l1; ++l) {
-        mn = fminf(mn, box[a * L + l]);
-        mx = fmaxf(mx, box[(3 + a) * L + l]);
-      }
-      cbox[a * C + c] = mn;
-      cbox[(3 + a) * C + c] = mx;
-    }
-  }
-  __syncthreads();  // chunk boxes in place
-
   const bool glive = gv[12] > 0.f;  // the group has a live lane
   const bool active = wide ? __syncthreads_or(glive) : __any_sync(kFull, glive);
   int cnt = 0;  // kept by the group's first lane
-  if (active) {  // uniform over the warp (the CTA when wide)
-    for (int c = 0; c < C; ++c) {
+  for (int t0 = 0; t0 < L; t0 += T) {  // the tiles, in leaf order
+    const int nl_t = min(T, L - t0), nc = (nl_t + kChunk - 1) / kChunk;
+    __syncthreads();  // the previous tile's readers are done
+    for (int i = tid; i < 3 * nl_t; i += kLanes) {
+      const int l = i / 3, a = i - 3 * l;
+      box[a * T + l] = leaf_lo[(size_t)t0 * 3 + i];
+      box[(3 + a) * T + l] = leaf_hi[(size_t)t0 * 3 + i];
+    }
+    __syncthreads();  // leaf boxes (and, first time, slot rows) in place
+    for (int c = tid; c < nc; c += kLanes) {
+      const int l0 = c * kChunk, l1 = min(l0 + kChunk, nl_t);
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        float mn = box[a * T + l0], mx = box[(3 + a) * T + l0];
+        for (int l = l0 + 1; l < l1; ++l) {
+          mn = fminf(mn, box[a * T + l]);
+          mx = fmaxf(mx, box[(3 + a) * T + l]);
+        }
+        cbox[a * CT + c] = mn;
+        cbox[(3 + a) * CT + c] = mx;
+      }
+    }
+    __syncthreads();  // chunk boxes in place
+    if (!active) continue;  // uniform over the warp (the CTA when wide)
+    for (int c = 0; c < nc; ++c) {
       bool pc = false;
       if (glive)
-        pc = group_mode ? group_pass(cbox + c, C, gv, t_min)
-                        : alive && ray_pass(cbox + c, C, o, iv, tb, t_min);
+        pc = group_mode ? group_pass(cbox + c, CT, gv, t_min)
+                        : alive && ray_pass(cbox + c, CT, o, iv, tb, t_min);
       if (!(wide ? __syncthreads_or(pc) : __any_sync(kFull, pc))) continue;
-      const int l0 = c * kChunk, nl = min(kChunk, L - l0);
+      const int l0 = c * kChunk, nl = min(kChunk, nl_t - l0);
       unsigned m = 0;
       if (pc) {
         if (group_mode) {
           for (int j = lig; j < nl; j += g)
-            if (group_pass(box + l0 + j, L, gv, t_min)) m |= 1u << j;
+            if (group_pass(box + l0 + j, T, gv, t_min)) m |= 1u << j;
         } else {
           for (int j = 0; j < nl; ++j)
-            if (ray_pass(box + l0 + j, L, o, iv, tb, t_min)) m |= 1u << j;
+            if (ray_pass(box + l0 + j, T, o, iv, tb, t_min)) m |= 1u << j;
         }
       }
       for (int off = 1; off < seg; off <<= 1) m |= __shfl_xor_sync(kFull, m, off);
@@ -263,7 +274,7 @@ binned_emit_kernel(const float* __restrict__ origin,   // [num_rays, 3]
         while (m) {
           const int b = __ffs(m) - 1;
           m &= m - 1;
-          if (cnt < pcap) sslot[grp * pcap + cnt] = l0 + b;
+          if (cnt < pcap) sslot[grp * pcap + cnt] = t0 + l0 + b;
           ++cnt;
         }
       }
@@ -446,13 +457,18 @@ binned_min_kernel(const int* __restrict__ bin_leaf,    // [num_bins]
 
 }  // namespace
 
+// tile_leaves: leaf boxes a CTA holds at a time; at least num_leaves for
+// one tile of all of them, else a multiple of kChunk.
 extern "C" cudaError_t binned_emit(const float* origin, const float* inv_dir,
                                    const float* t_bound, const float* leaf_lo,
                                    const float* leaf_hi, int num_rays, int num_leaves,
-                                   int g, int pcap, int group_mode, float t_min,
-                                   int* count, int* slots, void* stream) {
-  if (g < 1 || kLanes % g != 0 || pcap < 1 || num_rays % g != 0) return cudaErrorInvalidValue;
-  const size_t smem = emit_smem(num_leaves, g, pcap);
+                                   int tile_leaves, int g, int pcap, int group_mode,
+                                   float t_min, int* count, int* slots, void* stream) {
+  if (g < 1 || kLanes % g != 0 || pcap < 1 || num_rays % g != 0 || tile_leaves < 1 ||
+      (tile_leaves < num_leaves && tile_leaves % kChunk != 0))
+    return cudaErrorInvalidValue;
+  const int tile = tile_leaves < num_leaves ? tile_leaves : num_leaves;
+  const size_t smem = emit_smem(tile, g, pcap);
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       binned_emit_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -460,7 +476,7 @@ extern "C" cudaError_t binned_emit(const float* origin, const float* inv_dir,
   if (num_rays == 0) return cudaSuccess;
   binned_emit_kernel<<<(num_rays + kLanes - 1) / kLanes, kLanes, smem,
                        static_cast<cudaStream_t>(stream)>>>(
-      origin, inv_dir, t_bound, leaf_lo, leaf_hi, num_rays, num_leaves, g, pcap,
+      origin, inv_dir, t_bound, leaf_lo, leaf_hi, num_rays, num_leaves, tile, g, pcap,
       group_mode, t_min, count, slots);
   return cudaGetLastError();
 }
@@ -484,16 +500,16 @@ extern "C" cudaError_t binned_min(const int* bin_leaf, const int* pair_id,
 }
 
 // Registers, static and dynamic shared memory, resident CTAs per SM and
-// local (spill) bytes of K5 (emit = 0) or of the emission kernel at
-// num_leaves leaves, g and pcap (emit = 1); then K5's kRun and kPass.
-extern "C" cudaError_t binned_info(int emit, int num_leaves, int g, int pcap, int* out) {
+// local (spill) bytes of K5 (emit = 0) or of the emission kernel at tiles
+// of tile_leaves leaves, g and pcap (emit = 1); then K5's kRun and kPass.
+extern "C" cudaError_t binned_info(int emit, int tile_leaves, int g, int pcap, int* out) {
   cudaFuncAttributes attr;
   size_t smem = 0;
   int blocks = 0;
   cudaError_t e;
   if (emit) {
     if (g < 1 || kLanes % g != 0 || pcap < 1) return cudaErrorInvalidValue;
-    smem = emit_smem(num_leaves, g, pcap);
+    smem = emit_smem(tile_leaves, g, pcap);
     e = cudaFuncSetAttribute(binned_emit_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, binned_emit_kernel);

@@ -17,12 +17,22 @@
 //       max only, so the entries equal the plain version's bit for bit) for
 //       each live ray of the CTA and keeps the minimum. The (entry, group)
 //       pairs are sorted front to back as packed 64-bit keys
-//       (entry bits << 32) | group by a bitonic sort in shared memory,
-//       padded to a power of two: entries are >= 0 or +inf, so the key
-//       order is the stable order of ops/block_trace.py::candidate_lists.
-//       ncand = the finite keys. A lane with bound 0 (dead, or padding) can
-//       never commit and adds no entry; a CTA with no live ray writes
-//       misses and returns before the list phase.
+//       (entry bits << 32) | group by a bitonic sort, padded to a power of
+//       two: entries are >= 0 or +inf, so the key order is the stable
+//       order of ops/block_trace.py::candidate_lists. ncand = the finite
+//       keys. A lane with bound 0 (dead, or padding) can never commit and
+//       adds no entry; a CTA with no live ray writes misses and returns
+//       before the list phase.
+//       Two list modes, chosen by size. Up to kMaxKeys keys (4,096 groups:
+//       16,384 leaves at gs = 4, 4,096 at gs = 1) the keys live in dynamic
+//       shared memory (32 KB at most). Past that each CTA keeps its keys in
+//       its own row of a global scratch buffer and runs the same network
+//       there, so its list is the same bit for bit; the scratch holds the
+//       lists of scratch_ctas CTAs (the wrapper sizes it to 512 MB,
+//       ops/block_trace.py LIST_SCRATCH_BYTES) and the host launches the
+//       wave in chunks of that many CTAs, one after another on the stream,
+//       each reusing the buffer. The walk reads its list from wherever it
+//       was sorted.
 //   (b) Visits over real triangles. A leaf holds leaf_count[leaf] triangles
 //       at the front of its K slots (the padding sits at the tail); only
 //       those are staged, in tiles of at most 64 triangles (10 KB),
@@ -50,7 +60,9 @@
 // compare/select operations each, against features in shared memory (FP32
 // and shared-memory instruction rates); the atrium's 31 MB of leaf
 // features stay in the 50 MB L2. The list phase adds G slab tests per live
-// ray and a sort of G keys per CTA.
+// ray and a sort of G keys per CTA; in the global list mode each of the
+// sort's log2(keys) (log2(keys) + 1) / 2 stages reads and writes the CTA's
+// keys in device memory (L2 while a chunk's lists fit there).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,7 +72,7 @@ namespace {
 constexpr int kThreads = 128;             // rays per CTA
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = 64;                 // triangles per staged tile
-constexpr int kMaxKeys = 4096;            // list keys per CTA (32 KB)
+constexpr int kMaxKeys = 4096;            // list keys per CTA in shared memory (32 KB)
 constexpr int kMinCtas = 8;               // resident CTAs asked of ptxas
 constexpr float kTMax = 3.4e38f;          // ops/intersect.py T_MAX
 constexpr float kTMin = 1e-4f;            // ops/block_trace.py T_MIN
@@ -114,7 +126,7 @@ __device__ __forceinline__ int cta_compact(bool pred, int* list, int* cnt,
   return total;
 }
 
-template <bool OCCLUDED>
+template <bool OCCLUDED, bool GLOBAL_LIST>
 __global__ void __launch_bounds__(kThreads, kMinCtas)
 block_trace_kernel(const float* __restrict__ rays,       // [Np, 10] features
                    const float* __restrict__ t_max,      // [Np]
@@ -133,9 +145,12 @@ block_trace_kernel(const float* __restrict__ rays,       // [Np, 10] features
                    uint8_t* __restrict__ blocked_out,    // [Np] occluded
                    int* __restrict__ ncand_out,          // [n_cta] or null
                    float* __restrict__ entry_out,        // [n_cta, G] or null
-                   int* __restrict__ cand_out)           // [n_cta, G] or null
+                   int* __restrict__ cand_out,           // [n_cta, G] or null
+                   unsigned long long* list_scratch)     // [CTAs, num_keys] (global mode)
 {
-  extern __shared__ unsigned long long keys[];  // [num_keys]
+  extern __shared__ unsigned long long smem_keys[];  // [num_keys] (shared mode)
+  unsigned long long* const keys =
+      GLOBAL_LIST ? list_scratch + (size_t)blockIdx.x * num_keys : smem_keys;
   __shared__ Shared s;
   const int tid = threadIdx.x;
   const size_t ray = (size_t)blockIdx.x * kThreads + tid;
@@ -345,6 +360,9 @@ int list_keys(int num_groups) {
   return p;
 }
 
+// A null list_scratch launches the shared-memory list mode in one grid;
+// otherwise the global mode, in chunks of scratch_ctas CTAs whose lists
+// take turns in list_scratch ([scratch_ctas, list_keys(G)] keys).
 template <bool OCCLUDED>
 cudaError_t launch(const float* rays, const float* t_max, const float* origin,
                    const float* inv_dir, const float* group_lo,
@@ -353,36 +371,58 @@ cudaError_t launch(const float* rays, const float* t_max, const float* origin,
                    const float* feat, int num_ctas, int num_groups,
                    int num_leaves, int leaf_size, int gs, float* t_out,
                    int* slot_out, uint8_t* blocked_out, int* ncand_out,
-                   float* entry_out, int* cand_out, cudaStream_t stream) {
+                   float* entry_out, int* cand_out,
+                   unsigned long long* list_scratch, int scratch_ctas,
+                   cudaStream_t stream) {
   const int num_keys = list_keys(num_groups);
-  if (num_keys > kMaxKeys || gs < 1 || (entry_out == nullptr) != (cand_out == nullptr))
+  const bool global = list_scratch != nullptr;
+  if ((!global && num_keys > kMaxKeys) || (global && scratch_ctas < 1) || gs < 1 ||
+      (entry_out == nullptr) != (cand_out == nullptr))
     return cudaErrorInvalidValue;
-  const size_t smem = (size_t)num_keys * sizeof(unsigned long long);
-  cudaError_t e = cudaFuncSetAttribute(
-      block_trace_kernel<OCCLUDED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
-  if (num_ctas == 0) return cudaSuccess;
-  block_trace_kernel<OCCLUDED><<<num_ctas, kThreads, smem, stream>>>(
-      rays, t_max, origin, inv_dir, group_lo, group_hi, leaf_lo, leaf_hi,
-      leaf_count, reinterpret_cast<const float4*>(feat), num_groups, num_keys,
-      num_leaves, leaf_size, gs, t_out, slot_out, blocked_out, ncand_out,
-      entry_out, cand_out);
-  return cudaGetLastError();
+  const float4* feat4 = reinterpret_cast<const float4*>(feat);
+  if (!global) {
+    const size_t smem = (size_t)num_keys * sizeof(unsigned long long);
+    cudaError_t e = cudaFuncSetAttribute(
+        block_trace_kernel<OCCLUDED, false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    if (num_ctas == 0) return cudaSuccess;
+    block_trace_kernel<OCCLUDED, false><<<num_ctas, kThreads, smem, stream>>>(
+        rays, t_max, origin, inv_dir, group_lo, group_hi, leaf_lo, leaf_hi,
+        leaf_count, feat4, num_groups, num_keys, num_leaves, leaf_size, gs, t_out,
+        slot_out, blocked_out, ncand_out, entry_out, cand_out, nullptr);
+    return cudaGetLastError();
+  }
+  for (int c0 = 0; c0 < num_ctas; c0 += scratch_ctas) {
+    const int n = num_ctas - c0 < scratch_ctas ? num_ctas - c0 : scratch_ctas;
+    const size_t r0 = (size_t)c0 * kThreads;  // the chunk's first ray
+    const size_t l0 = (size_t)c0 * num_groups;  // and its first list entry
+    block_trace_kernel<OCCLUDED, true><<<n, kThreads, 0, stream>>>(
+        rays + r0 * 10, t_max + r0, origin + r0 * 3, inv_dir + r0 * 3, group_lo,
+        group_hi, leaf_lo, leaf_hi, leaf_count, feat4, num_groups, num_keys,
+        num_leaves, leaf_size, gs, t_out ? t_out + r0 : nullptr,
+        slot_out ? slot_out + r0 : nullptr, blocked_out ? blocked_out + r0 : nullptr,
+        ncand_out ? ncand_out + c0 : nullptr, entry_out ? entry_out + l0 : nullptr,
+        cand_out ? cand_out + l0 : nullptr, list_scratch);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
-template <bool OCCLUDED>
+template <bool OCCLUDED, bool GLOBAL_LIST>
 cudaError_t info(int num_groups, int* out) {
   cudaFuncAttributes attr;
-  cudaError_t e = cudaFuncGetAttributes(&attr, block_trace_kernel<OCCLUDED>);
+  cudaError_t e = cudaFuncGetAttributes(&attr, block_trace_kernel<OCCLUDED, GLOBAL_LIST>);
   if (e != cudaSuccess) return e;
-  const size_t smem = (size_t)list_keys(num_groups) * sizeof(unsigned long long);
-  e = cudaFuncSetAttribute(block_trace_kernel<OCCLUDED>,
+  const size_t smem =
+      GLOBAL_LIST ? 0 : (size_t)list_keys(num_groups) * sizeof(unsigned long long);
+  e = cudaFuncSetAttribute(block_trace_kernel<OCCLUDED, GLOBAL_LIST>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   int blocks = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, block_trace_kernel<OCCLUDED>, kThreads, smem);
+      &blocks, block_trace_kernel<OCCLUDED, GLOBAL_LIST>, kThreads, smem);
   if (e != cudaSuccess) return e;
   out[0] = attr.numRegs;
   out[1] = (int)attr.sharedSizeBytes;
@@ -400,12 +440,13 @@ extern "C" cudaError_t block_trace_closest(
     const float* leaf_lo, const float* leaf_hi, const int* leaf_count,
     const float* feat, int num_ctas, int num_groups, int num_leaves,
     int leaf_size, int gs, float* t_out, int* slot_out, int* ncand_out,
-    float* entry_out, int* cand_out, void* stream) {
+    float* entry_out, int* cand_out, unsigned long long* list_scratch,
+    int scratch_ctas, void* stream) {
   return launch<false>(rays, t_max, origin, inv_dir, group_lo, group_hi,
                        leaf_lo, leaf_hi, leaf_count, feat, num_ctas,
                        num_groups, num_leaves, leaf_size, gs, t_out, slot_out,
-                       nullptr, ncand_out, entry_out, cand_out,
-                       static_cast<cudaStream_t>(stream));
+                       nullptr, ncand_out, entry_out, cand_out, list_scratch,
+                       scratch_ctas, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" cudaError_t block_trace_occluded(
@@ -414,16 +455,21 @@ extern "C" cudaError_t block_trace_occluded(
     const float* leaf_lo, const float* leaf_hi, const int* leaf_count,
     const float* feat, int num_ctas, int num_groups, int num_leaves,
     int leaf_size, int gs, uint8_t* blocked_out, int* ncand_out,
-    float* entry_out, int* cand_out, void* stream) {
+    float* entry_out, int* cand_out, unsigned long long* list_scratch,
+    int scratch_ctas, void* stream) {
   return launch<true>(rays, t_max, origin, inv_dir, group_lo, group_hi,
                       leaf_lo, leaf_hi, leaf_count, feat, num_ctas, num_groups,
                       num_leaves, leaf_size, gs, nullptr, nullptr, blocked_out,
-                      ncand_out, entry_out, cand_out,
+                      ncand_out, entry_out, cand_out, list_scratch, scratch_ctas,
                       static_cast<cudaStream_t>(stream));
 }
 
 // Registers, static and dynamic shared memory, resident CTAs per SM and
-// local (spill) bytes of one instantiation at a list of num_groups groups.
-extern "C" cudaError_t block_trace_info(int occluded, int num_groups, int* out) {
-  return occluded ? info<true>(num_groups, out) : info<false>(num_groups, out);
+// local (spill) bytes of one instantiation at a list of num_groups groups,
+// in the shared (global_list = 0) or the global list mode.
+extern "C" cudaError_t block_trace_info(int occluded, int global_list, int num_groups,
+                                        int* out) {
+  if (global_list)
+    return occluded ? info<true, true>(num_groups, out) : info<false, true>(num_groups, out);
+  return occluded ? info<true, false>(num_groups, out) : info<false, false>(num_groups, out);
 }

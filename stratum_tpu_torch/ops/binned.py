@@ -32,6 +32,12 @@ The pipeline, in the reference's order:
 5. **Resolve.** That per-ray minimum is the closest hit; occlusion tests it
    against ``t_max * (1 - 1e-3)``.
 
+The emission kernel holds the leaf boxes in shared memory: all of them
+where they fit its budget (``EMIT_SMEM_BUDGET``), else tiles of
+``EMIT_TILE`` leaves streamed in leaf order (:func:`emit_tile_leaves`);
+both give the same count and slots. ``emit_mode="tiled"`` forces tiles on
+any scene, for checks; the render path never sets it.
+
 Steps 1 and 4 run as kernels when the rays lie on a CUDA device (no
 fallback: a build or launch failure raises) and as their plain versions,
 :func:`_emit` and :func:`bin_min_plain`, only when they lie on the CPU;
@@ -69,6 +75,10 @@ LEAF_PAD = 64  # the plain emission pads the leaf axis to a multiple of this wit
 EMIT_ELEMS = 1 << 25
 MISS = (0x7F800000 << 32) | 0x7FFFFFFF  # +inf t, no slot: above every hit
 PLAIN_LANES = 1 << 16  # lanes per plain-version MT pass
+EMIT_SMEM_BUDGET = 227 * 1024  # shared memory an emission CTA may use (csrc kMaxSmem)
+EMIT_CHUNK = 32  # leaves per chunk box of the emission kernel (csrc kChunk)
+EMIT_TILE = 2048  # leaves per tile past the budget (49 KB of boxes)
+FORCED_TILES = 4  # emit_mode="tiled" cuts the leaves into at least this many tiles
 
 LAUNCHES = {"emit": 0, "closest": 0, "occluded": 0}
 
@@ -190,7 +200,7 @@ def _lib():
     lib = cuda_build.load("binned")
     if not getattr(lib, "_stratum_bound", False):
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.binned_emit.argtypes = [ptr] * 5 + [i32] * 5 + [f32] + [ptr] * 3
+        lib.binned_emit.argtypes = [ptr] * 5 + [i32] * 6 + [f32] + [ptr] * 3
         lib.binned_min.argtypes = [ptr] * 10 + [i32] * 5 + [f32] + [ptr] * 2
         lib.binned_info.argtypes = [i32] * 4 + [ptr]
         for fn in (lib.binned_emit, lib.binned_min, lib.binned_info):
@@ -199,11 +209,32 @@ def _lib():
     return lib
 
 
-def emit_launch(fat: FatBVH, o, inv, tb, t_min, g, pcap, em):
+def emit_smem(tile: int, g: int, pcap: int) -> int:
+    """Dynamic shared memory (bytes) of an emission CTA holding ``tile``
+    leaf boxes and their chunk boxes (24 B each) and its groups' slot rows."""
+    return 24 * (tile + -(-tile // EMIT_CHUNK)) + 4 * (LANES // g) * pcap
+
+
+def emit_tile_leaves(num_leaves: int, g: int, pcap: int, mode: str = "auto") -> int:
+    """Leaf boxes an emission CTA holds at a time: every leaf where they fit
+    ``EMIT_SMEM_BUDGET``, else ``EMIT_TILE``; ``mode="tiled"`` forces tiles
+    (a multiple of 32 leaves, at least ``FORCED_TILES`` of them where the
+    scene has the leaves)."""
+    if mode not in ("auto", "tiled"):
+        raise ValueError(f"emit_mode must be 'auto' or 'tiled', not {mode!r}")
+    if mode == "tiled":
+        per = -(-num_leaves // FORCED_TILES)
+        return min(EMIT_TILE, max(EMIT_CHUNK, -(-per // EMIT_CHUNK) * EMIT_CHUNK))
+    if emit_smem(num_leaves, g, pcap) <= EMIT_SMEM_BUDGET:
+        return num_leaves
+    return EMIT_TILE
+
+
+def emit_launch(fat: FatBVH, o, inv, tb, t_min, g, pcap, em, emit_mode: str = "auto"):
     """One emission-kernel launch over a wave padded to whole groups: the
-    same (count, slots) as :func:`_emit`, bit for bit. The kernel holds every
-    leaf box in shared memory (24 B a leaf, up to ~9,000 leaves) and
-    refuses more."""
+    same (count, slots) as :func:`_emit`, bit for bit. The leaf boxes go
+    through shared memory in tiles of :func:`emit_tile_leaves` leaves
+    (one tile where they all fit)."""
     dev = o.device
     if dev.type != "cuda":
         raise ValueError("the emission kernel runs on CUDA tensors only")
@@ -217,6 +248,7 @@ def emit_launch(fat: FatBVH, o, inv, tb, t_min, g, pcap, em):
                            (tb, "t_bound", (npad,)), (fat.leaf_lo, "leaf_lo", (L, 3)),
                            (fat.leaf_hi, "leaf_hi", (L, 3))):
         _check(x, name, torch.float32, shape, dev)
+    tile = emit_tile_leaves(L, g, pcap, emit_mode)
     ng = npad // g
     count = torch.empty(ng, dtype=torch.int32, device=dev)
     slots = torch.empty((ng, pcap), dtype=torch.int32, device=dev)
@@ -224,7 +256,7 @@ def emit_launch(fat: FatBVH, o, inv, tb, t_min, g, pcap, em):
         return count, slots
     rc = _lib().binned_emit(
         o.data_ptr(), inv.data_ptr(), tb.data_ptr(), fat.leaf_lo.data_ptr(),
-        fat.leaf_hi.data_ptr(), npad, L, g, pcap, int(em == "group"), t_min,
+        fat.leaf_hi.data_ptr(), npad, L, tile, g, pcap, int(em == "group"), t_min,
         count.data_ptr(), slots.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
@@ -233,12 +265,12 @@ def emit_launch(fat: FatBVH, o, inv, tb, t_min, g, pcap, em):
     return count, slots
 
 
-def emit(fat: FatBVH, o, inv, tb, t_min, g, pcap, em):
-    """Step 1: the emission kernel on CUDA tensors, :func:`_emit` on CPU
-    ones."""
+def emit(fat: FatBVH, o, inv, tb, t_min, g, pcap, em, emit_mode: str = "auto"):
+    """Step 1: the emission kernel on CUDA tensors (``emit_mode`` as
+    :func:`emit_tile_leaves`), :func:`_emit` on CPU ones."""
     if o.device.type == "cpu":
         return _emit(fat, o, inv, tb, t_min, g, pcap, em)
-    return emit_launch(fat, o, inv, tb, t_min, g, pcap, em)
+    return emit_launch(fat, o, inv, tb, t_min, g, pcap, em, emit_mode)
 
 
 def pad_wave(origin, direction, t_bound, g: int):
@@ -360,7 +392,8 @@ def kernel_info(kernel: str, num_leaves: int = 0, g: int = 8, pcap: int = 16) ->
     resident CTAs per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)
     and local (spill) bytes per thread of the compiled K5 (``kernel="bin"``)
     or emission kernel (``"emit"``, whose shared memory depends on the leaf
-    count, ``g`` and ``pcap``). K5's also holds its schedule: ``run_bins``
+    count, through :func:`emit_tile_leaves`, ``g`` and ``pcap``; its
+    ``tile_leaves`` is added). K5's also holds its schedule: ``run_bins``
     bins per CTA, each leaf of a run visited once per ``pass_lanes`` lanes
     that pass the pretest."""
     if kernel not in ("bin", "emit"):
@@ -369,10 +402,14 @@ def kernel_info(kernel: str, num_leaves: int = 0, g: int = 8, pcap: int = 16) ->
     if kernel == "bin":
         names += ("run_bins", "pass_lanes")
     out = (ctypes.c_int * 7)()
-    rc = _lib().binned_info(int(kernel == "emit"), num_leaves, g, pcap, out)
+    tile = emit_tile_leaves(num_leaves, g, pcap) if kernel == "emit" else 0
+    rc = _lib().binned_info(int(kernel == "emit"), tile, g, pcap, out)
     if rc != 0:
         raise RuntimeError(f"binned_info failed: cudaError {rc}")
-    return dict(zip(names, out))
+    info = dict(zip(names, out))
+    if kernel == "emit":
+        info["tile_leaves"] = tile
+    return info
 
 
 def lane_rays(bins: Bins):

@@ -26,6 +26,14 @@ of the kernel builds.
 The group size ``gs`` is an argument of the prep and the wrappers (``GS`` =
 4 is the reference's default); the plain versions do not depend on it.
 
+A CTA sorts its list keys (G groups padded to a power of two) in shared
+memory up to ``MAX_LIST_KEYS``; past that the kernel takes its global list
+mode (:func:`resolve_list_mode`), which sorts the same keys with the same
+network in a scratch buffer of ``LIST_SCRATCH_BYTES`` and launches the wave
+in chunks of CTAs that reuse it, so no scene size is refused.
+``list_mode="global"`` forces that mode on any scene; it is for checks, and
+the render path never sets it.
+
 ``block_closest`` / ``block_occluded`` launch the kernel when the rays lie
 on a CUDA device and use ``block_closest_plain`` / ``block_occluded_plain``
 only when they lie on the CPU. There is no fallback from one to the other:
@@ -58,6 +66,7 @@ GS = 4  # default leaves per candidate group (the reference's GS)
 T_MIN = 1e-4  # block entries ignore boxes the ray leaves before this
 SHADOW_EPS = float(np.float32(1.0 - 1e-3))
 MAX_LIST_KEYS = 4096  # list keys a CTA sorts in shared memory (csrc kMaxKeys)
+LIST_SCRATCH_BYTES = 1 << 29  # the global list mode's scratch: 512 MB of keys
 # elements per _block_entries pass: bounds the [blocks, block, G] temporaries
 # to 100 MB of f32 each
 ENTRY_CHUNK_ELEMS = 64 * 2048 * 190
@@ -168,14 +177,25 @@ def candidate_lists(fat: FatBVH, origin, direction, t_max, gs: int = GS,
 
 
 def list_keys(num_groups: int) -> int:
-    """Keys of a CTA's list: G padded to a power of two. Raises ValueError
-    when they do not fit the kernel's shared-memory budget."""
-    keys = 1 << max(num_groups - 1, 0).bit_length()
-    if keys > MAX_LIST_KEYS:
-        raise ValueError(
-            f"{num_groups} candidate groups need {keys} list keys: more than the "
-            f"{MAX_LIST_KEYS} the kernel's shared-memory budget holds (use a larger gs)")
-    return keys
+    """Keys of a CTA's list: G padded to a power of two."""
+    return 1 << max(num_groups - 1, 0).bit_length()
+
+
+def resolve_list_mode(num_groups: int, mode: str = "auto") -> str:
+    """Where the kernel sorts a CTA's list: "shared" when its keys fit the
+    shared-memory budget (``MAX_LIST_KEYS``), else "global"; ``mode=
+    "global"`` forces the global mode."""
+    if mode not in ("auto", "global"):
+        raise ValueError(f"list_mode must be 'auto' or 'global', not {mode!r}")
+    if mode == "global" or list_keys(num_groups) > MAX_LIST_KEYS:
+        return "global"
+    return "shared"
+
+
+def list_scratch_ctas(num_groups: int, n_cta: int) -> int:
+    """CTAs per chunk of a global-mode launch: as many lists as
+    ``LIST_SCRATCH_BYTES`` holds, at most the wave's CTAs."""
+    return max(1, min(n_cta, LIST_SCRATCH_BYTES // (8 * list_keys(num_groups))))
 
 
 def _lib():
@@ -186,11 +206,12 @@ def _lib():
         ptrs = [ctypes.c_void_p] * 10
         ints = [ctypes.c_int] * 5
         stats = [ctypes.c_void_p] * 3
-        lib.block_trace_closest.argtypes = ptrs + ints + [ctypes.c_void_p] * 2 + stats + [
-            ctypes.c_void_p]
-        lib.block_trace_occluded.argtypes = ptrs + ints + [ctypes.c_void_p] + stats + [
-            ctypes.c_void_p]
-        lib.block_trace_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        scratch = [ctypes.c_void_p, ctypes.c_int]
+        lib.block_trace_closest.argtypes = ptrs + ints + [ctypes.c_void_p] * 2 + stats + (
+            scratch + [ctypes.c_void_p])
+        lib.block_trace_occluded.argtypes = ptrs + ints + [ctypes.c_void_p] + stats + (
+            scratch + [ctypes.c_void_p])
+        lib.block_trace_info.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
         for fn in (lib.block_trace_closest, lib.block_trace_occluded, lib.block_trace_info):
             fn.restype = ctypes.c_int
         lib._stratum_bound = True
@@ -208,18 +229,21 @@ def _check(x: torch.Tensor, name, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def launch(fat: FatBVH, prep: Prepared, occluded: bool, stats: Optional[str] = None):
-    """One kernel launch over every CTA of a prepared wave -> (t, slot) or
-    (blocked,). ``stats="ncand"`` appends the per-CTA list lengths as
-    ``Lists(None, None, ncand)``, ``stats="lists"`` each CTA's whole sorted
-    list as well (``Lists`` at block 128: what
-    ``candidate_lists(..., block=CTA, live_only=True)`` gives for its
-    blocks)."""
+def launch(fat: FatBVH, prep: Prepared, occluded: bool, stats: Optional[str] = None,
+           list_mode: str = "auto"):
+    """The kernel over every CTA of a prepared wave -> (t, slot) or
+    (blocked,): one launch in the shared list mode, one per chunk of
+    :func:`list_scratch_ctas` CTAs in the global mode (see
+    :func:`resolve_list_mode`; ``list_mode="global"`` forces it). ``stats="ncand"``
+    appends the per-CTA list lengths as ``Lists(None, None, ncand)``,
+    ``stats="lists"`` each CTA's whole sorted list as well (``Lists`` at
+    block 128: what ``candidate_lists(..., block=CTA, live_only=True)``
+    gives for its blocks)."""
     L, K = fat.leaf_tri.shape
     G = prep.group_lo.shape[0]
     if G != -(-L // prep.gs):
         raise ValueError(f"{G} candidate groups do not match {L} leaves in groups of {prep.gs}")
-    list_keys(G)
+    mode = resolve_list_mode(G, list_mode)
     dev = prep.rays.device
     if dev.type != "cuda":
         raise ValueError("the block-trace kernel runs on CUDA tensors only")
@@ -261,14 +285,21 @@ def launch(fat: FatBVH, prep: Prepared, occluded: bool, stats: Optional[str] = N
         )
         stat_ptrs = [None if x is None else x.data_ptr()
                      for x in (lists.ncand, lists.centry, lists.cand)]
+    scratch, chunk = None, 0
+    if mode == "global":
+        chunk = list_scratch_ctas(G, n_cta)
+        scratch = torch.empty(chunk * list_keys(G), dtype=torch.int64, device=dev)
+    scratch_args = (None if scratch is None else scratch.data_ptr(), chunk)
     if occluded:
         blocked = torch.empty(np_, dtype=torch.uint8, device=dev)
-        rc = lib.block_trace_occluded(*args, blocked.data_ptr(), *stat_ptrs, stream)
+        rc = lib.block_trace_occluded(*args, blocked.data_ptr(), *stat_ptrs, *scratch_args,
+                                      stream)
         outs = (blocked,)
     else:
         t = torch.empty(np_, dtype=f32, device=dev)
         slot = torch.empty(np_, dtype=i32, device=dev)
-        rc = lib.block_trace_closest(*args, t.data_ptr(), slot.data_ptr(), *stat_ptrs, stream)
+        rc = lib.block_trace_closest(*args, t.data_ptr(), slot.data_ptr(), *stat_ptrs,
+                                     *scratch_args, stream)
         outs = (t, slot)
     if rc != 0:
         raise RuntimeError(f"block_trace kernel launch failed: cudaError {rc}")
@@ -276,13 +307,14 @@ def launch(fat: FatBVH, prep: Prepared, occluded: bool, stats: Optional[str] = N
     return outs if lists is None else outs + (lists,)
 
 
-def kernel_info(occluded: bool, num_groups: int) -> dict:
+def kernel_info(occluded: bool, num_groups: int, mode: str = "shared") -> dict:
     """The compiled kernel's registers per thread, static and dynamic
     shared memory (bytes), resident CTAs per SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and local (spill)
-    bytes per thread, at a list of ``num_groups`` groups."""
+    bytes per thread, at a list of ``num_groups`` groups, in the list mode
+    ``mode`` ("shared" or "global")."""
     out = (ctypes.c_int * 5)()
-    rc = _lib().block_trace_info(int(occluded), num_groups, out)
+    rc = _lib().block_trace_info(int(occluded), int(mode == "global"), num_groups, out)
     if rc != 0:
         raise RuntimeError(f"block_trace_info failed: cudaError {rc}")
     return dict(zip(("registers", "static_smem", "dynamic_smem", "ctas_per_sm",
@@ -311,26 +343,29 @@ def _default_t_max(origin, t_max):
     return t_max
 
 
-def block_closest(fat: FatBVH, origin, direction, t_max=None, gs: int = GS) -> HitRecord:
+def block_closest(fat: FatBVH, origin, direction, t_max=None, gs: int = GS,
+                  list_mode: str = "auto") -> HitRecord:
     """Closest hit per ray as a slot-mode HitRecord. CUDA tensors run the
-    kernel (K1, or K3 at gs = 1); CPU tensors run
-    :func:`block_closest_plain`, whose result does not depend on ``gs``."""
+    kernel (K1, or K3 at gs = 1; ``list_mode`` as :func:`launch`); CPU
+    tensors run :func:`block_closest_plain`, whose result does not depend
+    on ``gs``."""
     t_max = _default_t_max(origin, t_max)
     if origin.device.type == "cpu":
         return block_closest_plain(fat, origin, direction, t_max)
     prep = _prepare(fat, origin, direction, t_max, gs)
-    t, slot = launch(fat, prep, occluded=False)
+    t, slot = launch(fat, prep, occluded=False, list_mode=list_mode)
     return _slot_record(t[:prep.n], slot[:prep.n])
 
 
-def block_occluded(fat: FatBVH, origin, direction, t_max, gs: int = GS):
+def block_occluded(fat: FatBVH, origin, direction, t_max, gs: int = GS,
+                   list_mode: str = "auto"):
     """Any-hit before t_max * (1 - 1e-3): bool [N]. CUDA tensors run
-    the kernel (K2, or K3 at gs = 1); CPU tensors run
-    :func:`block_occluded_plain`."""
+    the kernel (K2, or K3 at gs = 1; ``list_mode`` as :func:`launch`); CPU
+    tensors run :func:`block_occluded_plain`."""
     if origin.device.type == "cpu":
         return block_occluded_plain(fat, origin, direction, t_max)
     prep = _prepare(fat, origin, direction, t_max * SHADOW_EPS, gs)
-    (blocked,) = launch(fat, prep, occluded=True)
+    (blocked,) = launch(fat, prep, occluded=True, list_mode=list_mode)
     return blocked[:prep.n].bool()
 
 

@@ -1,16 +1,25 @@
-"""Wavefront path tracer (counterpart of stratum_tpu/render/integrator.py:
-RenderConfig, trace_path and render_path_with_counts).
+"""Wavefront integrators (counterpart of stratum_tpu/render/integrator.py:
+RenderConfig, the tracer resolution, trace_direct / render_direct(_progressive)
+and trace_path / render_path(_with_counts, _progressive)).
 
-One sample per pixel as a dense per-bounce wavefront: intersect, add
-MIS-weighted emission, run NEE from the presampled light tile, sample the
-BSDF, continue with Russian roulette. The reference's ``lax.scan`` over
-bounces is a Python loop here. Bounce 0 traces unsorted (the primary wave
-is tile-coherent); later bounces go through the trace-local sort; every
+``tracer="auto"`` resolves as the reference does: the dense tracer
+(``"mxu"``, ops/mxu.py) at <= MXU_TRI_THRESHOLD triangles, else
+``"pallas"``, the block kernel (ops/block_trace.py) under the reference's
+name for its Pallas tracer. ``"brute"`` is the exact oracle.
+
+The path tracer runs one sample per pixel as a dense per-bounce wavefront:
+intersect, add MIS-weighted emission, run NEE (from the presampled light
+tile with ``presample_lights``), sample the BSDF, continue with Russian
+roulette. The reference's ``lax.scan`` over bounces is a Python loop here.
+On ``"pallas"``, bounce 0 traces unsorted (the primary wave is
+tile-coherent), later bounces go through the trace-local sort, every
 bounce's NEE shadow rays are traced in ONE deferred occlusion wave after
-the loop. With the ``binned_*`` options, sorted closest waves, early
-bounces and the occlusion wave go through the binned pair-stream tracer
-instead (ops/binned.py). Integer and hash paths (RNG, tile order, coherent
-granules) match the reference bit for bit.
+the loop, and the ``binned_*`` options send sorted closest waves, early
+bounces and the occlusion wave through the binned pair-stream tracer
+(ops/binned.py). The dense tracers have no candidate prep to amortise, so
+they trace every wave unsorted and each bounce's shadow rays at once, and
+their hits resolve with one ``tri_payload`` row gather. Integer and hash
+paths (RNG, tile order, coherent granules) match the reference bit for bit.
 """
 
 from __future__ import annotations
@@ -22,9 +31,14 @@ import torch
 
 from stratum_tpu_torch.core import math as smath
 from stratum_tpu_torch.core import rng as srng
-from stratum_tpu_torch.ops import binned, block_trace, raysort
+from stratum_tpu_torch.ops import binned, block_trace, mxu, raysort
 from stratum_tpu_torch.ops.bvh import morton3
-from stratum_tpu_torch.ops.intersect import T_MAX, ray_offset
+from stratum_tpu_torch.ops.intersect import (
+    T_MAX,
+    intersect_brute_force,
+    occluded_brute_force,
+    ray_offset,
+)
 from stratum_tpu_torch.render import camera as scamera
 from stratum_tpu_torch.render import lights as slights
 from stratum_tpu_torch.render.shading import (
@@ -38,7 +52,8 @@ _ENV_DIST = float(np.float32(T_MAX) * np.float32(0.5))
 
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
-    """Render parameters, field for field the reference's RenderConfig.
+    """Render parameters, field for field the reference's RenderConfig
+    (the same names, order and defaults).
 
     ``gs``, ``gs_primary`` and ``gs_shadow`` set the block tracer's group
     size as the reference's do (-1: 4, -2: follow ``gs``; 1 is the K3
@@ -46,7 +61,8 @@ class RenderConfig:
     (``unroll_bounces``, ``ring``, ``entry_group*``, ``gs_gate``) are
     accepted and ignored: the CUDA kernel has one schedule. Options that
     would change what is rendered and are not ported raise
-    NotImplementedError (see :func:`check_supported`)."""
+    NotImplementedError at a value other than their default (see
+    :func:`check_supported`)."""
 
     width: int = 256
     height: int = 256
@@ -58,7 +74,7 @@ class RenderConfig:
     rr_min_beta: float = 0.05
     slim_carry: bool = False
     bsdf: str = "lambert"  # "lambert" | "disney"
-    tracer: str = "auto"  # "auto": the block tracer (ops/block_trace.py)
+    tracer: str = "auto"  # "auto" | "mxu" | "pallas" | "brute" (see resolved_tracer)
     alpha_test: bool = False
     ris_candidates: int = 1
     sort_rays: bool = True  # trace-local sort of closest waves 1..N
@@ -68,8 +84,10 @@ class RenderConfig:
     clamp_indirect: float = 0.0  # >0: luminance clamp on indirect terms
     shadow_rr: float = 0.0  # >0: Russian roulette on NEE shadow rays
     debug_path_edges: int = 0
+    lvc_connections: int = 0  # BDPT's light-vertex-cache connections
     coherent_tiles: int = 0  # >0: granule-shared groups of tile rows
     coherent_block: int = 2048  # lanes per coherence granule
+    tex_filter: str = "trilinear"  # texture filter ("trilinear" | "stochastic")
     entry_group: int = 0
     entry_group_primary: int = 0
     entry_group_shadow: int = 0
@@ -88,14 +106,16 @@ class RenderConfig:
     wave_caps: tuple = ()
 
 
+# below this triangle count "auto" tests every triangle with the dense
+# tracer instead of walking the BVH (the reference's threshold)
+MXU_TRI_THRESHOLD = 16384
+TRACERS = ("mxu", "pallas", "brute")  # the tracers the port runs
 _TRACERS = {
-    "mxu": "the dense MXU tracer",
     "packet": "the XLA packet tracer",
     "bvh": "the LBVH tracer",
-    "brute": "the brute-force tracer",
 }
 _ITEM = {  # ROADMAP Queue 1 item that ports each refused option
-    "tracer": "item 1 (Cornell MXU path)",
+    "tracer": "item 1 (the packet tracer and the LBVH)",
     "alpha_test": "item 4 (RIS NEE, alpha_test, wave_caps, media and spheres)",
     "ris_candidates>1": "item 4 (RIS NEE, alpha_test, wave_caps, media and spheres)",
     "wave_caps": "item 4 (RIS NEE, alpha_test, wave_caps, media and spheres)",
@@ -104,6 +124,8 @@ _ITEM = {  # ROADMAP Queue 1 item that ports each refused option
     "indirect_only": "item 5 (light tracing, BDPT, ReSTIR and adaptive)",
     "use_nee=False": "item 4 (RIS NEE, alpha_test, wave_caps, media and spheres)",
     "use_mis=False": "item 4 (RIS NEE, alpha_test, wave_caps, media and spheres)",
+    "lvc_connections": "item 5 (light tracing, BDPT, ReSTIR and adaptive)",
+    "tex_filter": "item 2 (textures and the colonnade)",
 }
 
 
@@ -114,7 +136,7 @@ def check_supported(cfg: RenderConfig) -> None:
             f"tracer={cfg.tracer!r} ({_TRACERS[cfg.tracer]}): ROADMAP Queue 1 "
             + _ITEM["tracer"]
         )
-    if cfg.tracer != "auto":
+    if cfg.tracer != "auto" and cfg.tracer not in TRACERS:
         raise ValueError(f"unknown tracer {cfg.tracer!r}")
     if cfg.bsdf not in ("lambert", "disney"):
         raise ValueError(f"unknown bsdf {cfg.bsdf!r}")
@@ -127,6 +149,8 @@ def check_supported(cfg: RenderConfig) -> None:
         "indirect_only": cfg.indirect_only,
         "use_nee=False": not cfg.use_nee,
         "use_mis=False": not cfg.use_mis,
+        "lvc_connections": cfg.lvc_connections != 0,
+        "tex_filter": cfg.tex_filter != "trilinear",
     }
     for name, on in refused.items():
         if on:
@@ -134,6 +158,14 @@ def check_supported(cfg: RenderConfig) -> None:
     if (cfg.binned_secondary or cfg.binned_bounces) and not cfg.sort_rays:
         # the reference silently ignores both without its sorted peel
         raise ValueError("binned_secondary and binned_bounces need sort_rays=True")
+
+
+def resolved_tracer(scene, cfg: RenderConfig) -> str:
+    """The tracer ``cfg.tracer`` names; ``auto`` gives the dense tracer at
+    <= MXU_TRI_THRESHOLD (padded) triangles, the block kernel above."""
+    if cfg.tracer == "auto":
+        return "mxu" if scene.geo.num_triangles <= MXU_TRI_THRESHOLD else "pallas"
+    return cfg.tracer
 
 
 def mis_power_heuristic(pdf_a, pdf_b):
@@ -190,23 +222,44 @@ def _group_size(value: int, follow: int) -> int:
 
 def _trace_fns(scene, cfg: RenderConfig, capture=None):
     """(closest, closest_unsorted, occluded, closest_binned_peel), the
-    counterpart of the reference's ``_trace_fns4``: the sorted closest
-    tracer (binned with ``binned_secondary``), the unsorted primary peel
-    (always the block tracer), the occlusion tracer (binned with
-    ``binned_shadow``) and, with ``binned_bounces``, the unsorted binned
-    closest tracer of the early bounces (else None). Closest results are
-    resolved by finalize_hit's one payload gather after any unsort. With a
-    ``capture`` dict, every tracer call appends the inputs it hands a
-    wrapper: (o, d, t) under "closest" / "occluded" for the block tracer,
-    (o, d, t, stats) under "binned_closest" / "binned_occluded"."""
-    fat = scene.fat_bvh
-    gs = _group_size(cfg.gs, block_trace.GS)
-    binned_kw = dict(pcap=cfg.binned_pcap, sb=cfg.binned_sb, em=cfg.binned_em,
-                     with_stats=capture is not None)
+    counterpart of the reference's ``_trace_fns4``. On ``"pallas"``: the
+    sorted closest tracer (binned with ``binned_secondary``), the unsorted
+    primary peel (always the block tracer), the occlusion tracer (binned
+    with ``binned_shadow``) and, with ``binned_bounces``, the unsorted
+    binned closest tracer of the early bounces (else None); closest results
+    are resolved by finalize_hit's one payload gather after any unsort. On
+    a dense tracer (``"mxu"``, ``"brute"``) the closest tracer serves every
+    wave unsorted and its hits carry triangle ids. With a ``capture``
+    dict, every tracer call appends the inputs it hands a tracer: (o, d,
+    t) under "closest" / "occluded", (o, d, t, stats) under
+    "binned_closest" / "binned_occluded"."""
+    tracer = resolved_tracer(scene, cfg)
 
     def record(kind, *rays):
         if capture is not None:
             capture.setdefault(kind, []).append(rays)
+
+    if tracer != "pallas":
+        geo, feat = scene.geo, scene.tri_features
+
+        def closest(o, d, tm=None):
+            record("closest", o, d, tm)
+            if tracer == "mxu":
+                return mxu.intersect_mxu(o, d, feat, t_max=tm)
+            return intersect_brute_force(o, d, geo.positions, geo.indices, t_max=tm)
+
+        def occluded(o, d, t):
+            record("occluded", o, d, t)
+            if tracer == "mxu":
+                return mxu.occluded_mxu(o, d, t, feat)
+            return occluded_brute_force(o, d, t, geo.positions, geo.indices)
+
+        return closest, closest, occluded, None
+
+    fat = scene.fat_bvh
+    gs = _group_size(cfg.gs, block_trace.GS)
+    binned_kw = dict(pcap=cfg.binned_pcap, sb=cfg.binned_sb, em=cfg.binned_em,
+                     with_stats=capture is not None)
 
     def mcap(n):
         return n * cfg.binned_mcap_num // 8 if cfg.binned_mcap_num else None
@@ -261,6 +314,16 @@ def _trace_fns(scene, cfg: RenderConfig, capture=None):
 
     closest_u = block_closest(_group_size(cfg.gs_primary, gs))
     return finalized(closest_sorted), finalized(closest_u), occluded, closest_b
+
+
+def _hit_rows(scene, hit):
+    """(shading row [N, 32], material row [N, 24]) of each hit: from the
+    block tracer's fused slot payload, or for the dense tracers' triangle
+    ids by one ``tri_payload`` row gather (row 0 on a miss)."""
+    if hit.payload is not None:
+        return hit.payload[:, 0:32], hit.payload[:, 64:88]
+    row = scene.tri_payload[torch.clamp(hit.tri, min=0).long()]
+    return row[:, 0:32], row[:, 32:56]
 
 
 def light_tile_for(scene, cfg: RenderConfig, seed, scene_lo, scene_hi):
@@ -357,6 +420,9 @@ def trace_path(scene, view, cfg: RenderConfig, seed: int, px=None, py=None,
     trace_closest, trace_closest_u, trace_occluded, trace_closest_b = _trace_fns(
         scene, cfg, capture
     )
+    # deferring pays off by amortising the block tracer's candidate prep
+    # over the bounces; the dense tracers have none (reference :704-707)
+    defer = cfg.defer_shadows and resolved_tracer(scene, cfg) == "pallas"
     if px is None:
         px, py = scamera.pixel_grid(cfg.width, cfg.height, dev)
     jitter, st = _ray_jitter(px, py, seed)
@@ -387,8 +453,9 @@ def trace_path(scene, view, cfg: RenderConfig, seed: int, px=None, py=None,
         else:
             closest_fn = trace_closest
         hit = closest_fn(origin, direction, seg_max)
-        sp = shading_point_from_row(hit.payload[:, 0:32], hit.tri, hit.bary, direction)
-        mat = material_from_row(hit.payload[:, 64:88])
+        srow, mrow = _hit_rows(scene, hit)
+        sp = shading_point_from_row(srow, hit.tri, hit.bary, direction)
+        mat = material_from_row(mrow)
         hit_mask = hit.hit
 
         # escaped rays: environment, MIS against NEE
@@ -455,7 +522,7 @@ def trace_path(scene, view, cfg: RenderConfig, seed: int, px=None, py=None,
         contrib = _firefly_clamp(cfg, contrib, depth, 1)
         contrib, candidate, st = _shadow_ray_rr(cfg, contrib, candidate, st)
         n_rays = n_rays + candidate.sum()
-        if cfg.defer_shadows:
+        if defer:
             shadow_parts.append((
                 shadow_origin, wi, torch.where(candidate, dist, 0.0),
                 torch.where(candidate[..., None], contrib, 0.0),
@@ -500,18 +567,85 @@ def trace_path(scene, view, cfg: RenderConfig, seed: int, px=None, py=None,
 
 
 def render_path_with_counts(scene, view, cfg: RenderConfig, seed: int, capture=None):
-    """One sample per pixel -> (image [H, W, 3], traced-ray count). Pixels
-    are traced in screen tiles of up to 32x64 (``tile_dims``) so ray blocks
-    stay compact; the pixel-keyed RNG makes the result independent of that
-    layout. ``capture`` (a dict) collects the rays of every tracer call, so
-    a caller can replay the waves this sample traced (see
-    :func:`_trace_fns`)."""
-    dev = scene.device
-    dims = scamera.tile_dims(cfg.width, cfg.height)
+    """One path-traced sample per pixel -> (image [H, W, 3], traced-ray
+    count), on the scene's device. On ``"pallas"`` pixels are traced in
+    screen tiles of up to 32x64 (``tile_dims``) so ray blocks stay compact,
+    untiled otherwise (reference :1560-1595); the pixel-keyed RNG makes the
+    result independent of that layout. ``capture`` (a dict) collects the
+    rays of every tracer call, so a caller can replay the waves this sample
+    traced (see :func:`_trace_fns`)."""
+    dims = None
+    if resolved_tracer(scene, cfg) == "pallas":
+        dims = scamera.tile_dims(cfg.width, cfg.height)
     if dims is None:
-        rad, n_rays = trace_path(scene, view, cfg, seed, capture=capture)
+        px, py = scamera.pixel_grid(cfg.width, cfg.height, scene.device)
+        rad, n_rays = trace_path(scene, view, cfg, seed, px, py, capture)
         return rad.reshape(cfg.height, cfg.width, 3), n_rays
     th, tw = dims
-    px, py = scamera.pixel_grid_tiled(cfg.width, cfg.height, th, tw, dev)
+    px, py = scamera.pixel_grid_tiled(cfg.width, cfg.height, th, tw, scene.device)
     rad, n_rays = trace_path(scene, view, cfg, seed, px, py, capture)
     return scamera.untile_image(rad, cfg.width, cfg.height, th, tw), n_rays
+
+
+def render_path(scene, view, cfg: RenderConfig, seed: int):
+    """One path-traced sample per pixel -> image [H, W, 3]."""
+    return render_path_with_counts(scene, view, cfg, seed)[0]
+
+
+def render_path_progressive(scene, view, cfg: RenderConfig, spp: int, seed0: int = 0):
+    """The mean of ``spp`` path-traced samples at seeds seed0, seed0 + 1, ..."""
+    acc = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32, device=scene.device)
+    for s in range(spp):
+        acc = acc + render_path(scene, view, cfg, seed0 + s)
+    return acc / spp
+
+
+def trace_direct(scene, view, cfg: RenderConfig, seed: int):
+    """One sample per pixel of direct lighting, Lambertian with NEE only
+    (the reference's M1 integrator) -> radiance [N, 3]: emission or the
+    environment where the camera ray lands, plus one unweighted light
+    sample through one shadow ray."""
+    check_supported(cfg)
+    dev = scene.device
+    trace_closest, _, trace_occluded, _ = _trace_fns(scene, cfg)
+    px, py = scamera.pixel_grid(cfg.width, cfg.height, dev)
+    jitter, st = _ray_jitter(px, py, seed)
+    origin, direction = scamera.generate_rays(view, px, py, jitter, cfg.width, cfg.height)
+    hit = trace_closest(origin, direction)
+    srow, mrow = _hit_rows(scene, hit)
+    sp = shading_point_from_row(srow, hit.tri, hit.bary, direction)
+    mat = material_from_row(mrow)
+    radiance = torch.where(
+        (~hit.hit)[..., None],
+        slights.eval_environment(scene, direction),
+        torch.where(sp.front_face[..., None], mat.emission, 0.0),
+    )
+    u, st = srng.next_floats(st, 3)
+    ls = slights.sample_light(scene, u[..., 0], u[..., 1], u[..., 2])
+    to_light = torch.where(ls.is_env[..., None], ls.position, ls.position - sp.position)
+    dist = torch.where(ls.is_env, _ENV_DIST, smath.length(to_light))
+    wi = torch.where(ls.is_env[..., None], ls.position, to_light / dist[..., None])
+    cos_surf = smath.dot(wi, sp.shading_normal)
+    cos_light = torch.where(ls.is_env, 1.0, torch.clamp(smath.dot(-wi, ls.normal), min=0.0))
+    g = torch.where(ls.is_env, 1.0, smath.safe_div(cos_light, dist * dist))
+    pdf_w = torch.where(ls.is_env, ls.pdf_area, smath.safe_div(ls.pdf_area, g))
+    f = mat.base_color * smath.INV_PI
+    contrib = f * ls.radiance * (
+        torch.clamp(cos_surf, min=0.0) / torch.clamp(pdf_w, min=1e-12))[..., None]
+    candidate = (hit.hit & (cos_surf > 0.0) & (torch.amax(contrib, dim=-1) > 0.0)
+                 & (pdf_w > 1e-12))
+    occ = trace_occluded(ray_offset(sp.position, sp.geom_normal), wi, dist)
+    return radiance + torch.where((candidate & ~occ)[..., None], contrib, 0.0)
+
+
+def render_direct(scene, view, cfg: RenderConfig, seed: int):
+    """One direct-lighting sample per pixel -> image [H, W, 3]."""
+    return trace_direct(scene, view, cfg, seed).reshape(cfg.height, cfg.width, 3)
+
+
+def render_direct_progressive(scene, view, cfg: RenderConfig, spp: int, seed0: int = 0):
+    """The mean of ``spp`` direct-lighting samples at seeds seed0, seed0 + 1, ..."""
+    acc = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32, device=scene.device)
+    for s in range(spp):
+        acc = acc + render_direct(scene, view, cfg, seed0 + s)
+    return acc / spp

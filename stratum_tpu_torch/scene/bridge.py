@@ -71,5 +71,9 @@ def scene_from_numpy(fields: dict, device) -> schema.SceneData:
         ),
         fat_bvh=sub(FatBVH, "fat_bvh."),
         slot_payload=f["slot_payload"],
+        tri_features=f["tri_features"],
+        # the reference builds this table but leaves SceneData.tri_payload
+        # None (its flatten.py:523-545); the same rows come from its tables
+        tri_payload=schema.build_tri_payload(f["geo.packed_tri"], f["materials.packed"]),
     )
     return schema.to_device(scene, device)

@@ -1,5 +1,6 @@
-"""Built-in scenes (counterpart of stratum_tpu/scene/builtin.py:24-107,
-172-250): the Cornell box and the procedural atrium, built on the port's
+"""Built-in scenes (counterpart of stratum_tpu/scene/builtin.py:24-250,
+286-313): the Cornell box, the material spheres, the procedural atrium and
+the white furnace, built on the port's
 node graph with its numpy sphere tessellation and look_at, so building them
 pulls in nothing of the JAX package.
 """
@@ -13,6 +14,7 @@ from stratum_tpu_torch.scene.graph import (
     EnvironmentComponent,
     MeshPrimitive,
     NodeGraph,
+    SpherePrimitive,
     TransformComponent,
 )
 from stratum_tpu_torch.scene.material import Material
@@ -94,6 +96,44 @@ def cornell_box(light_scale: float = 1.0, boxes: bool = True) -> NodeGraph:
     return g
 
 
+def material_spheres(stacks: int = 24, slices: int = 48) -> NodeGraph:
+    """Three tessellated spheres (diffuse, metal, glass) on a floor under an
+    area light and a gray environment: the Disney BSDF showcase."""
+    g = NodeGraph()
+    floor = g.root.add_child("floor")
+    s = 20.0
+    pos, idx = _quad((-s, 0, -s), (-s, 0, s), (s, 0, s), (s, 0, -s))
+    floor.make_component(MeshPrimitive(
+        positions=pos, indices=idx,
+        material=Material(base_color=np.full(3, 0.5, np.float32))))
+    mats = [
+        Material(base_color=np.asarray([0.7, 0.3, 0.3], np.float32)),
+        Material(base_color=np.asarray([0.9, 0.7, 0.3], np.float32), metallic=1.0,
+                 roughness=0.25),
+        Material(base_color=np.ones(3, np.float32), transmission=1.0, roughness=0.05,
+                 eta=1.5),
+    ]
+    for i, m in enumerate(mats):
+        n = g.root.add_child(f"sphere_{i}")
+        t = np.eye(3, 4, dtype=np.float32)
+        t[:, 3] = ((i - 1) * 2.4, 1.0, 0.0)
+        n.make_component(TransformComponent(matrix=t))
+        n.make_component(SpherePrimitive(radius=1.0, material=m, stacks=stacks, slices=slices))
+    light = g.root.add_child("light")
+    y = 6.0
+    lpos, lidx = _quad((-2, y, -2), (2, y, -2), (2, y, 2), (-2, y, 2))
+    light.make_component(MeshPrimitive(
+        positions=lpos, indices=lidx,
+        material=Material(base_color=np.zeros(3, np.float32),
+                          emission=np.full(3, 10.0, np.float32))))
+    env = g.root.add_child("env")
+    env.make_component(EnvironmentComponent(color=np.full(3, 0.2, np.float32)))
+    cam = g.root.add_child("camera")
+    cam.make_component(TransformComponent(matrix=look_at((0.0, 2.2, -7.0), (0.0, 1.0, 0.0))))
+    cam.make_component(CameraComponent(fovy=np.radians(45.0)))
+    return g
+
+
 def atrium(columns: int = 6, stacks: int = 24, slices: int = 48) -> NodeGraph:
     """Sponza-class procedural scene (132,778 triangles with the defaults):
     floor and walls, two colonnades of stacked-sphere pillars, an arcade of
@@ -153,4 +193,25 @@ def atrium(columns: int = 6, stacks: int = 24, slices: int = 48) -> NodeGraph:
         matrix=look_at((0.0, 4.0, -hl + 2.0), (0.0, 4.0, hl))
     ))
     cam.make_component(CameraComponent(fovy=np.radians(55.0)))
+    return g
+
+
+def furnace(albedo: float = 0.8, radiance: float = 0.5, stacks: int = 16,
+            slices: int = 32) -> NodeGraph:
+    """White furnace: a diffuse tessellated sphere in a constant
+    environment. Environment pixels see exactly ``radiance``; with one
+    bounce the sphere shows ``albedo * radiance``, and the full path series
+    approaches ``radiance``."""
+    g = NodeGraph()
+    sph = g.root.add_child("sphere")
+    sph.make_component(SpherePrimitive(
+        radius=1.0, material=Material(base_color=np.full(3, albedo, np.float32)),
+        stacks=stacks, slices=slices))
+    env = g.root.add_child("env")
+    env.make_component(EnvironmentComponent(color=np.full(3, radiance, np.float32)))
+    cam = g.root.add_child("camera")
+    m = np.eye(3, 4, dtype=np.float32)
+    m[:, 3] = (0.0, 0.0, -4.0)
+    cam.make_component(TransformComponent(matrix=m))
+    cam.make_component(CameraComponent(fovy=np.radians(45.0)))
     return g

@@ -3,7 +3,8 @@ stratum_tpu/scene/flatten.py:50-93, 184-609).
 
 Walks the node graph (``scene/graph.py``), bakes meshes to
 world space, dedups materials by value, builds the light table, the native
-SAH fat BVH (K = 256) and the fused per-slot hit payload, all in numpy, then
+SAH fat BVH (K = 256), the fused per-slot hit payload and the dense
+tracers' triangle features and per-triangle payload, all in numpy, then
 moves the result onto ``device`` (the card unless the caller names
 another). Scenes with textures, analytic spheres,
 media or environment images are refused: their render paths are not ported
@@ -25,6 +26,7 @@ from stratum_tpu_torch.scene.graph import (
     SpherePrimitive,
 )
 from stratum_tpu_torch.scene.material import Material
+from stratum_tpu_torch.ops.mxu import build_tri_features
 from stratum_tpu_torch.ops.packet import build_fat_bvh_sah
 from stratum_tpu_torch.scene import schema
 
@@ -207,6 +209,8 @@ def flatten(root: Node, env_probability: float = 0.5, device="cuda"):
     scene = schema.SceneData(
         geo=geo, materials=mats, lights=lights, env=env, fat_bvh=fat,
         slot_payload=build_slot_payload(packed_rows, mats, fat),
+        tri_features=build_tri_features(pos_p, idx_p, mat_p >= 0),
+        tri_payload=schema.build_tri_payload(packed_rows, mats.packed),
     )
     stats.num_triangles = int(sum(i.shape[0] for i in all_idx))
     stats.num_vertices = int(vert_base)

@@ -40,6 +40,10 @@ class GeometrySoA(NamedTuple):
     tri_instance: torch.Tensor  # i32 [T]
     packed_tri: torch.Tensor  # f32 [T, 32] one-gather shading row
 
+    @property
+    def num_triangles(self) -> int:
+        return self.indices.shape[0]
+
 
 class DisneyMaterials(NamedTuple):
     """SoA Disney parameters, one row per unique material."""
@@ -96,6 +100,11 @@ class SceneData(NamedTuple):
     # coefficients (col 32 + f*3 + q), 62 the tri id as f32 (-1 padding),
     # 63 the material's normal-texture id, 64-87 its material row
     slot_payload: torch.Tensor
+    tri_features: torch.Tensor  # f32 [T, 10, 4] Plucker blocks (ops/mxu.py)
+    # fused per-triangle hit payload [T, 56] for the dense tracers (their
+    # hits carry triangle ids, not slots): cols 0-31 the packed shading
+    # row, 32-55 the triangle's material row
+    tri_payload: torch.Tensor
 
     @property
     def device(self) -> torch.device:
@@ -205,6 +214,14 @@ def pack_tri_rows(positions, normals, uvs, indices, tri_material, tri_light,
     rows[:, 25] = tri_light
     rows[:, 26] = tri_instance
     return rows
+
+
+def build_tri_payload(packed_tri, materials_packed) -> np.ndarray:
+    """[T, 56] dense-tracer payload (numpy): each packed shading row beside
+    its material row (material -1, the padding, takes row 0)."""
+    rows = np.asarray(packed_tri, np.float32)
+    mat_ids = np.maximum(rows[:, 24].astype(np.int64), 0)
+    return np.concatenate([rows, np.asarray(materials_packed)[mat_ids]], axis=1)
 
 
 def triangle_areas(positions, indices):

@@ -274,19 +274,3 @@ def test_bad_arguments_raise(cases, kw):
     c = cases["random"]
     with pytest.raises(ValueError):
         binned.binned_closest(c["fat"], _t(c["o"]), _t(c["d"]), **kw)
-
-
-@pytest.mark.cuda
-def test_kernel_matches_plain_on_gpu(cases):
-    """K5 against bin_min_plain on the same bins, on the card."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    c = cases["atrium"]
-    fat = FatBVH(*(x.cuda() for x in c["fat"]))
-    o, d, tm = (_t(c[k]).cuda() for k in ("o", "d", "t_max"))
-    bins = binned.bin_pairs(fat, o, d, tm, mcap=MCAP)
-    tk, sk = binned.unpack(binned.launch(fat, bins, "closest"))
-    tp, sp = binned.unpack(binned.bin_min_plain(fat, bins))
-    assert (sk == sp).float().mean().item() >= 0.999
-    same = (sk == sp) & torch.isfinite(tp)
-    torch.testing.assert_close(tk[same], tp[same], rtol=1e-3, atol=0.0)

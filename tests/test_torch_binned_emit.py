@@ -1,6 +1,7 @@
 """The binned tracer's emission (stratum_tpu_torch/ops/binned.py, step 1)
 against a numpy loop and against the JAX reference's emission stats, and the
-emission kernel and K5 against their plain versions on the card.
+emission kernel's choice of leaf tiles (its run on the card is in
+tests/test_torch_cuda.py).
 
 The plain emission ``_emit`` is the emission kernel's plain version. Both
 compute the slab tests with subtract, multiply, min, max and compares only,
@@ -24,7 +25,6 @@ from stratum_tpu.scene import builtin as jbuiltin
 from stratum_tpu.scene import flatten as jflatten
 from stratum_tpu_torch.ops import binned, block_trace
 from stratum_tpu_torch.ops.intersect import T_MAX
-from stratum_tpu_torch.ops.packet import FatBVH
 from stratum_tpu_torch.scene import bridge
 
 torch.set_num_threads(2)
@@ -179,27 +179,20 @@ def test_emission_kernel_refuses_cpu_tensors(wave):
         binned.emit_launch(wave["fat"], o, inv, tb, block_trace.T_MIN, 8, 16, "ray")
 
 
-@pytest.mark.cuda
-def test_emission_kernel_and_k5_match_plain_on_gpu(wave):
-    """On the card: the emission kernel's count and slots equal ``_emit``'s
-    bit for bit (every g, both modes, pcap 3 and 32), and K5 equals
-    bin_min_plain on >= 99.9 % of rays, t within 1e-3 relative where the
-    slots agree."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    fat = FatBVH(*(x.cuda() for x in wave["fat"]))
-    for g in (1, 2, 8, 16, 32, 64, 128):
-        o, inv, tb = (x.cuda() for x in _padded(wave, g))
-        for em in ("ray", "group"):
-            for pcap in (3, 32):
-                got = binned.emit_launch(fat, o, inv, tb, block_trace.T_MIN, g, pcap, em)
-                want = binned._emit(fat, o, inv, tb, block_trace.T_MIN, g, pcap, em)
-                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (g, em, pcap)
-    o, d, tm = (torch.from_numpy(wave[k]).cuda() for k in ("o", "d", "t_max"))
-    for g in (8, 16):
-        bins = binned.bin_pairs(fat, o, d, tm, g=g, mcap=MCAP, sb=2)
-        tk, sk = binned.unpack(binned.launch(fat, bins, "closest"))
-        tp, sp = binned.unpack(binned.bin_min_plain(fat, bins))
-        assert (sk == sp).float().mean().item() >= 0.999
-        same = (sk == sp) & torch.isfinite(tp)
-        torch.testing.assert_close(tk[same], tp[same], rtol=1e-3, atol=0.0)
+def test_emission_past_the_budget_takes_tiles(monkeypatch):
+    """The emission kernel holds every leaf box where they fit its shared
+    memory and tiles of EMIT_TILE leaves past that (checked here with the
+    budget made small); ``emit_mode="tiled"`` forces tiles of a multiple of
+    32 leaves, at least FORCED_TILES of them; nothing is refused."""
+    assert binned.emit_smem(759, 8, 16) == 24 * (759 + 24) + 4 * 16 * 16
+    assert binned.emit_tile_leaves(759, 8, 16) == 759
+    assert binned.emit_tile_leaves(12000, 8, 16) == binned.EMIT_TILE
+    assert binned.emit_smem(binned.EMIT_TILE, 1, 128) <= binned.EMIT_SMEM_BUDGET
+    for leaves, tile in ((759, 192), (13, 32), (12000, 2048)):
+        assert binned.emit_tile_leaves(leaves, 8, 16, "tiled") == tile
+    monkeypatch.setattr(binned, "EMIT_SMEM_BUDGET", binned.emit_smem(100, 8, 16))
+    assert binned.emit_tile_leaves(100, 8, 16) == 100
+    assert binned.emit_tile_leaves(101, 8, 16) == binned.EMIT_TILE
+    assert binned.emit_tile_leaves(100, 4, 16) == binned.EMIT_TILE  # more slot rows
+    with pytest.raises(ValueError, match="emit_mode"):
+        binned.emit_tile_leaves(100, 8, 16, "leaf")

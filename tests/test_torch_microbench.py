@@ -366,43 +366,3 @@ def test_tools_refuse_a_cpu_default_without_a_card():
     assert tools.device_of(Options(["--cpu"])).type == "cpu"
     with pytest.raises(ValueError):
         tools.check(torch.zeros(4), "x", torch.float32, (4,))
-
-
-@pytest.mark.cuda
-def test_kernels_match_plain_on_gpu():
-    """T1-T4 kernels against their plain versions on the card, integer sets
-    (bit for bit)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
-    dev = torch.device("cuda", 0)
-    rng = np.random.default_rng(5)
-    k, iters = 64, 6
-    for variant in perf_commit_pipeline.VARIANTS:
-        lanes = perf_commit_pipeline.lanes_of(variant)
-        rays = _bf16(_values(rng, "int", (48, lanes))).to(dev)
-        feat = _bf16(_values(rng, "int", (4, 48, 4 * k))).to(dev)
-        word = torch.tensor([1, 0, 3, 1, 0, 1, 1, 2], dtype=torch.int32, device=dev)
-        n = torch.tensor([iters - 1], dtype=torch.int32, device=dev)
-        got = perf_commit_pipeline.run_inner(rays, feat, word, n, variant, k, iters)
-        want = perf_commit_pipeline.run_inner_plain(rays, feat, word, n, variant, k, iters)
-        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), variant
-        rays = _bf16(_values(rng, "int", (48, 3 * lanes))).to(dev)  # three CTAs
-        got = perf_commit_pipeline.run_inner(rays, feat, word, n, variant, k, iters)
-        want = perf_commit_pipeline.run_inner_plain(rays, feat, word, n, variant, k, iters)
-        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (variant, 3)
-    slab = _bf16(_values(rng, "int", (48, 4 * k))).to(dev)
-    rays = _bf16(_values(rng, "int", (48, 256), nonzero=True)).to(dev)
-    for variant in perf_epilogue.VARIANTS:
-        got = perf_epilogue.run(slab, rays, variant, k, 256, iters)
-        want = perf_epilogue.run_plain(slab, rays, variant, k, 256, iters)
-        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), variant
-    rays = rays[:, :128].contiguous()
-    feat = _bf16(_values(rng, "int", (4, 48, 4 * k))).to(dev)
-    for dep in (False, True):
-        got = probe_mxu_loop.run(rays, feat, iters, dep)
-        assert torch.equal(got, probe_mxu_loop.run_plain(rays, feat, iters, dep))
-    for c, passes, reps in ((8, 3, 1), (16, 0, 1), (128, 5, 2)):
-        a = torch.from_numpy(_values(rng, "int", (c, 128))).to(dev)
-        b = torch.from_numpy(np.abs(_values(rng, "int", (c, 64)))).to(dev)
-        got = bench_mxu_model.run(a, b, iters, passes, reps)
-        assert torch.equal(got, bench_mxu_model.run_plain(a, b, iters, passes, reps))

@@ -84,8 +84,14 @@ def test_bridge_round_trips(scenes):
     bs = bridge.scene_from_numpy(fields, "cpu")
     ported = bridge.numpy_fields(bs)
     assert len(ported) > 40
+    # the reference leaves SceneData.tri_payload None: the bridge builds it
+    # from the rows it is made of
+    payload = ported.pop("tri_payload")
     for key, value in ported.items():
         np.testing.assert_array_equal(value, fields[key], err_msg=key)
+    rows = fields["geo.packed_tri"]
+    mat = fields["materials.packed"][np.maximum(rows[:, 24].astype(np.int64), 0)]
+    np.testing.assert_array_equal(payload, np.concatenate([rows, mat], axis=1))
     assert bs.lights.num_lights == 2 and bs.device == torch.device("cpu")
 
 
@@ -178,7 +184,7 @@ def test_port_runs_without_jax():
         "scene, _ = flatten.flatten(g.root, device='cpu')\n"
         "node, cam = flatten.find_camera(g.root)\n"
         "view = camera.make_view(node.to_world(), cam.fovy, 32, 16, device='cpu')\n"
-        "cfg = integrator.RenderConfig(width=32, height=16, bsdf='disney',"
+        "cfg = integrator.RenderConfig(width=32, height=16, bsdf='disney', tracer='pallas',"
         " presample_lights=256, coherent_tiles=16, binned_secondary=8, binned_shadow=8)\n"
         "img, n = integrator.render_path_with_counts(scene, view, cfg, 0)\n"
         "assert torch.isfinite(img).all() and int(n) > 0\n"

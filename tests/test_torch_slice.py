@@ -3,10 +3,13 @@ reference on the tiny atrium at 64x32 with the bench configuration (Disney,
 4 bounces, presample 4096, coherent tiles 16; NEE + MIS + RR, sorted closest
 waves, one deferred shadow wave).
 
-The JAX side uses ``tracer="packet"``: "auto" resolves to the dense MXU
-tracer below 16,384 triangles, while "packet" keeps the peel, the sort and
-the deferred wave (integrator.py:383, 704). Both packages get the same scene
-(through the bridge) and the same camera.
+The JAX side uses ``tracer="packet"`` and the port ``tracer="pallas"`` (its
+block kernel): "auto" resolves to the dense MXU tracer below 16,384
+triangles in both, while these keep the peel, the sort and the deferred
+wave (integrator.py:383, 704). Both packages get the same scene (through
+the bridge) and the same camera. ``test_dense_tracers_match_reference``
+holds the port's ``mxu`` and ``brute`` renders to the reference's with the
+same tracer, under the same bounds.
 
 Bounds. Paths diverge only where a discrete decision (a near-tie hit, a
 Russian-roulette or lobe draw) lands on the other side of its threshold,
@@ -45,6 +48,12 @@ BENCH = dict(width=W, height=H, max_bounces=4, bsdf="disney",
 GOLDEN = Path(__file__).resolve().parent / "golden" / "torch_atrium_tiny.npz"
 
 
+def _cfg(**kw):
+    """The port's RenderConfig on its block kernel unless ``kw`` names a
+    tracer."""
+    return integrator.RenderConfig(**{"tracer": "pallas", **kw})
+
+
 def _agree(img, ref, n, n_ref):
     img, ref = np.asarray(img), np.asarray(ref)
     assert np.isfinite(img).all() and img.shape == ref.shape
@@ -72,7 +81,7 @@ def _render_both(case, seed, **cfg):
         case["js"], case["jview"], jintegrator.RenderConfig(tracer="packet", **cfg), seed
     )
     pimg, pn = integrator.render_path_with_counts(
-        case["ps"], case["pview"], integrator.RenderConfig(**cfg), seed
+        case["ps"], case["pview"], _cfg(**cfg), seed
     )
     return pimg.numpy(), pn, np.asarray(jimg), jn
 
@@ -106,7 +115,7 @@ def test_port_scene_matches_golden():
     gold = np.load(GOLDEN)
     scene, _ = flatten.flatten(builtin.atrium(columns=1, stacks=6, slices=12).root, device="cpu")
     view = camera.make_view(gold["camera_to_world"], float(gold["fovy"]), W, H, device="cpu")
-    cfg = integrator.RenderConfig(**BENCH)
+    cfg = _cfg(**BENCH)
     for i, seed in enumerate(gold["seeds"]):
         img, n = integrator.render_path_with_counts(scene, view, cfg, int(seed))
         _agree(img.numpy(), gold["images"][i], n, gold["n_rays"][i])
@@ -117,15 +126,15 @@ def test_schedule_knobs_are_ignored_and_options_agree(case):
     hits (so the same image); immediate shadow rays give the same image up
     to the order of the radiance sums."""
     ref, n_ref = integrator.render_path_with_counts(
-        case["ps"], case["pview"], integrator.RenderConfig(**BENCH), 3
+        case["ps"], case["pview"], _cfg(**BENCH), 3
     )
-    knobs = integrator.RenderConfig(ring=1, entry_group=4, unroll_bounces=3, **BENCH)
+    knobs = _cfg(ring=1, entry_group=4, unroll_bounces=3, **BENCH)
     img, n = integrator.render_path_with_counts(case["ps"], case["pview"], knobs, 3)
     assert torch.equal(img, ref) and int(n) == int(n_ref)
-    unsorted = integrator.RenderConfig(sort_rays=False, **BENCH)
+    unsorted = _cfg(sort_rays=False, **BENCH)
     img, n = integrator.render_path_with_counts(case["ps"], case["pview"], unsorted, 3)
     assert torch.equal(img, ref) and int(n) == int(n_ref)
-    eager = integrator.RenderConfig(defer_shadows=False, **BENCH)
+    eager = _cfg(defer_shadows=False, **BENCH)
     img, n = integrator.render_path_with_counts(case["ps"], case["pview"], eager, 3)
     torch.testing.assert_close(img, ref, rtol=1e-5, atol=1e-6)
     assert int(n) == int(n_ref)
@@ -148,7 +157,7 @@ def test_main_path_uses_the_block_tracer_wrappers(case, monkeypatch):
     monkeypatch.setattr(block_trace, "block_closest", closest)
     monkeypatch.setattr(block_trace, "block_occluded", occluded)
     integrator.render_path_with_counts(
-        case["ps"], case["pview"], integrator.RenderConfig(**BENCH), 0
+        case["ps"], case["pview"], _cfg(**BENCH), 0
     )
     assert calls == {"closest": 5, "occluded": 1}
 
@@ -159,14 +168,14 @@ def test_capture_records_the_traced_waves(case):
     lanes, whose replay through the wrapper gives the same image."""
     waves = {}
     img, _ = integrator.render_path_with_counts(
-        case["ps"], case["pview"], integrator.RenderConfig(**BENCH), 0, capture=waves
+        case["ps"], case["pview"], _cfg(**BENCH), 0, capture=waves
     )
     assert [o.shape[0] for o, _, _ in waves["closest"]] == [W * H] * 5
     ((o, d, t),) = waves["occluded"]
     assert o.shape == d.shape == (5 * W * H, 3) and t.shape == (5 * W * H,)
     assert bool((t[:W * H] > 0).any()) and bool((t == 0).any())  # live and dead lanes
     ref, _ = integrator.render_path_with_counts(
-        case["ps"], case["pview"], integrator.RenderConfig(**BENCH), 0
+        case["ps"], case["pview"], _cfg(**BENCH), 0
     )
     assert torch.equal(img, ref)
     replay = block_trace.block_occluded(case["ps"].fat_bvh, o, d, t)
@@ -181,7 +190,7 @@ def test_profile_layer_split_attributes_the_tracer_calls(case):
 
     real = block_trace.block_closest, block_trace._prepare, block_trace.finalize_hit
     split = profile_sample.layer_split(
-        case["ps"], case["pview"], integrator.RenderConfig(**BENCH), 0
+        case["ps"], case["pview"], _cfg(**BENCH), 0
     )
     assert split["calls"] == {"prep": 0, "kernel": 0, "trace": 6, "finalize_hit": 5,
                               "emit": 0, "bin_pairs": 0, "bin_step": 0, "binned": 0}
@@ -200,7 +209,7 @@ def test_profile_layer_split_of_the_binned_path(case):
     from stratum_tpu_torch import profile_sample
 
     real = binned.emit, binned.bin_pairs, binned.launch, binned.binned_closest
-    cfg = integrator.RenderConfig(**BENCH, **profile_sample.BINNED)
+    cfg = _cfg(**BENCH, **profile_sample.BINNED)
     split = profile_sample.layer_split(case["ps"], case["pview"], cfg, 0)
     assert split["calls"] == {"prep": 0, "kernel": 0, "trace": 1, "finalize_hit": 5,
                               "emit": 5, "bin_pairs": 5, "bin_step": 0, "binned": 5}
@@ -226,7 +235,7 @@ def test_clamp_and_shadow_rr_match_reference(depth):
     st_p = torch.from_numpy(np.asarray(st_j).view(np.int32).copy())
     kw = dict(clamp_indirect=1.5, shadow_rr=2.0)
     cj = jintegrator.RenderConfig(**kw)
-    cp = integrator.RenderConfig(**kw)
+    cp = _cfg(**kw)
     for min_depth in (1, 2):
         np.testing.assert_allclose(
             integrator._firefly_clamp(cp, torch.from_numpy(contrib), depth, min_depth).numpy(),
@@ -242,15 +251,30 @@ def test_clamp_and_shadow_rr_match_reference(depth):
 
 
 @pytest.mark.parametrize("option", [
-    dict(tracer="mxu"), dict(tracer="packet"), dict(tracer="bvh"), dict(tracer="brute"),
+    dict(tracer="packet"), dict(tracer="bvh"),
     dict(alpha_test=True), dict(ris_candidates=4), dict(wave_caps=(1.0, 0.5)),
     dict(slim_carry=True), dict(debug_path_edges=2), dict(indirect_only=True),
     dict(use_nee=False), dict(use_mis=False),
+    dict(lvc_connections=4), dict(tex_filter="stochastic"),
 ])
 def test_unported_options_raise(case, option):
-    cfg = integrator.RenderConfig(**{**BENCH, **option})
+    cfg = _cfg(**{**BENCH, **option})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         integrator.render_path_with_counts(case["ps"], case["pview"], cfg, 0)
+
+
+@pytest.mark.parametrize("tracer", ["mxu", "brute"])
+def test_dense_tracers_match_reference(case, tracer):
+    """The dense MXU tracer and the brute-force oracle on the tiny atrium
+    (1,280 triangles, padded) against the reference with the same tracer:
+    every wave unsorted, shadow rays traced per bounce, hits resolved by
+    triangle id. Same bounds as the block-kernel renders."""
+    cfg = dict(BENCH, tracer=tracer)
+    jimg, jn = jintegrator.render_path_with_counts(
+        case["js"], case["jview"], jintegrator.RenderConfig(**cfg), 1)
+    pimg, pn = integrator.render_path_with_counts(
+        case["ps"], case["pview"], integrator.RenderConfig(**cfg), 1)
+    _agree(pimg.numpy(), np.asarray(jimg), pn, jn)
 
 
 BINNED = [dict(binned_secondary=8, binned_shadow=8), dict(binned_bounces=1)]
@@ -265,10 +289,10 @@ def test_binned_render_equals_block_render(case, option):
     cfg = {**BENCH, **option}
     waves = {}
     img, n = integrator.render_path_with_counts(
-        case["ps"], case["pview"], integrator.RenderConfig(**cfg), 1, capture=waves
+        case["ps"], case["pview"], _cfg(**cfg), 1, capture=waves
     )
     ref, n_ref = integrator.render_path_with_counts(
-        case["ps"], case["pview"], integrator.RenderConfig(**BENCH), 1
+        case["ps"], case["pview"], _cfg(**BENCH), 1
     )
     stats = [w[-1] for k in ("binned_closest", "binned_occluded") for w in waves.get(k, [])]
     assert len(stats) == (5 if "binned_shadow" in option else 1)
@@ -317,7 +341,7 @@ def test_binned_options_route_the_waves(case, monkeypatch, option, calls):
                          (binned, "binned_closest"), (binned, "binned_occluded")):
         counted(module, name)
     integrator.render_path_with_counts(
-        case["ps"], case["pview"], integrator.RenderConfig(**{**BENCH, **option}), 0
+        case["ps"], case["pview"], _cfg(**{**BENCH, **option}), 0
     )
     assert seen == calls
     g_b = option.get("binned_secondary") or 8
@@ -328,7 +352,7 @@ def test_binned_options_route_the_waves(case, monkeypatch, option, calls):
 def binned_default_stats(case):
     waves = {}
     integrator.render_path_with_counts(
-        case["ps"], case["pview"], integrator.RenderConfig(**BENCH, **BINNED[0]), 0,
+        case["ps"], case["pview"], _cfg(**BENCH, **BINNED[0]), 0,
         capture=waves)
     return {k: [w[-1] for w in waves[k]] for k in ("binned_closest", "binned_occluded")}
 
@@ -346,7 +370,7 @@ def test_binned_fields_match_reference(case, binned_default_stats, field):
     fields = {**BENCH, **BINNED[0], **field}
     waves = {}
     integrator.render_path_with_counts(
-        case["ps"], case["pview"], integrator.RenderConfig(**fields), 0, capture=waves)
+        case["ps"], case["pview"], _cfg(**fields), 0, capture=waves)
     jcfg = jintegrator.RenderConfig(**fields)
     js = case["js"]
     ours, ref = [], []
@@ -373,7 +397,7 @@ def test_binned_fields_match_reference(case, binned_default_stats, field):
 def test_binned_closest_needs_sorted_waves(case, option):
     """The reference silently ignores these without ``sort_rays``; the port
     refuses them."""
-    cfg = integrator.RenderConfig(**{**BENCH, **option, "sort_rays": False})
+    cfg = _cfg(**{**BENCH, **option, "sort_rays": False})
     with pytest.raises(ValueError, match="sort_rays"):
         integrator.render_path_with_counts(case["ps"], case["pview"], cfg, 0)
 
@@ -393,11 +417,11 @@ def test_group_size_renders_equal(case, monkeypatch, gs):
 
         monkeypatch.setattr(block_trace, name, fn)
     img, n = integrator.render_path_with_counts(
-        case["ps"], case["pview"], integrator.RenderConfig(**{**BENCH, **gs}), 3
+        case["ps"], case["pview"], _cfg(**{**BENCH, **gs}), 3
     )
     monkeypatch.undo()
     ref, n_ref = integrator.render_path_with_counts(
-        case["ps"], case["pview"], integrator.RenderConfig(**BENCH), 3
+        case["ps"], case["pview"], _cfg(**BENCH), 3
     )
     assert torch.equal(img, ref) and int(n) == int(n_ref)
     g = gs["gs"]
