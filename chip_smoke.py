@@ -83,7 +83,23 @@ Phases, each printing its results:
    sphere within 4 % of 0.4); ``render_direct`` on the Cornell box at
    1080p with ``auto`` and ``brute``, finite and in agreement;
 12. ``tests/test_torch_cuda.py`` in a subprocess (``--noconftest``): every
-   test must pass, none skip.
+   test must pass, none skip;
+13. the textured colonnade, bench.py's config 4: ``write_colonnade`` at its
+   defaults (110,408 triangles, three 256-texel PNG textures, a 256-wide HDR
+   sky) into ``build/colonnade``, loaded through the OBJ + MTL loader and
+   flattened, each step timed, with the texture stack and environment
+   tables' sizes; at 1920x1080 with the bench configuration ``auto``
+   resolves to the block kernel, and one sample's K1/K2 waves (five closest
+   waves, the deferred shadow wave) are timed whole against their bounds and
+   held to the plain versions on N_CHECK-lane slices; then 1 warm-up and 4
+   timed samples with the counters zeroed around them (25 K1 and 5 K2
+   launches), the device busy share of one profiled sample with its top
+   ops, and a layer split with the texture terms and the environment timed
+   apart; the ``colonnade_textured`` golden on the card within twice the
+   CPU bounds; ``packet`` and ``bvh`` on the Cornell box and the golden's
+   small colonnade at 128x128 against the brute-force tracers (the same
+   triangle on non-degenerate hits, occlusion flags), timed, and one path
+   sample through each.
 
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 result line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -856,7 +872,7 @@ GOLDENS = {  # tests/update_goldens.py:41-52 (48x48, rr_depth=100)
 FURNACE_REL = 0.04  # sphere mean against albedo x radiance (tests/test_torch_dense_path.py)
 DIRECT_MEAN_REL = 1e-3  # render_direct, auto (mxu) against brute
 DIRECT_PIXEL_SHARE = 0.999
-GPU_TESTS = 10  # tests in tests/test_torch_cuda.py
+GPU_TESTS = 12  # tests in tests/test_torch_cuda.py
 
 
 def _modes_equal(fat, o, d, bound, occluded, gs):
@@ -1161,6 +1177,286 @@ def _goldens(dev, cornell_scene, cornell_view):
     return out
 
 
+COLONNADE_TRIANGLES = 110408  # sample_assets.write_colonnade at its defaults
+COLONNADE_STACK = (3, 256, 1)  # its textures: count, resolution, slot mask (base color)
+# the colonnade_textured golden's asset and configuration (tests/update_goldens.py:57-64)
+COLONNADE_GOLDEN = dict(columns=3, seg=12, rings=6, tex_res=64, env_res=64)
+COLONNADE_GOLDEN_CFG = dict(max_bounces=2, bsdf="disney", presample_lights=256)
+TRACER_FRAME = 128  # packet and LBVH checks: camera rays of a 128x128 frame
+
+
+def _wave_slice(o, d, tm, rng):
+    """N_CHECK lanes of a wave, in their order (the tracer's blocks keep
+    the wave's coherence)."""
+    import numpy as np
+    import torch
+
+    n = o.shape[0]
+    if n <= N_CHECK:
+        return o, d, tm
+    sel = torch.from_numpy(np.sort(rng.choice(n, N_CHECK, replace=False))).to(o.device)
+    return o[sel], d[sel], tm[sel]
+
+
+def _colonnade_waves(scene, view, cfg, rng):
+    """One 1920x1080 sample's K1/K2 waves on the colonnade: each full wave's
+    kernel time (the launch, list phase included) against its bound, its
+    mean list length per CTA, and the kernel against its plain version on
+    N_CHECK lanes of it -> (closest wave dicts, deferred wave dict)."""
+    import torch
+    from stratum_tpu_torch.ops import block_trace
+    from stratum_tpu_torch.render import integrator
+
+    fat = scene.fat_bvh
+    waves = {}
+    integrator.render_path_with_counts(scene, view, cfg, 0, capture=waves)
+    assert len(waves["closest"]) == cfg.max_bounces + 1 and len(waves["occluded"]) == 1
+    closest = []
+    for i, (o, d, tm) in enumerate(waves["closest"]):
+        prep = block_trace._prepare(fat, o, d, tm)
+        _, ms = _timed(lambda: block_trace.launch(fat, prep, False), reps=3)
+        *_, lists = block_trace.launch(fat, prep, False, stats="ncand")
+        per_cta = float(lists.ncand.float().mean())
+        hk = block_trace.block_closest(fat, o, d, tm)
+        tests = _needed_tri_tests(fat, o, d, torch.where(hk.slot >= 0, hk.t, tm))
+        bound_ms, bound_by = _bound(tests, _block_bytes(fat, prep, False))
+        del prep, hk, lists
+        os_, ds_, ts_ = _wave_slice(o, d, tm, rng)
+        hk, _ = _timed(lambda: block_trace.block_closest(fat, os_, ds_, ts_), warmup=False)
+        hp, plain_ms = _timed(lambda: block_trace.block_closest_plain(fat, os_, ds_, ts_),
+                              warmup=False)
+        c = _compare_closest(fat, os_, ds_, hk, hp, ts_ > 0)
+        print(f"[13 colonnade waves] closest wave {i} ({o.shape[0]} lanes, "
+              f"{int((tm > 0).sum())} live): kernel {ms:.3f} ms (bound {bound_ms:.3f} ms, "
+              f"{bound_by}; {tests} tests), candidate groups per CTA {per_cta:.2f}; "
+              f"{c['rays']}-lane slice: plain {plain_ms:.3f} ms, {c}", flush=True)
+        _check_closest(f"colonnade closest wave {i}", c)
+        closest.append(dict(c, ms=ms, plain_slice_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, tests=tests, lanes=o.shape[0],
+                            ncand_cta=per_cta))
+    ((o, w, t),) = waves["occluded"]
+    del waves
+    limit = t * block_trace.SHADOW_EPS
+    prep = block_trace._prepare(fat, o, w, limit)
+    _, ms_o = _timed(lambda: block_trace.launch(fat, prep, True), reps=3)
+    *_, lists = block_trace.launch(fat, prep, True, stats="ncand")
+    per_cta_o = float(lists.ncand.float().mean())
+    ok_full = block_trace.block_occluded(fat, o, w, t)
+    tests_o = _needed_tri_tests(fat, o, w, limit, blocked=ok_full)
+    bound_o = _bound(tests_o, _block_bytes(fat, prep, True))
+    del prep, ok_full, lists
+    os_, ws_, ts_ = _wave_slice(o, w, t, rng)
+    ok = block_trace.block_occluded(fat, os_, ws_, ts_)
+    op, plain_ms_o = _timed(lambda: block_trace.block_occluded_plain(fat, os_, ws_, ts_),
+                            warmup=False)
+    print(f"[13 colonnade waves] deferred shadow wave ({t.numel()} lanes, {int((t > 0).sum())} "
+          f"live): kernel {ms_o:.3f} ms (bound {bound_o[0]:.3f} ms, {bound_o[1]}; {tests_o} "
+          f"tests), candidate groups per CTA {per_cta_o:.2f}; {os_.shape[0]}-lane slice: "
+          f"plain {plain_ms_o:.3f} ms", flush=True)
+    occ = _check_occluded("colonnade occluded deferred wave slice", ok, op, ts_ > 0)
+    occluded = dict(occ, ms=ms_o, plain_slice_ms=plain_ms_o, bound_ms=bound_o[0],
+                    bound_by=bound_o[1], tests=tests_o, lanes=t.numel(), ncand_cta=per_cta_o)
+    torch.cuda.empty_cache()
+    return closest, occluded
+
+
+def _texture_layers(scene, view, cfg, seed):
+    """profile_sample's layer split of one sample, with the texture terms
+    (ray-cone LOD, apply_textures, apply_normal_map), the escape path's
+    environment lookup and the presampled light tile timed apart from the
+    glue (a device synchronise around each call) -> dict of ms."""
+    import torch
+    from stratum_tpu_torch import profile_sample
+    from stratum_tpu_torch.render import integrator
+    from stratum_tpu_torch.render import lights as slights
+
+    acc = {}
+    patched = ((integrator, "apply_textures", "textures"),
+               (integrator, "apply_normal_map", "textures"),
+               (integrator.stex, "ray_cone_lod", "textures"),
+               (slights, "env_eval_and_pdf_w_mis", "env_escape"),
+               (integrator, "light_tile_for", "light_tile"))
+    saved = []
+    for mod, name, layer in patched:
+        real = getattr(mod, name)
+        acc.setdefault(layer, 0.0)
+
+        def timed(*a, _real=real, _layer=layer, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _real(*a, **k)
+            torch.cuda.synchronize()
+            acc[_layer] += (time.perf_counter() - t0) * 1e3
+            return out
+
+        saved.append((mod, name, real))
+        setattr(mod, name, timed)
+    try:
+        split = profile_sample.layer_split(scene, view, cfg, seed)
+    finally:
+        for mod, name, real in saved:
+            setattr(mod, name, real)
+    split.update(acc)
+    split["glue_rest"] = split["glue"] - sum(acc.values())
+    return split
+
+
+def _tracer_checks(g, name, dev, rng):
+    """Phase 13's packet and LBVH checks on one small scene: camera rays of
+    a TRACER_FRAME-square frame and shadow segments from their hits (brute
+    force's) to random points of the scene box; closest hits against
+    ``intersect_brute_force`` (the same triangle on non-degenerate hits, t
+    within T_REL), occlusion against ``occluded_brute_force``; each
+    tracer's time; then one path sample per tracer at that size."""
+    import numpy as np
+    import torch
+    from stratum_tpu_torch.ops import bvh, intersect, packet
+    from stratum_tpu_torch.render import camera, integrator
+    from stratum_tpu_torch.scene import flatten
+
+    sc, _ = flatten.flatten(g.root, device=dev)
+    n = TRACER_FRAME
+    node, cam = flatten.find_camera(g.root)
+    view = camera.make_view(node.to_world(), cam.fovy, n, n, device=dev)
+    px, py = camera.pixel_grid(n, n, dev)
+    jitter = torch.from_numpy(rng.random((n * n, 2), dtype=np.float32)).to(dev)
+    o, d = camera.generate_rays(view, px, py, jitter, n, n)
+    geo = sc.geo
+    hb, brute_ms = _timed(lambda: intersect.intersect_brute_force(o, d, geo.positions,
+                                                                   geo.indices))
+    w = 1.0 - hb.bary.sum(dim=1)
+    clean = (hb.tri >= 0) & (hb.bary.amin(dim=1) > EDGE) & (w > EDGE)
+    lo, hi = geo.positions.amin(dim=0), geo.positions.amax(dim=0)
+    target = lo + (hi - lo) * torch.from_numpy(rng.random((n * n, 3), dtype=np.float32)).to(dev)
+    hit_p = o + d * torch.where(hb.tri >= 0, hb.t, 0.0)[:, None]
+    seg = target - hit_p
+    dist = torch.linalg.norm(seg, dim=1)
+    so, sw = hit_p - d * 1e-3, seg / dist.clamp(min=1e-20)[:, None]
+    st = torch.where(hb.tri >= 0, dist, 0.0)
+    ob, _ = _timed(lambda: intersect.occluded_brute_force(so, sw, st, geo.positions, geo.indices))
+    blk = 2048
+    out = dict(rays=n * n, clean=int(clean.sum()), brute_ms=brute_ms)
+    tracers = {
+        "packet": (lambda: packet.packet_closest(sc.fat_bvh, o, d, block=blk),
+                   lambda: packet.packet_occluded(sc.fat_bvh, so, sw, st, block=blk)),
+        "bvh": (lambda: bvh.traverse_closest(sc.bvh, o, d),
+                lambda: bvh.traverse_occluded(sc.bvh, so, sw, st)),
+    }
+    for tracer, (closest_fn, occluded_fn) in tracers.items():
+        h, ms = _timed(closest_fn)
+        oc, ms_o = _timed(occluded_fn)
+        rel = (h.t - hb.t).abs() / hb.t.clamp(min=1e-30)
+        same = int(((h.tri == hb.tri) & clean).sum())
+        t_rel = float(rel[clean].max()) if bool(clean.any()) else 0.0
+        agree_o = float((oc == ob).float().mean())
+        cfg = integrator.RenderConfig(width=n, height=n, tracer=tracer, **BENCH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, rays = integrator.render_path_with_counts(sc, view, cfg, 0)
+        rays = int(rays)
+        torch.cuda.synchronize()
+        sample_ms = (time.perf_counter() - t0) * 1e3
+        assert bool(torch.isfinite(img).all())
+        out[tracer] = dict(closest_ms=ms, occluded_ms=ms_o, same_tri_clean=same,
+                           t_rel_err=t_rel, occluded_agree=agree_o,
+                           sample_ms=sample_ms, sample_rays=rays,
+                           image_mean=float(img.mean()))
+        print(f"[13 tracers] {name} {n}x{n}: {tracer} closest {ms:.3f} ms (brute "
+              f"{brute_ms:.3f} ms), same triangle on {same} of {out['clean']} clean hits, "
+              f"t within {t_rel:.2e}; occluded {ms_o:.3f} ms, flags agree {agree_o:.6f}; "
+              f"one {n}x{n} sample ({cfg.max_bounces} bounces) {sample_ms:.1f} ms, "
+              f"{rays} rays, mean {float(img.mean()):.6f}", flush=True)
+        assert same == out["clean"] and t_rel <= T_REL, (tracer, name, out[tracer])
+        assert agree_o >= BATCH_AGREE, (tracer, name, agree_o)
+    return out
+
+
+def _colonnade(dev, smi):
+    """Phase 13: bench.py's config 4, the textured colonnade -> dict."""
+    import numpy as np
+    import torch
+    from stratum_tpu_torch import profile_sample
+    from stratum_tpu_torch.render import camera, integrator
+    from stratum_tpu_torch.scene import builtin, flatten, sample_assets
+
+    out_dir = ROOT / "build" / "colonnade"
+    t0 = time.perf_counter()
+    info = sample_assets.write_colonnade(out_dir)
+    t1 = time.perf_counter()
+    g = sample_assets.colonnade_graph(info)
+    t2 = time.perf_counter()
+    scene, stats = flatten.flatten(g.root, device=dev)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    tex, fat = scene.textures, scene.fat_bvh
+    tex_bytes = tex.flat.numel() * 2 + tex.quad.numel() * 2
+    env = scene.env
+    env_bytes = sum(x.numel() * 4 for x in (env.emission, env.dist.marginal.pdf,
+                                            env.dist.marginal.cdf, env.dist.cond_pdf,
+                                            env.dist.cond_cdf, env.lum_mips, env.emission_pdf))
+    L, K = fat.leaf_tri.shape
+    line = dict(triangles=stats.num_triangles, leaves=L, leaf_size=K,
+                write_s=t1 - t0, load_s=t2 - t1, flatten_s=t3 - t2,
+                obj_bytes=Path(info["obj"]).stat().st_size,
+                textures=dict(count=tex.num_tex, resolution=tex.base_res, levels=tex.num_levels,
+                              slot_mask=tex.slot_mask, bytes=tex_bytes),
+                env=dict(shape=list(env.emission.shape), bytes=env_bytes))
+    print(f"[13 colonnade] {stats.num_triangles} triangles ({Path(info['obj']).stat().st_size} "
+          f"B of OBJ), {L} leaves of {K}; write {t1 - t0:.2f} s, load (OBJ, MTL, PNG, HDR) "
+          f"{t2 - t1:.2f} s, flatten {t3 - t2:.2f} s; texture stack {tex.num_tex} x "
+          f"{tex.base_res}^2, {tex.num_levels} levels, slot mask {tex.slot_mask}, "
+          f"{tex_bytes} B; environment {tuple(env.emission.shape)}, tables {env_bytes} B",
+          flush=True)
+    assert stats.num_triangles == COLONNADE_TRIANGLES, stats
+    assert (tex.num_tex, tex.base_res, tex.slot_mask) == COLONNADE_STACK
+    W, H = FRAME
+    node, cam = flatten.find_camera(g.root)
+    view = camera.make_view(node.to_world(), cam.fovy, W, H, device=dev)
+    cfg = integrator.RenderConfig(width=W, height=H, **BENCH)
+    tracer = integrator.resolved_tracer(scene, cfg)
+    assert tracer == "pallas", tracer
+    rng = np.random.default_rng(13)
+    closest, occluded = _colonnade_waves(scene, view, cfg, rng)
+    launches, img, main = _timed_samples(scene, view, cfg, "13 colonnade", "colonnade", smi)
+    assert launches == {"block closest": 25, "block occluded": 5, "binned emit": 0,
+                        "binned closest": 0, "binned occluded": 0}, launches
+    busy, ops = profile_sample.device_profile(scene, view, cfg, 1)
+    split = _texture_layers(scene, view, cfg, 2)
+    share = ("not measured: the profiler recorded no device events" if busy is None
+             else f"{busy:.3f} ms of a {main['ms_spp']:.1f} ms sample, "
+                  f"{100 * busy / main['ms_spp']:.1f} %")
+    print(f"[13 colonnade] device busy {share}; top ops "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in ops[:6]), flush=True)
+    print("[13 colonnade] layer split (ms, a synchronise around each call): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items() if k != "calls"), flush=True)
+    main.update(launches=launches, tracer=tracer, device_busy_ms=busy,
+                busy_share=None if busy is None else busy / main["ms_spp"], top_ops_ms=ops[:6],
+                split_ms={k: v for k, v in split.items() if k != "calls"}, scene=line)
+    del scene, img
+    torch.cuda.empty_cache()
+
+    # the reference's colonnade_textured golden, rendered on the card
+    gg, _ = sample_assets.load_colonnade(ROOT / "build" / "colonnade_golden", **COLONNADE_GOLDEN)
+    gs, _ = flatten.flatten(gg.root, device=dev)
+    node, cam = flatten.find_camera(gg.root)
+    gview = camera.make_view(node.to_world(), cam.fovy, 48, 48, device=dev)
+    gcfg = integrator.RenderConfig(width=48, height=48, rr_depth=100, **COLONNADE_GOLDEN_CFG)
+    gimg = integrator.render_path_progressive(gs, gview, gcfg, 8).cpu().numpy()
+    ref = np.load(ROOT / "tests" / "golden" / "colonnade_textured.npy")
+    mean_rel, pix = _parity(gimg, ref)
+    print(f"[13 golden] colonnade_textured ({integrator.resolved_tracer(gs, gcfg)}, 8 spp): mean "
+          f"{gimg.mean():.6f} vs {ref.mean():.6f} (rel {mean_rel:.2e}), pixels agreeing "
+          f"{pix:.4f}", flush=True)
+    golden = dict(mean=float(gimg.mean()), ref_mean=float(ref.mean()), mean_rel=mean_rel,
+                  pixels=pix)
+    tracers = {
+        "cornell": _tracer_checks(builtin.cornell_box(), "cornell", dev, rng),
+        "colonnade_small": _tracer_checks(gg, "small colonnade", dev, rng),
+    }
+    return dict(path=main, waves=dict(closest=closest, occluded=occluded), golden=golden,
+                tracers=tracers)
+
+
 def _gpu_tests():
     """Phase 12: tests/test_torch_cuda.py in a subprocess (no conftest: the
     card has no JAX); every test must pass, none skip."""
@@ -1424,6 +1720,9 @@ def main() -> int:
     gold = _goldens(dev, cornell_scene, cornell_view)
     gpu = _gpu_tests()
 
+    # ---- 13: the textured colonnade (bench.py's config 4) ------------------
+    col = _colonnade(dev, smi)
+
     # ms / plain_ms / wrapper_ms of K1 are means per closest wave over the
     # main path's five waves; K2's are the deferred shadow wave's. K3's are
     # closest wave 1's and the deferred wave's at gs=1, its launches those of
@@ -1457,14 +1756,30 @@ def main() -> int:
              tri_tests=[c["tests"] for c in closest_waves],
              rays=[c["rays"] for c in closest_waves],
              live=[c["live"] for c in closest_waves],
-             forced_global_lists=past["atrium_forced"]["closest"]),
+             forced_global_lists=past["atrium_forced"]["closest"],
+             colonnade=dict(launches=col["path"]["launches"]["block closest"],
+                            wave_ms=[c["ms"] for c in col["waves"]["closest"]],
+                            wave_bound_ms=[c["bound_ms"] for c in col["waves"]["closest"]],
+                            wave_plain_slice_ms=[c["plain_slice_ms"]
+                                                 for c in col["waves"]["closest"]],
+                            agree=min(c["agree"] for c in col["waves"]["closest"]),
+                            max_abs_err=max(c["max_abs_err"] for c in col["waves"]["closest"]),
+                            tri_tests=[c["tests"] for c in col["waves"]["closest"]],
+                            wave_ncand_cta=[c["ncand_cta"] for c in col["waves"]["closest"]])),
         dict(bt, name="block_trace occluded (K2)",
              replaces="stratum_tpu/ops/pallas_trace.py:1242",
              launches=launches["block occluded"], max_abs_err=float(occ["mismatch"] > 0),
              ms=ms_o, plain_ms=plain_ms_o, bound_ms=bound_o[0], bound_by=bound_o[1],
              wrapper_ms=wrap_ms_o, agree=occ["agree"], mismatch=occ["mismatch"],
              ncand_cta=per_cta_o, ncand_block=per_block_o, tri_tests=tests_o, rays=occ["rays"],
-             live=occ["live"], forced_global_lists=past["atrium_forced"]["occluded"]),
+             live=occ["live"], forced_global_lists=past["atrium_forced"]["occluded"],
+             colonnade=dict(launches=col["path"]["launches"]["block occluded"],
+                            ms=col["waves"]["occluded"]["ms"],
+                            bound_ms=col["waves"]["occluded"]["bound_ms"],
+                            plain_slice_ms=col["waves"]["occluded"]["plain_slice_ms"],
+                            agree=col["waves"]["occluded"]["agree"],
+                            tri_tests=col["waves"]["occluded"]["tests"],
+                            ncand_cta=col["waves"]["occluded"]["ncand_cta"])),
         dict(bt, name="block_trace closest at gs=1 (K3)",
              replaces="stratum_tpu/ops/pallas_trace.py:532",
              launches=k3_launches["closest"], max_abs_err=k3c["max_abs_err"],
@@ -1520,7 +1835,9 @@ def main() -> int:
                            for k in ("closest", "occluded")}),
     ] + t_kernels
     print(json.dumps({"kernels": kernels,
-                      "paths": {"main": main5, "binned": main6, "cornell": cornell},
+                      "paths": {"main": main5, "binned": main6, "cornell": cornell,
+                                "colonnade": col["path"]},
+                      "colonnade": {k: col[k] for k in ("golden", "tracers")},
                       "past_budgets": {k: past[k] for k in ("leaves", "triangles", "list_keys",
                                                            "emit_tile")},
                       "goldens": gold, "gpu_tests": gpu}))

@@ -80,3 +80,20 @@ def sample_dist2d(dist: Dist2D, u1, u2):
     v = (row.to(torch.float32) + du1) / h
     return torch.stack([u, v], dim=-1), pdf_row * pdf_col
 
+
+
+def dist2d_pdf(dist: Dist2D, uv):
+    """Joint density at uv in [0,1)^2."""
+    h, w = dist.shape
+    col = torch.clamp((uv[..., 0] * w).to(torch.int64), 0, w - 1)
+    row = torch.clamp((uv[..., 1] * h).to(torch.int64), 0, h - 1)
+    return dist.marginal.pdf[row] * dist.cond_pdf[row, col]
+
+
+def build_env_dist2d(luminance_hw) -> Dist2D:
+    """Environment-map distribution: luminance [H, W] weighted by the
+    sin(theta) of each row's center (numpy)."""
+    lum = np.asarray(luminance_hw, np.float32)
+    h = lum.shape[0]
+    theta = (np.arange(h, dtype=np.float32) + 0.5) / h * np.pi
+    return build_dist2d(lum * np.sin(theta)[:, None])

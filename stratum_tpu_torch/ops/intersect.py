@@ -20,7 +20,7 @@ from stratum_tpu_torch.core import math as smath
 
 T_MIN = 0.0
 T_MAX = float(np.float32(3.4e38))
-_SHADOW_EPS = float(np.float32(1.0 - 1e-3))
+SHADOW_EPS = float(np.float32(1.0 - 1e-3))  # occlusion segments end at t_max * this
 RAY_CHUNK = 131072  # rays per pass of the brute-force and dense tracers
 
 
@@ -136,7 +136,7 @@ def occluded_brute_force(origin, direction, t_max, positions, indices,
     chunks, num_tris = _chunks(positions, indices, chunk)
 
     def run(o, d, tm):
-        limit = tm * _SHADOW_EPS
+        limit = tm * SHADOW_EPS
         blocked = torch.zeros(o.shape[:-1], dtype=torch.bool, device=o.device)
         for cp0, ce1, ce2, cids in chunks:
             _, _, _, valid = moller_trumbore(o, d, cp0, ce1, ce2, t_min, limit[..., None])

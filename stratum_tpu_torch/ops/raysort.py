@@ -44,10 +44,10 @@ def ray_key(origin, direction, t_max, lo, hi, dir_bits: int = DIR_BITS):
 
 
 def sorted_closest(closest, lo, hi, dir_bits: int = DIR_BITS):
-    """Wrap a slot-mode closest tracer with trace-local sorting: one packed
-    row gather in, one packed (t, slot) gather out. Only the closest tracer
-    is wrapped; occlusion waves stay unsorted (the 10M-row sort costs more
-    than it buys there)."""
+    """Wrap a closest tracer with trace-local sorting: one packed row
+    gather in; out, (t, slot) of a slot-mode tracer, else (t, tri, bary).
+    Only the closest tracer is wrapped; occlusion waves stay unsorted (the
+    10M-row sort costs more than it buys there)."""
 
     def closest_sorted(o, d, tm=None):
         if tm is None:
@@ -58,6 +58,8 @@ def sorted_closest(closest, lo, hi, dir_bits: int = DIR_BITS):
         inv[order] = torch.arange(order.shape[0], device=order.device)
         packed = torch.cat([o, d, tm[:, None]], dim=-1)[order]
         h = closest(packed[:, 0:3], packed[:, 3:6], packed[:, 6].contiguous())
+        if h.slot is None:  # a tracer whose hits carry triangle ids
+            return HitRecord(t=h.t[inv], tri=h.tri[inv], bary=h.bary[inv])
         slot = h.slot[inv]
         return HitRecord(
             t=h.t[inv], tri=torch.where(slot >= 0, 0, -1).to(torch.int32),

@@ -2,10 +2,13 @@
 RenderConfig, the tracer resolution, trace_direct / render_direct(_progressive)
 and trace_path / render_path(_with_counts, _progressive)).
 
-``tracer="auto"`` resolves as the reference does: the dense tracer
-(``"mxu"``, ops/mxu.py) at <= MXU_TRI_THRESHOLD triangles, else
+``tracer="auto"`` resolves as the reference does on its TPU: the dense
+tracer (``"mxu"``, ops/mxu.py) at <= MXU_TRI_THRESHOLD triangles, else
 ``"pallas"``, the block kernel (ops/block_trace.py) under the reference's
-name for its Pallas tracer. ``"brute"`` is the exact oracle.
+name for its Pallas tracer. ``"brute"`` is the exact oracle; ``"packet"``
+(ops/packet.py) and ``"bvh"`` (ops/bvh.py) are the reference's XLA
+traversals, and ``"null"`` its profiling fixture (synthetic hits, no
+traversal).
 
 The path tracer runs one sample per pixel as a dense per-bounce wavefront:
 intersect, add MIS-weighted emission, run NEE (from the presampled light
@@ -16,10 +19,13 @@ tile-coherent), later bounces go through the trace-local sort, every
 bounce's NEE shadow rays are traced in ONE deferred occlusion wave after
 the loop, and the ``binned_*`` options send sorted closest waves, early
 bounces and the occlusion wave through the binned pair-stream tracer
-(ops/binned.py). The dense tracers have no candidate prep to amortise, so
-they trace every wave unsorted and each bounce's shadow rays at once, and
-their hits resolve with one ``tri_payload`` row gather. Integer and hash
-paths (RNG, tile order, coherent granules) match the reference bit for bit.
+(ops/binned.py). ``"packet"`` sorts and defers as ``"pallas"`` does. The
+other tracers have no candidate prep to amortise, so they trace every wave
+unsorted and each bounce's shadow rays at once. Hits that carry triangle
+ids resolve with one ``tri_payload`` row gather. On a textured scene each
+hit's material is modulated by its textures at the ray cone's mip level.
+Integer and hash paths (RNG, tile order, coherent granules) match the
+reference bit for bit.
 """
 
 from __future__ import annotations
@@ -31,17 +37,22 @@ import torch
 
 from stratum_tpu_torch.core import math as smath
 from stratum_tpu_torch.core import rng as srng
-from stratum_tpu_torch.ops import binned, block_trace, mxu, raysort
+from stratum_tpu_torch.ops import binned, block_trace, mxu, packet, raysort
+from stratum_tpu_torch.ops import bvh as sbvh
 from stratum_tpu_torch.ops.bvh import morton3
 from stratum_tpu_torch.ops.intersect import (
     T_MAX,
+    HitRecord,
     intersect_brute_force,
     occluded_brute_force,
     ray_offset,
 )
 from stratum_tpu_torch.render import camera as scamera
 from stratum_tpu_torch.render import lights as slights
+from stratum_tpu_torch.render import texture as stex
 from stratum_tpu_torch.render.shading import (
+    apply_normal_map,
+    apply_textures,
     material_from_row,
     shading_point_from_row,
     shadow_terminator_factor,
@@ -74,7 +85,7 @@ class RenderConfig:
     rr_min_beta: float = 0.05
     slim_carry: bool = False
     bsdf: str = "lambert"  # "lambert" | "disney"
-    tracer: str = "auto"  # "auto" | "mxu" | "pallas" | "brute" (see resolved_tracer)
+    tracer: str = "auto"  # see TRACERS and resolved_tracer
     alpha_test: bool = False
     ris_candidates: int = 1
     sort_rays: bool = True  # trace-local sort of closest waves 1..N
@@ -109,13 +120,10 @@ class RenderConfig:
 # below this triangle count "auto" tests every triangle with the dense
 # tracer instead of walking the BVH (the reference's threshold)
 MXU_TRI_THRESHOLD = 16384
-TRACERS = ("mxu", "pallas", "brute")  # the tracers the port runs
-_TRACERS = {
-    "packet": "the XLA packet tracer",
-    "bvh": "the LBVH tracer",
-}
+TRACERS = ("mxu", "pallas", "brute", "packet", "bvh", "null")
+TEX_FILTERS = ("trilinear", "stochastic")
+_BLOCK_TRACERS = ("pallas", "packet")  # tiled pixels, one deferred shadow wave
 _ITEM = {  # ROADMAP Queue 1 item that ports each refused option
-    "tracer": "item 1 (the packet tracer and the LBVH)",
     "alpha_test": "item 4 (RIS NEE, alpha_test, wave_caps, media and spheres)",
     "ris_candidates>1": "item 4 (RIS NEE, alpha_test, wave_caps, media and spheres)",
     "wave_caps": "item 4 (RIS NEE, alpha_test, wave_caps, media and spheres)",
@@ -125,21 +133,17 @@ _ITEM = {  # ROADMAP Queue 1 item that ports each refused option
     "use_nee=False": "item 4 (RIS NEE, alpha_test, wave_caps, media and spheres)",
     "use_mis=False": "item 4 (RIS NEE, alpha_test, wave_caps, media and spheres)",
     "lvc_connections": "item 5 (light tracing, BDPT, ReSTIR and adaptive)",
-    "tex_filter": "item 2 (textures and the colonnade)",
 }
 
 
 def check_supported(cfg: RenderConfig) -> None:
     """Raise NotImplementedError for options the port does not run yet."""
-    if cfg.tracer in _TRACERS:
-        raise NotImplementedError(
-            f"tracer={cfg.tracer!r} ({_TRACERS[cfg.tracer]}): ROADMAP Queue 1 "
-            + _ITEM["tracer"]
-        )
     if cfg.tracer != "auto" and cfg.tracer not in TRACERS:
         raise ValueError(f"unknown tracer {cfg.tracer!r}")
     if cfg.bsdf not in ("lambert", "disney"):
         raise ValueError(f"unknown bsdf {cfg.bsdf!r}")
+    if cfg.tex_filter not in TEX_FILTERS:
+        raise ValueError(f"unknown tex_filter {cfg.tex_filter!r}")
     refused = {
         "alpha_test": cfg.alpha_test,
         "ris_candidates>1": cfg.ris_candidates > 1,
@@ -150,7 +154,6 @@ def check_supported(cfg: RenderConfig) -> None:
         "use_nee=False": not cfg.use_nee,
         "use_mis=False": not cfg.use_mis,
         "lvc_connections": cfg.lvc_connections != 0,
-        "tex_filter": cfg.tex_filter != "trilinear",
     }
     for name, on in refused.items():
         if on:
@@ -220,6 +223,40 @@ def _group_size(value: int, follow: int) -> int:
     return block_trace.GS if value < 0 else max(value, 1)
 
 
+def _tri_tracers(scene, cfg: RenderConfig, tracer: str):
+    """(closest, occluded) of a tracer whose hits carry triangle ids."""
+    geo, feat, fat = scene.geo, scene.tri_features, scene.fat_bvh
+    if tracer == "mxu":
+        return (lambda o, d, tm: mxu.intersect_mxu(o, d, feat, t_max=tm),
+                lambda o, d, t: mxu.occluded_mxu(o, d, t, feat))
+    if tracer == "brute":
+        return (lambda o, d, tm: intersect_brute_force(o, d, geo.positions, geo.indices, t_max=tm),
+                lambda o, d, t: occluded_brute_force(o, d, t, geo.positions, geo.indices))
+    if tracer == "packet":
+        # a block of one screen tile, so block frusta stay compact
+        dims = scamera.tile_dims(cfg.width, cfg.height)
+        blk = max(512, min(dims[0] * dims[1] if dims else 2048, 4096))
+        return (lambda o, d, tm: packet.packet_closest(fat, o, d, t_max=tm, block=blk),
+                lambda o, d, t: packet.packet_occluded(fat, o, d, t, block=blk))
+    if tracer == "bvh":
+        return (lambda o, d, tm: sbvh.traverse_closest(scene.bvh, o, d, t_max=tm),
+                lambda o, d, t: sbvh.traverse_occluded(scene.bvh, o, d, t))
+
+    # "null", a profiling fixture: hits at t = 1 on triangle lane % T (so
+    # the shading gathers vary per lane) and no occluder, at no traversal
+    # cost; the difference to a real tracer's sample is the traversal's
+    def null_closest(o, d, tm):
+        lanes = torch.arange(o.shape[0], dtype=torch.int32, device=o.device)
+        return HitRecord(
+            t=torch.ones(o.shape[:1], dtype=torch.float32, device=o.device),
+            tri=lanes % max(geo.num_triangles, 1),
+            bary=torch.full((o.shape[0], 2), 0.3, dtype=torch.float32, device=o.device),
+        )
+
+    return null_closest, lambda o, d, t: torch.zeros(o.shape[:1], dtype=torch.bool,
+                                                     device=o.device)
+
+
 def _trace_fns(scene, cfg: RenderConfig, capture=None):
     """(closest, closest_unsorted, occluded, closest_binned_peel), the
     counterpart of the reference's ``_trace_fns4``. On ``"pallas"``: the
@@ -228,8 +265,9 @@ def _trace_fns(scene, cfg: RenderConfig, capture=None):
     with ``binned_shadow``) and, with ``binned_bounces``, the unsorted
     binned closest tracer of the early bounces (else None); closest results
     are resolved by finalize_hit's one payload gather after any unsort. On
-    a dense tracer (``"mxu"``, ``"brute"``) the closest tracer serves every
-    wave unsorted and its hits carry triangle ids. With a ``capture``
+    the other tracers hits carry triangle ids; ``"packet"`` sorts its
+    closest waves after the unsorted primary peel as ``"pallas"`` does, the
+    rest trace every wave unsorted. With a ``capture``
     dict, every tracer call appends the inputs it hands a tracer: (o, d,
     t) under "closest" / "occluded", (o, d, t, stats) under
     "binned_closest" / "binned_occluded"."""
@@ -240,21 +278,21 @@ def _trace_fns(scene, cfg: RenderConfig, capture=None):
             capture.setdefault(kind, []).append(rays)
 
     if tracer != "pallas":
-        geo, feat = scene.geo, scene.tri_features
+        closest_t, occluded_t = _tri_tracers(scene, cfg, tracer)
 
         def closest(o, d, tm=None):
             record("closest", o, d, tm)
-            if tracer == "mxu":
-                return mxu.intersect_mxu(o, d, feat, t_max=tm)
-            return intersect_brute_force(o, d, geo.positions, geo.indices, t_max=tm)
+            return closest_t(o, d, tm)
 
         def occluded(o, d, t):
             record("occluded", o, d, t)
-            if tracer == "mxu":
-                return mxu.occluded_mxu(o, d, t, feat)
-            return occluded_brute_force(o, d, t, geo.positions, geo.indices)
+            return occluded_t(o, d, t)
 
-        return closest, closest, occluded, None
+        closest_sorted = closest
+        if tracer == "packet" and cfg.sort_rays:
+            pos = scene.geo.positions
+            closest_sorted = raysort.sorted_closest(closest, pos.amin(dim=0), pos.amax(dim=0))
+        return closest_sorted, closest, occluded, None
 
     fat = scene.fat_bvh
     gs = _group_size(cfg.gs, block_trace.GS)
@@ -317,13 +355,14 @@ def _trace_fns(scene, cfg: RenderConfig, capture=None):
 
 
 def _hit_rows(scene, hit):
-    """(shading row [N, 32], material row [N, 24]) of each hit: from the
-    block tracer's fused slot payload, or for the dense tracers' triangle
-    ids by one ``tri_payload`` row gather (row 0 on a miss)."""
+    """(shading row [N, 32], material row [N, 24], normal-texture id [N] or
+    None) of each hit: from the block tracer's fused slot payload, or for
+    triangle-id hits by one ``tri_payload`` row gather (row 0 on a miss),
+    whose normal-texture ids are gathered by material when needed."""
     if hit.payload is not None:
-        return hit.payload[:, 0:32], hit.payload[:, 64:88]
+        return hit.payload[:, 0:32], hit.payload[:, 64:88], hit.payload[:, 63]
     row = scene.tri_payload[torch.clamp(hit.tri, min=0).long()]
-    return row[:, 0:32], row[:, 32:56]
+    return row[:, 0:32], row[:, 32:56], None
 
 
 def light_tile_for(scene, cfg: RenderConfig, seed, scene_lo, scene_hi):
@@ -420,9 +459,9 @@ def trace_path(scene, view, cfg: RenderConfig, seed: int, px=None, py=None,
     trace_closest, trace_closest_u, trace_occluded, trace_closest_b = _trace_fns(
         scene, cfg, capture
     )
-    # deferring pays off by amortising the block tracer's candidate prep
-    # over the bounces; the dense tracers have none (reference :704-707)
-    defer = cfg.defer_shadows and resolved_tracer(scene, cfg) == "pallas"
+    # deferring pays off by amortising the block tracers' candidate prep
+    # over the bounces; the others have none (reference :704-707)
+    defer = cfg.defer_shadows and resolved_tracer(scene, cfg) in _BLOCK_TRACERS
     if px is None:
         px, py = scamera.pixel_grid(cfg.width, cfg.height, dev)
     jitter, st = _ray_jitter(px, py, seed)
@@ -436,6 +475,9 @@ def trace_path(scene, view, cfg: RenderConfig, seed: int, px=None, py=None,
     alive = torch.ones((n,), dtype=torch.bool, device=dev)
     prev_pdf_w = torch.full((n,), -1.0, **f32)  # < 0: camera vertex
     n_rays = torch.zeros((), dtype=torch.int64, device=dev)
+    textured = scene.textures.resolution > 1
+    cone_dist = torch.zeros((n,), **f32)
+    cone_angle = 2.0 * torch.tan(view.projection.vertical_fov * 0.5) / cfg.height
     presample_on = cfg.presample_lights > 0
     light_tile = (
         light_tile_for(scene, cfg, seed, scene_lo, scene_hi) if presample_on else None
@@ -453,10 +495,24 @@ def trace_path(scene, view, cfg: RenderConfig, seed: int, px=None, py=None,
         else:
             closest_fn = trace_closest
         hit = closest_fn(origin, direction, seg_max)
-        srow, mrow = _hit_rows(scene, hit)
-        sp = shading_point_from_row(srow, hit.tri, hit.bary, direction)
+        srow, mrow, ntex = _hit_rows(scene, hit)
+        sp = shading_point_from_row(srow, hit.tri, hit.bary, direction, textured)
         mat = material_from_row(mrow)
         hit_mask = hit.hit
+        if textured:
+            # the ray cone: path length so far times the pixel's spread
+            # angle, scaled to uv by the hit's uv area, picks the mip level
+            cone_dist = cone_dist + torch.where(hit_mask & alive, hit.t, 0.0)
+            footprint = cone_dist * cone_angle * torch.sqrt(torch.clamp(sp.uv_area, min=0.0))
+            lod = stex.ray_cone_lod(scene.textures, footprint)
+            u_lod = None
+            if cfg.tex_filter == "stochastic":  # drawn before the NEE draws
+                u_tex, st = srng.next_floats(st, 1)
+                u_lod = u_tex[..., 0]
+            mat = apply_textures(mat, scene.materials, scene.textures, sp.material, sp.uv,
+                                 lod, u_lod, mat_row=mrow)
+            sp = sp._replace(shading_normal=apply_normal_map(
+                sp, scene.materials, scene.textures, lod, tex_id=ntex))
 
         # escaped rays: environment, MIS against NEE
         miss = alive & ~hit_mask
@@ -568,14 +624,15 @@ def trace_path(scene, view, cfg: RenderConfig, seed: int, px=None, py=None,
 
 def render_path_with_counts(scene, view, cfg: RenderConfig, seed: int, capture=None):
     """One path-traced sample per pixel -> (image [H, W, 3], traced-ray
-    count), on the scene's device. On ``"pallas"`` pixels are traced in
-    screen tiles of up to 32x64 (``tile_dims``) so ray blocks stay compact,
+    count), on the scene's device. On ``"pallas"`` and ``"packet"`` pixels
+    are traced in screen tiles of up to 32x64 (``tile_dims``) so ray blocks
+    stay compact,
     untiled otherwise (reference :1560-1595); the pixel-keyed RNG makes the
     result independent of that layout. ``capture`` (a dict) collects the
     rays of every tracer call, so a caller can replay the waves this sample
     traced (see :func:`_trace_fns`)."""
     dims = None
-    if resolved_tracer(scene, cfg) == "pallas":
+    if resolved_tracer(scene, cfg) in _BLOCK_TRACERS:
         dims = scamera.tile_dims(cfg.width, cfg.height)
     if dims is None:
         px, py = scamera.pixel_grid(cfg.width, cfg.height, scene.device)
@@ -612,7 +669,7 @@ def trace_direct(scene, view, cfg: RenderConfig, seed: int):
     jitter, st = _ray_jitter(px, py, seed)
     origin, direction = scamera.generate_rays(view, px, py, jitter, cfg.width, cfg.height)
     hit = trace_closest(origin, direction)
-    srow, mrow = _hit_rows(scene, hit)
+    srow, mrow, _ = _hit_rows(scene, hit)
     sp = shading_point_from_row(srow, hit.tri, hit.bary, direction)
     mat = material_from_row(mrow)
     radiance = torch.where(

@@ -1,7 +1,7 @@
 """Next-event-estimation light sampling (counterpart of
-stratum_tpu/render/lights.py:26-36, 174-343): power-weighted emissive
-triangles, the environment through its 2D CDF tables (the reference's
-``ENV_SAMPLER = "dist2d"``), the env/area split and the MIS pdfs.
+stratum_tpu/render/lights.py:26-343): power-weighted emissive triangles,
+the environment through its 2D CDF tables or its luminance mip pyramid
+(``ENV_SAMPLER``), the env/area split and the MIS pdfs.
 """
 
 from __future__ import annotations
@@ -12,9 +12,15 @@ from typing import NamedTuple
 import torch
 
 from stratum_tpu_torch.core import math as smath
-from stratum_tpu_torch.core.distribution import sample_dist1d, sample_dist2d
+from stratum_tpu_torch.core.distribution import dist2d_pdf, sample_dist1d, sample_dist2d
+from stratum_tpu_torch.scene.schema import env_mip_dims
 
 _TWO_PI2 = 2.0 * math.pi * math.pi
+
+# environment sampler: "dist2d" = the 2D CDF tables; "mip" = hierarchical
+# texel descent over the luminance * sin(theta) sum pyramid. Sampling and
+# the MIS pdfs follow it together.
+ENV_SAMPLER = "dist2d"
 
 
 class LightSampleRecord(NamedTuple):
@@ -47,12 +53,124 @@ def eval_environment(scene, direction):
     return scene.env.emission[y, x]
 
 
+def _env_mip_meta(scene):
+    he, we = scene.env.emission.shape[:2]
+    dims = env_mip_dims(he, we)  # finest first
+    offs, row = [], 0
+    for h, w in dims:
+        offs.append(row)
+        row += h * w
+    return dims, offs
+
+
+def _children(flat, off, h, w, by, bx):
+    """The four child weights of 2x2 blocks at (by, bx) of a level [h, w];
+    a child outside a degenerate (1-wide) level weighs 0."""
+    ps = []
+    for dy in (0, 1):
+        for dx in (0, 1):
+            yy = torch.clamp(by + dy, max=h - 1)
+            xx = torch.clamp(bx + dx, max=w - 1)
+            ok = ((by + dy) < h) & ((bx + dx) < w)
+            ps.append(torch.where(ok, flat[off + yy * w + xx], 0.0))
+    return ps
+
+
+def sample_environment_mip(scene, u1, u2):
+    """Hierarchical env texel sampling: descend the sum pyramid from its
+    1x1 root, at each level picking one of the 2x2 children in proportion
+    to its energy with one uniform, rescaled into the chosen child's bin.
+    pdf = product of the child probabilities x finest texel count, over uv,
+    then to solid angle."""
+    flat = scene.env.lum_mips
+    dims, offs = _env_mip_meta(scene)
+    u = u1
+    cy = torch.zeros(u.shape, dtype=torch.int64, device=u.device)
+    cx = torch.zeros_like(cy)
+    pdf = torch.ones(u.shape, dtype=torch.float32, device=u.device)
+    quad = ((0, 1), (1, 0), (1, 1))
+    for lvl in range(len(dims) - 2, -1, -1):
+        h, w = dims[lvl]
+        ph, pw = dims[lvl + 1]
+        cy = cy * (h // ph)
+        cx = cx * (w // pw)
+        ps = _children(flat, offs[lvl], h, w, cy, cx)
+        total = ps[0] + ps[1] + ps[2] + ps[3]
+        degen = total < 1e-12
+        probs = [torch.where(degen, 0.25, p / torch.clamp(total, min=1e-12)) for p in ps]
+        sel_y, sel_x = torch.zeros_like(cy), torch.zeros_like(cx)
+        p_sel, acc = probs[0], probs[0]
+        for j, (dy, dx) in enumerate(quad):
+            take = u >= acc
+            sel_y = torch.where(take, dy, sel_y)
+            sel_x = torch.where(take, dx, sel_x)
+            p_sel = torch.where(take, probs[j + 1], p_sel)
+            acc = acc + probs[j + 1]
+        starts = [torch.zeros_like(u)]
+        for j in range(3):
+            starts.append(starts[-1] + probs[j])
+        bin_lo = starts[0]
+        for j, (dy, dx) in enumerate(quad):
+            bin_lo = torch.where((sel_y == dy) & (sel_x == dx), starts[j + 1], bin_lo)
+        u = torch.clamp((u - bin_lo) / torch.clamp(p_sel, min=1e-12), 0.0, 1.0 - 1e-7)
+        cy = cy + sel_y
+        cx = cx + sel_x
+        pdf = pdf * torch.clamp(p_sel, min=1e-12)
+    h0, w0 = dims[0]
+    uv = torch.stack([(cx.to(torch.float32) + u) / w0, (cy.to(torch.float32) + u2) / h0], dim=-1)
+    direction = smath.spherical_uv_to_cartesian(uv)
+    pdf_w = pdf * (h0 * w0) / (_TWO_PI2 * _sin_theta(direction))
+    return direction, eval_environment(scene, direction), pdf_w
+
+
+def environment_mip_pdf_uv(scene, uv):
+    """pdf over uv of :func:`sample_environment_mip`: the same pyramid walk,
+    multiplying the probability of the child that holds uv."""
+    flat = scene.env.lum_mips
+    dims, offs = _env_mip_meta(scene)
+    pdf = torch.ones(uv.shape[:-1], dtype=torch.float32, device=uv.device)
+    for lvl in range(len(dims) - 2, -1, -1):
+        h, w = dims[lvl]
+        y = torch.clamp((uv[..., 1] * h).to(torch.int64), 0, h - 1)
+        x = torch.clamp((uv[..., 0] * w).to(torch.int64), 0, w - 1)
+        by, bx = (y // 2) * 2, (x // 2) * 2
+        ps = _children(flat, offs[lvl], h, w, by, bx)
+        total = ps[0] + ps[1] + ps[2] + ps[3]
+        sel = (torch.clamp(y - by, max=1) << 1) | torch.clamp(x - bx, max=1)
+        p_sel = torch.where(
+            sel == 0, ps[0], torch.where(sel == 1, ps[1], torch.where(sel == 2, ps[2], ps[3]))
+        ) / torch.clamp(total, min=1e-12)
+        p_sel = torch.where(total < 1e-12, 0.25, p_sel)
+        pdf = pdf * torch.clamp(p_sel, min=1e-12)
+    h0, w0 = dims[0]
+    return pdf * (h0 * w0)
+
+
 def sample_environment(scene, u1, u2):
-    """Importance-sample the environment through its 2D tables."""
+    """Importance-sample the environment (2D tables or the mip descent, per
+    ENV_SAMPLER) -> (direction, radiance, solid-angle pdf)."""
+    if ENV_SAMPLER == "mip":
+        return sample_environment_mip(scene, u1, u2)
     uv, pdf_uv = sample_dist2d(scene.env.dist, u1, u2)
     direction = smath.spherical_uv_to_cartesian(uv)
     pdf_w = pdf_uv / (_TWO_PI2 * _sin_theta(direction))
     return direction, eval_environment(scene, direction), pdf_w
+
+
+def environment_pdf_w(scene, direction):
+    """Solid-angle pdf of :func:`sample_environment` (per ENV_SAMPLER)."""
+    uv = smath.cartesian_to_spherical_uv(direction)
+    if ENV_SAMPLER == "mip":
+        pdf_uv = environment_mip_pdf_uv(scene, uv)
+    else:
+        pdf_uv = dist2d_pdf(scene.env.dist, uv)
+    return pdf_uv / (_TWO_PI2 * _sin_theta(direction))
+
+
+def env_pdf_w_mis(scene, direction):
+    """NEE solid-angle pdf of an escaped direction, with the env split."""
+    p_env = scene.lights.env_probability if scene.lights.num_lights > 0 else 1.0
+    return environment_pdf_w(scene, direction) * p_env
 
 
 def sample_area_light(scene, u_sel, u1, u2) -> LightSampleRecord:
@@ -113,7 +231,10 @@ def light_pdf_area(scene, tri, light_row):
 
 def env_eval_and_pdf_w_mis(scene, direction):
     """(radiance, NEE solid-angle pdf) of an escaped direction through one
-    gather of the fused [He, We, 4] emission+pdf table."""
+    gather of the fused [He, We, 4] emission+pdf table; under the mip
+    sampler, whose pdf is not the tables', the two apart."""
+    if ENV_SAMPLER == "mip":
+        return eval_environment(scene, direction), env_pdf_w_mis(scene, direction)
     y, x = _env_texel(scene, direction)
     row = scene.env.emission_pdf[y, x]
     pdf_w = row[..., 3] / (_TWO_PI2 * _sin_theta(direction))

@@ -4,7 +4,8 @@ SceneData, so a test can feed both packages the very same scene.
 ``numpy_fields`` walks any nested NamedTuple (the JAX SceneData included)
 into ``{"geo.positions": array, ...}`` with ``np.asarray`` on the leaves;
 ``scene_from_numpy`` builds the port's scene from such a dict. Neither
-imports JAX.
+imports JAX. The reference's texture stack is no NamedTuple, so only
+untextured scenes bridge (with the 1x1 sentinel stack the reference has).
 """
 
 from __future__ import annotations
@@ -12,7 +13,9 @@ from __future__ import annotations
 import numpy as np
 
 from stratum_tpu_torch.core.distribution import Dist1D, Dist2D
+from stratum_tpu_torch.ops.bvh import BVHData
 from stratum_tpu_torch.ops.packet import FatBVH
+from stratum_tpu_torch.render.texture import build_texture_stack
 from stratum_tpu_torch.scene import schema
 
 
@@ -34,16 +37,15 @@ def _dist1d(f, key):
 
 
 def scene_from_numpy(fields: dict, device) -> schema.SceneData:
-    """Port SceneData on ``device`` from :func:`numpy_fields` output."""
+    """Port SceneData on ``device`` from :func:`numpy_fields` output (an
+    untextured scene's)."""
     f = fields
     if "spheres.radius" in f and f["spheres.radius"].shape[0] > 0:
         raise NotImplementedError("analytic spheres: ROADMAP Queue 1 item 4")
     if "media.density" in f and f["media.density"].shape[1] > 1:
         raise NotImplementedError("participating media: ROADMAP Queue 1 item 4")
     if any((f["materials." + t] >= 0).any() for t in schema.MATERIAL_TEXTURES):
-        raise NotImplementedError("textured materials: ROADMAP Queue 1 item 2")
-    if f["env.emission"].shape[:2] != (1, 1):
-        raise NotImplementedError("environment images: ROADMAP Queue 1 item 2")
+        raise ValueError("textured scenes do not bridge: flatten them with the port")
 
     def sub(nt, prefix):
         return nt(**{k: f[prefix + k] for k in nt._fields})
@@ -67,6 +69,7 @@ def scene_from_numpy(fields: dict, device) -> schema.SceneData:
                 cond_pdf=f["env.dist.cond_pdf"],
                 cond_cdf=f["env.dist.cond_cdf"],
             ),
+            lum_mips=f["env.lum_mips"],
             emission_pdf=f["env.emission_pdf"],
         ),
         fat_bvh=sub(FatBVH, "fat_bvh."),
@@ -75,5 +78,7 @@ def scene_from_numpy(fields: dict, device) -> schema.SceneData:
         # the reference builds this table but leaves SceneData.tri_payload
         # None (its flatten.py:523-545); the same rows come from its tables
         tri_payload=schema.build_tri_payload(f["geo.packed_tri"], f["materials.packed"]),
+        bvh=sub(BVHData, "bvh."),
+        textures=build_texture_stack([]),
     )
     return schema.to_device(scene, device)

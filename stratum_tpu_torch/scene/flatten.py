@@ -2,18 +2,20 @@
 stratum_tpu/scene/flatten.py:50-93, 184-609).
 
 Walks the node graph (``scene/graph.py``), bakes meshes to
-world space, dedups materials by value, builds the light table, the native
-SAH fat BVH (K = 256), the fused per-slot hit payload and the dense
+world space, dedups materials by value and their images by identity, builds
+the texture stack, the environment tables, the light table, the native SAH
+fat BVH (K = 256), the LBVH, the fused per-slot hit payload and the dense
 tracers' triangle features and per-triangle payload, all in numpy, then
 moves the result onto ``device`` (the card unless the caller names
-another). Scenes with textures, analytic spheres,
-media or environment images are refused: their render paths are not ported
-yet (ROADMAP Queue 1).
+another). Scenes with analytic spheres or media are refused: their render
+paths are not ported yet (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
+import zlib
 
 import numpy as np
 
@@ -26,14 +28,24 @@ from stratum_tpu_torch.scene.graph import (
     SpherePrimitive,
 )
 from stratum_tpu_torch.scene.material import Material
+from stratum_tpu_torch.core.distribution import Dist1D, Dist2D, build_env_dist2d
+from stratum_tpu_torch.ops.bvh import build_bvh
 from stratum_tpu_torch.ops.mxu import build_tri_features
 from stratum_tpu_torch.ops.packet import build_fat_bvh_sah
+from stratum_tpu_torch.render import texture as stex
 from stratum_tpu_torch.scene import schema
 
 LEAF_SIZE = 256
-_TEXTURE_FIELDS = (
-    "base_color_image", "emission_image", "rough_metal_image",
-    "normal_image", "alpha_image",
+# the texture atlases' budget (flat + quad f16 with their mips, ~53 B per
+# texel): the reference's value, kept so the stack resolution it clamps to
+# is the reference's
+TEX_BUDGET_BYTES = 2 << 30
+_TEXTURE_SLOTS = (  # material image field, its texture-id column, its slot bit
+    ("base_color_image", "base_color_tex", stex.SLOT_BASE_COLOR),
+    ("emission_image", "emission_tex", stex.SLOT_EMISSION),
+    ("rough_metal_image", "rough_metal_tex", stex.SLOT_ROUGH_METAL),
+    ("normal_image", "normal_tex", stex.SLOT_NORMAL),
+    ("alpha_image", "alpha_tex", stex.SLOT_ALPHA),
 )
 
 
@@ -120,10 +132,6 @@ def flatten(root: Node, env_probability: float = 0.5, device="cuda"):
 
     def material_row(mat) -> int:
         m = mat if mat is not None else default_mat
-        if any(getattr(m, f) is not None for f in _TEXTURE_FIELDS):
-            raise NotImplementedError(
-                "textured materials: ROADMAP Queue 1 item 2 (textures and the colonnade)"
-            )
         k = m.key()
         if k not in mat_rows:
             mat_rows[k] = len(materials)
@@ -170,23 +178,44 @@ def flatten(root: Node, env_probability: float = 0.5, device="cuda"):
     if not all_pos:
         raise ValueError("scene contains no triangle geometry")
 
+    tex_images: list = []
+    tex_ids: dict = {}
+
+    def texture_row(img) -> int:
+        """Stack index of an image, deduplicated by identity; -1 for none."""
+        if img is None:
+            return -1
+        if id(img) not in tex_ids:
+            tex_ids[id(img)] = len(tex_images)
+            tex_images.append(np.asarray(img, np.float32))
+        return tex_ids[id(img)]
+
     arrs = schema.default_material_arrays(len(materials))
     for i, m in enumerate(materials):
         arrs["base_color"][i] = np.asarray(m.base_color, np.float32)
         arrs["emission"][i] = np.asarray(m.emission, np.float32)
         for f in schema.MATERIAL_FLOATS + ("alpha_cutoff",):
             arrs[f][i] = getattr(m, f)
+        for image, column, _ in _TEXTURE_SLOTS:
+            arrs[column][i] = texture_row(getattr(m, image))
     mats = schema.finalize_materials(arrs)
+    textures = stex.build_texture_stack(tex_images, res=texture_resolution(tex_images))
+    textures = textures._replace(slot_mask=sum(
+        bit for _, column, bit in _TEXTURE_SLOTS if np.any(arrs[column] >= 0)))
 
     has_env = env_component is not None and (
         np.any(np.asarray(env_component.color) > 0)
         or env_component.image is not None
     )
     if has_env and env_component.image is not None:
-        raise NotImplementedError(
-            "environment images: ROADMAP Queue 1 item 2 (textures and the colonnade)"
-        )
-    env = schema.constant_environment(env_component.color if has_env else (0.0, 0.0, 0.0))
+        img = np.asarray(env_component.image, np.float32)
+        img = img * np.asarray(env_component.color, np.float32)
+        lum = img @ np.asarray([0.2126, 0.7152, 0.0722], np.float32)
+        dist, mips = env_tables(lum, getattr(env_component, "source_path", None))
+        env = schema.make_environment(img, dist, mips)
+    else:
+        env = schema.constant_environment(
+            env_component.color if has_env else (0.0, 0.0, 0.0))
 
     pos_p, nrm_p, uv_p, idx_p, mat_p, inst_p = schema.build_geometry(
         np.concatenate(all_pos), np.concatenate(all_nrm),
@@ -211,12 +240,65 @@ def flatten(root: Node, env_probability: float = 0.5, device="cuda"):
         slot_payload=build_slot_payload(packed_rows, mats, fat),
         tri_features=build_tri_features(pos_p, idx_p, mat_p >= 0),
         tri_payload=schema.build_tri_payload(packed_rows, mats.packed),
+        bvh=build_bvh(pos_p, idx_p, mat_p >= 0),
+        textures=textures,
     )
     stats.num_triangles = int(sum(i.shape[0] for i in all_idx))
     stats.num_vertices = int(vert_base)
     stats.num_materials = len(materials)
     stats.num_lights = lights.num_lights
     return schema.to_device(scene, device), stats
+
+
+def texture_resolution(images) -> int:
+    """The stack's resolution: the largest source side rounded up to a
+    power of 2 in [64, 2048], halved while the stack would pass
+    TEX_BUDGET_BYTES (with a warning); 512 without images."""
+    if not images:
+        return 512
+    max_dim = max(max(im.shape[0], im.shape[1]) for im in images)
+    res = 64
+    while res < max_dim and res < 2048:
+        res *= 2
+    while res > 64 and len(images) * res * res * 53 > TEX_BUDGET_BYTES:
+        res //= 2
+        warnings.warn(
+            f"texture stack clamped to {res}^2: {len(images)} textures exceed the "
+            f"{TEX_BUDGET_BYTES >> 20} MiB budget", stacklevel=3)
+    return res
+
+
+def env_tables(lum: np.ndarray, source_path=None):
+    """Environment sampling tables (2D CDF distribution and luminance mip
+    pyramid, numpy), cached beside an image that came from a file as
+    ``<file>.dists.npz``. The cache key is the table shape and a strided
+    CRC of the scaled luminance, so an edited image or another scale
+    rebuilds; a missing, stale or unreadable cache is rebuilt, and a cache
+    that cannot be written is skipped."""
+    cache = str(source_path) + ".dists.npz" if source_path else None
+    key = None
+    if cache:
+        stride = max(1, lum.shape[0] // 64)
+        key = np.asarray([lum.shape[0], lum.shape[1],
+                          zlib.crc32(np.ascontiguousarray(lum[::stride]).tobytes()), 1],
+                         np.int64)
+        try:
+            with np.load(cache) as z:
+                if np.array_equal(z["key"], key):
+                    dist = Dist2D(marginal=Dist1D(pdf=z["m_pdf"], cdf=z["m_cdf"]),
+                                  cond_pdf=z["c_pdf"], cond_cdf=z["c_cdf"])
+                    return dist, z["mips"]
+        except (OSError, KeyError, ValueError):
+            pass
+    dist = build_env_dist2d(lum)
+    mips = schema.build_env_mips(lum)
+    if cache:
+        try:
+            np.savez(cache, key=key, m_pdf=dist.marginal.pdf, m_cdf=dist.marginal.cdf,
+                     c_pdf=dist.cond_pdf, c_cdf=dist.cond_cdf, mips=mips)
+        except OSError:
+            pass
+    return dist, mips
 
 
 def build_slot_payload(packed_tri, mats, fat) -> np.ndarray:

@@ -13,7 +13,9 @@ import numpy as np
 import torch
 
 from stratum_tpu_torch.core.distribution import Dist1D, Dist2D, build_dist1d, build_dist2d
+from stratum_tpu_torch.ops.bvh import BVHData
 from stratum_tpu_torch.ops.packet import FatBVH
+from stratum_tpu_torch.render.texture import TextureStack
 
 TRI_PAD = 128
 VERT_PAD = 8
@@ -80,10 +82,13 @@ class LightData(NamedTuple):
 
 
 class Environment(NamedTuple):
-    """Equirect environment; a 1x1 image is a constant environment."""
+    """Equirect environment; a 1x1 image is a constant environment. Two
+    samplers read it (``render.lights.ENV_SAMPLER``): the 2D CDF tables
+    ``dist`` and the hierarchical descent over ``lum_mips``."""
 
     emission: torch.Tensor  # f32 [He, We, 3]
     dist: Dist2D  # luminance * sin(theta) importance tables
+    lum_mips: torch.Tensor  # f32 [rows] flat sum pyramid (pow2 dims, finest first)
     emission_pdf: torch.Tensor  # f32 [He, We, 4] rgb | joint uv pdf
 
 
@@ -105,6 +110,8 @@ class SceneData(NamedTuple):
     # hits carry triangle ids, not slots): cols 0-31 the packed shading
     # row, 32-55 the triangle's material row
     tri_payload: torch.Tensor
+    bvh: BVHData  # the LBVH (ops/bvh.py, tracer="bvh")
+    textures: TextureStack  # render/texture.py; base_res 1 = untextured
 
     @property
     def device(self) -> torch.device:
@@ -160,16 +167,62 @@ def finalize_materials(arrs: dict) -> DisneyMaterials:
     return DisneyMaterials(packed=packed, **arrs)
 
 
+def env_mip_dims(he: int, we: int):
+    """Level dims of the env luminance pyramid, finest first:
+    [(H2, W2), (H2/2, W2/2), ..., (1, 1)] with H2, W2 the next powers of 2."""
+    h2 = 1
+    while h2 < he:
+        h2 *= 2
+    w2 = 1
+    while w2 < we:
+        w2 *= 2
+    dims = [(h2, w2)]
+    while dims[-1] != (1, 1):
+        h, w = dims[-1]
+        dims.append((max(h // 2, 1), max(w // 2, 1)))
+    return dims
+
+
+def build_env_mips(lum: np.ndarray) -> np.ndarray:
+    """luminance [He, We] -> flat SUM pyramid (numpy f32): nearest-resampled
+    into the pow2 canvas, weighted by each row's sin(theta) at the finest
+    level, then 2x2 sums, so a child's weight at any level is the energy it
+    contains (what the hierarchical descent splits on)."""
+    he, we = lum.shape
+    dims = env_mip_dims(he, we)
+    h2, w2 = dims[0]
+    ys = (np.arange(h2) * he) // h2
+    xs = (np.arange(w2) * we) // w2
+    base = np.zeros((h2, w2), np.float32)
+    base[:, :] = lum[ys][:, xs]
+    base *= np.sin(np.pi * (np.arange(h2) + 0.5) / h2)[:, None]
+    levels = [base]
+    for h, w in dims[1:]:
+        prev = levels[-1]
+        ph, pw = prev.shape
+        levels.append(prev.reshape(h, ph // h, w, pw // w).sum(axis=(1, 3)))
+    return np.concatenate([lv.reshape(-1) for lv in levels])
+
+
 def pack_emission_pdf(emission, dist: Dist2D) -> np.ndarray:
+    """[He, We, 4] rgb radiance | the dist2d joint uv pdf: the escape path's
+    one-gather row."""
     joint = np.asarray(dist.marginal.pdf)[:, None] * np.asarray(dist.cond_pdf)
     return np.concatenate([np.asarray(emission), joint[..., None]], axis=-1)
 
 
+def make_environment(emission, dist: Dist2D, lum_mips) -> Environment:
+    """Environment (numpy) with the fused emission+pdf rows."""
+    emission = np.asarray(emission, np.float32)
+    return Environment(emission=emission, dist=dist,
+                       lum_mips=np.asarray(lum_mips, np.float32),
+                       emission_pdf=pack_emission_pdf(emission, dist))
+
+
 def constant_environment(rgb=(0.0, 0.0, 0.0)) -> Environment:
     img = np.broadcast_to(np.asarray(rgb, np.float32), (1, 1, 3)).copy()
-    dist = build_dist2d(np.ones((1, 1), np.float32))
-    return Environment(emission=img, dist=dist,
-                       emission_pdf=pack_emission_pdf(img, dist))
+    return make_environment(img, build_dist2d(np.ones((1, 1), np.float32)),
+                            build_env_mips(np.ones((1, 1), np.float32)))
 
 
 def build_geometry(positions, normals, uvs, indices, tri_material,

@@ -249,10 +249,14 @@ def test_shading_point_and_terminator(rng):
     tri = rng.integers(-1, 100, N).astype(np.int32)
     bary = rng.random((N, 2), dtype=np.float32) * 0.5
     d = _unit(rng, N)
-    sp = pshading.shading_point_from_row(_t(rows), _t(tri), _t(bary), _t(d))
+    sp = pshading.shading_point_from_row(_t(rows), _t(tri), _t(bary), _t(d), textured=True)
     sj = jshading.shading_point_from_row(rows, tri, bary, d)
     for field in pshading.ShadingPoint._fields:
         _close(getattr(sp, field), getattr(sj, field))
+    # untextured, the texture inputs are not computed
+    plain = pshading.shading_point_from_row(_t(rows), _t(tri), _t(bary), _t(d))
+    assert plain.uv is None and plain.tangent is None and plain.uv_area is None
+    assert torch.equal(plain.shading_normal, sp.shading_normal)
     _close(pshading.shadow_terminator_factor(sp.geom_normal, sp.shading_normal, _t(d)),
            jshading.shadow_terminator_factor(sj.geom_normal, sj.shading_normal, d))
     mrow = rng.random((N, 24), dtype=np.float32)

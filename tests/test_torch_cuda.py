@@ -18,7 +18,9 @@ list modes, the emission's count and slots and the tiled emission bit for
 bit; T1-T4 on small-integer inputs bit for bit (every product and sum is
 exact); the dense tracer's product against float64 within 1e-5 of its
 magnitude (TF32 would lose 1e-3), and its render within test_torch_slice's
-bounds of the CPU render.
+bounds of the CPU render; texture samples within 1e-6 of the CPU's, and a
+textured colonnade render through K1/K2 within test_torch_slice's bounds of
+the CPU render.
 """
 
 import numpy as np
@@ -27,8 +29,8 @@ import torch
 
 from stratum_tpu_torch.ops import binned, block_trace, intersect, mxu
 from stratum_tpu_torch.ops.packet import FatBVH
-from stratum_tpu_torch.render import camera, integrator
-from stratum_tpu_torch.scene import builtin, flatten
+from stratum_tpu_torch.render import camera, integrator, texture
+from stratum_tpu_torch.scene import builtin, flatten, sample_assets, schema
 from stratum_tpu_torch.tools import (
     bench_mxu_model,
     perf_commit_pipeline,
@@ -261,5 +263,56 @@ def test_dense_tracer_on_the_card(dev):
     cpu_scene, _ = flatten.flatten(g.root, device="cpu")
     cpu_view = camera.make_view(node.to_world(), cam.fovy, 64, 64, device="cpu")
     ref = integrator.render_path(cpu_scene, cpu_view, cfg, 0).numpy()
+    assert abs(img.mean() - ref.mean()) <= 0.02 * ref.mean()
+    assert np.all(np.abs(img - ref) <= 1e-3 * (1 + np.abs(ref)), axis=-1).mean() >= 0.97
+
+
+def test_texture_sampling_on_the_card(dev):
+    """Texture samples on the card (nearest, bilinear, trilinear and
+    stochastic trilinear; uvs outside [0, 1), tex id -1) against the same
+    samples on the CPU, within 1e-6: the same f16 texels, blended in f32."""
+    rng = np.random.default_rng(12)
+    imgs = [rng.random((32, 32, 3), dtype=np.float32) for _ in range(3)]
+    stack = texture.build_texture_stack(imgs, res=32)
+    st_d, st_c = schema.to_device(stack, dev), schema.to_device(stack, "cpu")
+    n = 8192
+    uv = torch.from_numpy(rng.uniform(-2.0, 17.0, (n, 2)).astype(np.float32))
+    tid = torch.from_numpy(rng.integers(-1, 3, n).astype(np.int32))
+    flod = torch.from_numpy(rng.uniform(-0.5, 6.0, n).astype(np.float32))
+    ilod = torch.from_numpy(rng.integers(0, 6, n).astype(np.int32))
+    u_lod = torch.from_numpy(rng.random(n, dtype=np.float32))
+    cases = [
+        (texture.sample_nearest, (ilod,)),
+        (texture.sample_bilinear, (ilod,)),
+        (texture.sample_bilinear, (flod,)),
+        (texture.sample_bilinear, (flod, u_lod)),
+    ]
+    for fn, extra in cases:
+        got = fn(st_d, tid.to(dev), uv.to(dev), *(x.to(dev) for x in extra))
+        want = fn(st_c, tid, uv, *extra)
+        torch.testing.assert_close(got.cpu(), want, rtol=0.0, atol=1e-6)
+
+
+def test_colonnade_render_on_the_card(dev, tmp_path):
+    """The golden's small colonnade at 48x48 through the block kernel
+    (``tracer="pallas"``: K1/K2 and the slot payload's texture columns) on
+    the card against the same render on the CPU (the kernel's plain
+    version), within test_torch_slice's bounds."""
+    g, _ = sample_assets.load_colonnade(tmp_path, columns=3, seg=12, rings=6, tex_res=64,
+                                        env_res=64)
+    node, cam = flatten.find_camera(g.root)
+    cfg = integrator.RenderConfig(width=48, height=48, max_bounces=2, bsdf="disney",
+                                  presample_lights=256, tracer="pallas")
+    imgs = []
+    for device in (dev, "cpu"):
+        scene, _ = flatten.flatten(g.root, device=device)
+        view = camera.make_view(node.to_world(), cam.fovy, 48, 48, device=device)
+        before = dict(block_trace.LAUNCHES)
+        imgs.append(integrator.render_path_progressive(scene, view, cfg, 2).cpu().numpy())
+        if device == dev:
+            assert block_trace.LAUNCHES["closest"] > before["closest"]
+            assert block_trace.LAUNCHES["occluded"] > before["occluded"]
+    img, ref = imgs
+    assert np.isfinite(img).all()
     assert abs(img.mean() - ref.mean()) <= 0.02 * ref.mean()
     assert np.all(np.abs(img - ref) <= 1e-3 * (1 + np.abs(ref)), axis=-1).mean() >= 0.97

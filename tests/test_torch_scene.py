@@ -87,6 +87,12 @@ def test_bridge_round_trips(scenes):
     # the reference leaves SceneData.tri_payload None: the bridge builds it
     # from the rows it is made of
     payload = ported.pop("tri_payload")
+    # the reference's texture stack is no NamedTuple, so its fields are not
+    # in ``fields``: an untextured scene bridges to the 1x1 white sentinel
+    sentinel = {k: ported.pop(k) for k in ("textures.flat", "textures.quad")}
+    assert bs.textures.resolution == 1 == js.textures.resolution
+    np.testing.assert_array_equal(sentinel["textures.flat"], np.asarray(js.textures.flat))
+    np.testing.assert_array_equal(sentinel["textures.quad"], np.asarray(js.textures.quad))
     for key, value in ported.items():
         np.testing.assert_array_equal(value, fields[key], err_msg=key)
     rows = fields["geo.packed_tri"]
@@ -130,6 +136,8 @@ def _scene_with(component_node):
 
 @pytest.mark.parametrize("what", ["analytic_sphere", "medium", "texture", "env_image"])
 def test_unported_scene_features_raise(what):
+    """Analytic spheres and media raise naming their ROADMAP item;
+    textures and environment images, ported since, flatten."""
     def add(n):
         if what == "analytic_sphere":
             n.make_component(SpherePrimitive(radius=5.0, analytic=True))
@@ -144,6 +152,13 @@ def test_unported_scene_features_raise(what):
             n.make_component(EnvironmentComponent(
                 color=np.ones(3, np.float32), image=np.ones((4, 8, 3), np.float32)))
 
+    if what in ("texture", "env_image"):  # ported with ROADMAP Queue 1 item 2
+        scene, _ = flatten.flatten(_scene_with(add).root, device="cpu")
+        if what == "texture":
+            assert scene.textures.num_tex == 1 and scene.textures.resolution == 64
+        else:
+            assert scene.env.emission.shape == (4, 8, 3) and scene.lights.env_probability > 0
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         flatten.flatten(_scene_with(add).root, device="cpu")
 
@@ -165,11 +180,13 @@ def test_entry_points_default_to_the_card():
             camera.make_view(np.eye(3, 4), 0.9, 8, 8)
 
 
-def test_port_runs_without_jax():
+def test_port_runs_without_jax(tmp_path):
     """Import the port (its microbenchmark tools and flag parser included),
     build the atrium, render a tiny frame on the CPU (binned tracer
-    included) and run a tool on the CPU in a fresh interpreter: neither JAX
-    nor any module of the JAX package may be imported."""
+    included), write, load and render a tiny textured colonnade through
+    the block kernel's plain version, the packet, LBVH and null tracers,
+    and run a tool on the CPU in a fresh interpreter: neither JAX nor any
+    module of the JAX package may be imported."""
     code = (
         "import sys\n"
         "import torch\n"
@@ -188,6 +205,17 @@ def test_port_runs_without_jax():
         " presample_lights=256, coherent_tiles=16, binned_secondary=8, binned_shadow=8)\n"
         "img, n = integrator.render_path_with_counts(scene, view, cfg, 0)\n"
         "assert torch.isfinite(img).all() and int(n) > 0\n"
+        "from stratum_tpu_torch.scene import sample_assets\n"
+        f"g, _ = sample_assets.load_colonnade({str(tmp_path)!r}, columns=1, seg=6, rings=2,"
+        " tex_res=64, env_res=16)\n"
+        "scene, _ = flatten.flatten(g.root, device='cpu')\n"
+        "node, cam = flatten.find_camera(g.root)\n"
+        "view = camera.make_view(node.to_world(), cam.fovy, 16, 8, device='cpu')\n"
+        "for t in ('pallas', 'packet', 'bvh', 'null'):\n"
+        "    cfg = integrator.RenderConfig(width=16, height=8, bsdf='disney', tracer=t,"
+        " max_bounces=1, tex_filter='stochastic')\n"
+        "    img, n = integrator.render_path_with_counts(scene, view, cfg, 0)\n"
+        "    assert torch.isfinite(img).all() and int(n) > 0\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n"
         "ref = [m for m in sys.modules if m == 'stratum_tpu' or m.startswith('stratum_tpu.')]\n"
         "assert not ref, ref\n"

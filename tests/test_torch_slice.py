@@ -250,6 +250,9 @@ def test_clamp_and_shadow_rr_match_reference(depth):
     np.testing.assert_allclose(pc.numpy(), np.asarray(jc), rtol=1e-6)
 
 
+PORTED_OPTIONS = (dict(tracer="packet"), dict(tracer="bvh"), dict(tex_filter="stochastic"))
+
+
 @pytest.mark.parametrize("option", [
     dict(tracer="packet"), dict(tracer="bvh"),
     dict(alpha_test=True), dict(ris_candidates=4), dict(wave_caps=(1.0, 0.5)),
@@ -258,7 +261,14 @@ def test_clamp_and_shadow_rr_match_reference(depth):
     dict(lvc_connections=4), dict(tex_filter="stochastic"),
 ])
 def test_unported_options_raise(case, option):
+    """Each option raises naming its ROADMAP item until the item is ported;
+    the tracers ``packet`` and ``bvh`` and ``tex_filter="stochastic"``
+    (items 1 and 2) are accepted since (their renders:
+    test_torch_tracers.py, test_torch_colonnade.py)."""
     cfg = _cfg(**{**BENCH, **option})
+    if option in PORTED_OPTIONS:
+        integrator.check_supported(cfg)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         integrator.render_path_with_counts(case["ps"], case["pview"], cfg, 0)
 
