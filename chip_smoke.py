@@ -53,13 +53,21 @@ Phases, each printing its results:
    before and read just after; then each T kernel against its plain
    version on two input sets, small integers (bit for bit: every product
    and sum is exact) and standard normal values (within each tool's stated
-   bound), at the default shapes and at k=256, and the plain versions and
-   (T3/T4) one ``torch.matmul`` of the same bf16 product timed per visit;
-   last, a visit of 256 slots by 128 lanes per SM, at one CTA per SM and
-   with the card full, both by T1 ``epi`` (tensor cores) and by K1 (its
-   exact-f32 counterpart), and by K1 at 21 real slots per leaf (the
-   atrium's entered leaves hold ~21 triangles; K1 visits only a leaf's
-   real triangles);
+   bound; T2's lanes past 2^-12 of their value are shown beside the
+   float64 run's winner, whose sums must cancel), T1 and T2 at k from 8 to
+   1,024, T3 and T4 at their default shapes and k=256, and the plain
+   versions and (T3/T4) one ``torch.matmul`` of the same bf16 product timed
+   per visit. T1's and T2's per-SM bound is the larger of the tensor cores'
+   time and the epilogue's on the CUDA cores (``tools.visit_bound_sm``:
+   each variant's instructions per test by pipe, counted from the SASS of
+   the library this run built by ``tools.sass_visit_ops``, at the card's
+   maximum SM clock); both halves and every pipe's time are printed, and
+   each T1/T2 kernel's registers, spills, shared memory,
+   resident CTAs and ptxas's wgmma remarks. Last, a visit of 256 slots by
+   128 lanes per SM, at one CTA per SM and with the card full, both by T1
+   ``epi`` (tensor cores) and by K1 (its exact-f32 counterpart), and by K1
+   at 21 real slots per leaf (the atrium's entered leaves hold ~21
+   triangles; K1 visits only a leaf's real triangles);
 9. past the shared-memory budgets: a synthetic atrium (``BIG_ATRIUM``,
    ~10,400 SAH leaves) whose gs=1 lists need 16,384 keys and whose emission
    boxes need more than 227 KB. On its camera wave and a shadow wave from
@@ -110,6 +118,7 @@ result line. No phase catches its own failure.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -379,7 +388,7 @@ def _build():
         list(pool.map(cuda_build.load, names))
     for name in names:
         ptxas = [ln.strip() for ln in cuda_build.BUILD_LOG.get(f"{name}.cu", "").splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if ("registers" in ln or "spill" in ln) and "(C75" not in ln]
         print(f"[2 build] {name}.cu -> {cuda_build.library_path(name).name}; "
               f"ptxas: {' | '.join(ptxas)}", flush=True)
     print(f"[2 build] {len(names)} kernels in {time.perf_counter() - t0:.3f} s", flush=True)
@@ -549,6 +558,9 @@ def _binned_sweep(fat, o, d, t, lanes: int = 1 << 17):
 
 
 MB_ITERS = 8  # visits per kernel-against-plain comparison of T1-T3
+# rows of T1's and T2's comparisons: below, at and past one 32-row tile, not
+# a whole number of tiles (72), and up to the packed argmin's 1,024 rows
+MB_KS = (8, 16, 72, 256, 512, 1024)
 # CTAs of a visit-per-SM timing: at most one per SM, and 20 per SM (the card
 # full: more than can reside at once)
 SM_CTAS = (("ms", 128), ("ms_full", 2640))
@@ -618,20 +630,25 @@ def _k1_visit(dev, leaves: int = 64, k: int = 256, real: int = 256):
     return result
 
 
-def _t1_visit(dev, k: int = 256, iters=(64, 256)):
+def _t1_visit(dev, clock: float, ops: dict, k: int = 256, iters=(64, 256)):
     """T1 ``epi``'s visit of k rows by 128 lanes on one SM, timed as
     _k1_visit times K1: the commit-pipeline kernel over the CTA counts of
     SM_CTAS, each CTA with its own 128 lanes (the tool's uniform timing
     operands) and the same slab ring, marginal between two trip counts ->
-    ms per visit and SM of each, beside the per-SM tensor-core bound."""
+    ms per visit and SM of each, beside the per-SM bound: the larger of the
+    tensor cores' time and the epilogue's (128 k tests of ``ops``, the
+    instructions per test by pipe counted from the kernel's SASS, at the SM
+    clock ``clock``)."""
     import torch
     from stratum_tpu_torch import tools
     from stratum_tpu_torch.tools import perf_commit_pipeline as t1
 
     gen = torch.Generator(device="cpu").manual_seed(9)
     _, feat, word, _ = t1.operands("epi", k, 1, dev)
-    sm_ms = 2 * 48 * 4 * k * t1.B / tools.PEAK_BF16_FLOPS * tools.SMS * 1e3
-    result = dict(bound_sm_ms=sm_ms, k=k)
+    b = tools.visit_bound_sm(2 * 48 * 4 * k * t1.B, t1.B * k, ops, clock)
+    sm_ms = b["bound_s"] * 1e3
+    result = dict(bound_sm_ms=sm_ms, tensor_sm_ms=b["tensor_s"] * 1e3,
+                  epilogue_sm_ms=b["epilogue_s"] * 1e3, k=k)
     for key, ctas in SM_CTAS:
         rays = (torch.rand((48, ctas * t1.B), generator=gen) * 0.5).to(dev, torch.bfloat16)
         ms = []
@@ -640,9 +657,48 @@ def _t1_visit(dev, k: int = 256, iters=(64, 256)):
             ms.append(_timed(lambda: t1.run_inner(rays, feat, word, n, "epi", k, it), reps=3)[1])
         result[key] = _per_sm((ms[1] - ms[0]) / (iters[1] - iters[0]), ctas)
         print(f"[8 visit per SM] T1 epi: k={k}, {ctas} CTAs: {ms[1]:.3f} ms at {iters[1]} "
-              f"visits, {result[key] * 1e3:.3f} us per visit and SM (bound "
-              f"{sm_ms * 1e3:.3f} us)", flush=True)
+              f"visits, {result[key] * 1e3:.3f} us per visit and SM (bound {sm_ms * 1e3:.3f} "
+              f"us: tensor cores {b['tensor_s'] * 1e6:.3f} us, epilogue "
+              f"{b['epilogue_s'] * 1e6:.3f} us, {b['epilogue_pipe']}, {t1.B * k} tests at "
+              f"{clock / 1e6:.0f} MHz; {result[key] / sm_ms:.2f}x)", flush=True)
     return result
+
+
+def _resources():
+    """Phase 8's record of the T1 / T2 kernels as compiled: registers per
+    thread (the kernel's; its consumer warpgroups raise theirs to 232 with
+    setmaxnreg), spill bytes, shared memory and resident CTAs per SM of each
+    variant, and any ptxas remark that serialises their wgmmas."""
+    from stratum_tpu_torch import tools
+    from stratum_tpu_torch.tools import perf_commit_pipeline as t1
+    from stratum_tpu_torch.tools import perf_epilogue as t2
+    from stratum_tpu_torch.utils import cuda_build
+
+    out = {}
+    for i, v in enumerate(t1.VARIANTS):
+        out[f"T1 {v}"] = tools.kernel_info(1, i)
+    for i, v in enumerate(t2.VARIANTS):
+        out[f"T2 {v}"] = tools.kernel_info(2, i)
+    for name, r in out.items():
+        print(f"[8 resources] {name}: {r['registers']} registers, {r['local_bytes']} spill "
+              f"bytes, {r['static_smem']} + {r['dynamic_smem']} B shared, {r['threads']} "
+              f"threads, {r['ctas_per_sm']} CTA(s) per SM", flush=True)
+    # ptxas's remarks on the wgmma pipelines (C7510-C7520): "serialized"
+    # (the async overlap lost), or a fence / wait it injected
+    remarks, serialised = {}, 0
+    for ln in cuda_build.BUILD_LOG.get("microbench.cu", "").splitlines():
+        code = re.search(r"\((C75\d\d)\)", ln)
+        kernel = re.search(r"(commit_pipeline_kernel|epilogue_kernel)ILi(\d)E(?:Li(\d)E)?(?:Li(\d)E)?",
+                           ln)
+        if code and kernel:
+            key = f"{code.group(1)} {kernel.group(1)}<{','.join(filter(None, kernel.groups()[1:]))}>"
+            remarks[key] = remarks.get(key, 0) + 1
+            serialised += "serialized" in ln
+    print("[8 resources] ptxas wgmma remarks on T1/T2: " + (", ".join(
+        f"{key} x{n}" for key, n in sorted(remarks.items())) or "none")
+        + f"; wgmmas serialised in {serialised}", flush=True)
+    out["ptxas_wgmma_remarks"] = remarks
+    return out
 
 
 def _microbench():
@@ -657,6 +713,19 @@ def _microbench():
     from stratum_tpu_torch.tools import probe_mxu_loop as t3
 
     mods = {"T1": t1, "T2": t2, "T3": t3, "T4": t4}
+    clock = tools.max_sm_clock_hz()
+    # instructions per test by pipe of each T1 / T2 kernel's tile loop, from
+    # the SASS of the library this run built
+    sass = tools.library_sass()
+    ops = {}
+    for tool, mod, parts in ((1, t1, 1), (2, t2, 3)):
+        for i, v in enumerate(mod.VARIANTS):
+            ops[f"T{tool}", v] = o = tools.sass_visit_ops(
+                sass, tools.kernel_info(tool, i)["symbol"], parts)
+            print(f"[8 sass] T{tool} {v}: per test fp32 {o['fp32']:.3f}, alu {o['alu']:.3f}, "
+                  f"mufu {o['mufu']:.3f}, other {o['other']:.3f} (issue "
+                  f"{o['fp32'] + o['alu'] + o['mufu'] + o['other']:.3f}) over {o['tests']:g} "
+                  f"tests a thread on the loop's path", flush=True)
     for m in mods.values():
         for key in m.LAUNCHES:
             m.LAUNCHES[key] = 0
@@ -693,7 +762,7 @@ def _microbench():
 
     word = torch.tensor([1, 0, 3, 1, 0, 1, 1, 2], dtype=torch.int32, device=dev)
     n = torch.tensor([MB_ITERS - 1], dtype=torch.int32, device=dev)
-    for k in (1024, 256):
+    for k in MB_KS:
         for v in t1.VARIANTS:
             for kind in ("int", "normal"):
                 scale = 2.0 ** 58 if v in ("bare", "classify") else 1.0
@@ -716,13 +785,16 @@ def _microbench():
                                  t1.run_inner_plain(rays, feat, word, n, v, k, MB_ITERS)))
         for v in t2.VARIANTS:
             for kind in ("int", "normal"):
-                kk = 512 if k == 1024 else k  # T2's default K is 512
-                slab = vals(kind, (48, 4 * kk)).to(bf16)
+                slab = vals(kind, (48, 4 * k)).to(bf16)
                 rays = vals(kind, (48, 256), nonzero=True).to(bf16)
-                got = t2.run(slab, rays, v, kk, 256, MB_ITERS)
-                want = t2.run_plain(slab, rays, v, kk, 256, MB_ITERS)
-                note("T2", _mb_check(f"T2 {v} k={kk}", kind, got, want,
-                                     t2.REL_TOL * want.abs()))
+                want = t2.run_plain(slab, rays, v, k, 256, MB_ITERS)
+                got = t2.run(slab, rays, v, k, 256, MB_ITERS)
+                tol = None if kind == "int" else t2.tolerance(slab, rays, v, k, MB_ITERS, want)
+                note("T2", _mb_check(f"T2 {v} k={k}", kind, got, want, tol))
+                for lane in t2.past_band(slab, rays, v, k, MB_ITERS, got, want):
+                    print(f"[8 T2 past 2^-12] {lane['line']}", flush=True)
+                    assert lane["cancel"] >= t2.CANCELLING, lane
+    for k in (1024, 256):
         for dep in (False, True):
             for kind in ("int", "normal"):
                 rays = vals(kind, (48, t3.B), nonzero=True).to(bf16)
@@ -756,11 +828,16 @@ def _microbench():
         bytes_ms = nbytes / tools.PEAK_BYTES_S * 1e3
         return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
-    def sm_bound(flops):
-        """Least time of one visit on one SM: its flop at 1/132 of the
-        tensor-core peak (the slabs come from L2, whose rate has no
-        published figure, and are not counted)."""
-        return flops / tools.PEAK_BF16_FLOPS * tools.SMS * 1e3
+    def sm_bound(flops, tests=0, ops=None):
+        """Least time of one visit on one SM: the larger of its flop at
+        1/132 of the tensor-core peak and its epilogue's tests x ``ops``
+        (instructions per test by pipe) on the CUDA cores at the card's
+        maximum SM clock (T3: the flop alone; the slabs come from L2, whose
+        rate has no published figure, and are not counted) -> dict of ms."""
+        b = tools.visit_bound_sm(flops, tests, ops or {}, clock)
+        return dict(ms=b["bound_s"] * 1e3, tensor_ms=b["tensor_s"] * 1e3,
+                    epilogue_ms=b["epilogue_s"] * 1e3, by=b["bound_by"], tests=tests,
+                    pipes_ms={p: x * 1e3 for p, x in b["pipes_s"].items()})
 
     def per_visit(fn, iters):
         return _timed(fn, warmup=False)[1] / iters
@@ -774,7 +851,10 @@ def _microbench():
             flops = 2 * 48 * 4 * k * t1.B
             nbytes = (48 * t1.B * 2 + t1.NL * 48 * 4 * k * 2 + 2 * t1.B * 4) / 2048
             return (run["epi"]["ns_per_commit"] * 1e-6, plain, bound(flops, nbytes),
-                    sm_bound(flops), None, {v: r["ns_per_commit"] for v, r in run.items()})
+                    sm_bound(flops, t1.B * k, ops["T1", "epi"]), None,
+                    {v: dict(ns=r["ns_per_commit"],
+                             bound_sm=sm_bound(flops, t1.B * k, ops["T1", v]))
+                     for v, r in run.items()})
         if name == "T2":
             slab = vals("normal", (48, 4 * k)).to(bf16)
             rays = vals("normal", (48, 128)).to(bf16)
@@ -784,7 +864,10 @@ def _microbench():
             flops = 3 * 2 * 48 * 4 * k * 128  # the f32 product as three bf16 products
             nbytes = (48 * 4 * k * 2 + 48 * 128 * 2 + 128 * 4) / 64
             return (run["full"]["ns_per_exec"] * 1e-6, plain, bound(flops, nbytes),
-                    sm_bound(flops), None, {v: r["ns_per_exec"] for v, r in run.items()})
+                    sm_bound(flops, 128 * k, ops["T2", "full"]), None,
+                    {v: dict(ns=r["ns_per_exec"],
+                             bound_sm=sm_bound(flops, 128 * k, ops["T2", v]))
+                     for v, r in run.items()})
         run = runs["T3" if k == 1024 else "T3 k=256"]
         lo, hi = t3.TRIPS[-2], t3.TRIPS[-1]
         rays = vals("normal", (48, t3.B)).to(bf16)
@@ -814,9 +897,9 @@ def _microbench():
             launches=launches[name], max_abs_err=max(errs[name]),
             max_rel_err=max(rels[name]), equal_share=min(equal[name]), ms=ms, plain_ms=plain,
             bound_ms=b_ms, bound_by=b_by, library_ms=lib, unit=unit,
-            bound_sm_ms=b_sm, extra=extra, k256=dict(
-                ms=ms2, plain_ms=plain2, bound_ms=b2, bound_sm_ms=b2_sm, library_ms=lib2,
-                extra=extra2)))
+            bound_sm_ms=b_sm["ms"], bound_sm=b_sm, extra=extra, k256=dict(
+                ms=ms2, plain_ms=plain2, bound_ms=b2, bound_sm_ms=b2_sm["ms"], bound_sm=b2_sm,
+                library_ms=lib2, extra=extra2)))
     label, c, m, b, _, reps = t4.CASES[0]
     a = vals("normal", (c, m))
     bb = vals("normal", (c, b))
@@ -834,21 +917,39 @@ def _microbench():
         extra={lb: dict(ns_per_pass=r["ns_per_pass"], ctas=r["ctas"])
                for lb, r in runs["T4"].items()}))
     per_sm = entries[0]["visit_per_sm"] = dict(
-        T1=_t1_visit(dev), K1=_k1_visit(dev), K1_real21=_k1_visit(dev, real=21))
+        T1=_t1_visit(dev, clock, ops["T1", "epi"]), K1=_k1_visit(dev),
+        K1_real21=_k1_visit(dev, real=21))
     print("[8 visit per SM] T1 epi / K1 at k=256: " + ", ".join(
         f"{ctas} CTAs {per_sm['T1'][key] / per_sm['K1'][key]:.3f}" for key, ctas in SM_CTAS),
         flush=True)
+
+    def halves(b):
+        if b["tests"] == 0:
+            return f"per-SM bound {b['ms'] * 1e6:.1f} ns (tensor cores)"
+        pipes = ", ".join(f"{p} {x * 1e6:.1f}" for p, x in b["pipes_ms"].items())
+        return (f"per-SM bound {b['ms'] * 1e6:.1f} ns ({b['by']}: tensor cores "
+                f"{b['tensor_ms'] * 1e6:.1f} ns, epilogue {b['epilogue_ms'] * 1e6:.1f} ns; "
+                f"{b['tests']} tests at {clock / 1e6:.0f} MHz, by pipe: {pipes} ns)")
+
     for e in entries:
-        sm = f", per SM {e['bound_sm_ms'] * 1e6:.1f} ns" if "bound_sm_ms" in e else ""
+        sm = f", {halves(e['bound_sm'])}, {e['ms'] / e['bound_sm_ms']:.2f}x" \
+            if "bound_sm" in e else ""
         lib = "none" if e["library_ms"] is None else f"{e['library_ms'] * 1e6:.1f} ns"
         print(f"[8 timing] {e['name']}: {e['ms'] * 1e6:.1f} ns {e['unit']}; bound "
               f"{e['bound_ms'] * 1e6:.2f} ns ({e['bound_by']}){sm}; plain "
               f"{e['plain_ms'] * 1e6:.1f} ns; library {lib}", flush=True)
         if "k256" in e:
             x = e["k256"]
-            print(f"[8 timing]   at k=256: {x['ms'] * 1e6:.1f} ns, per-SM bound "
-                  f"{x['bound_sm_ms'] * 1e6:.1f} ns, plain {x['plain_ms'] * 1e6:.1f} ns",
+            print(f"[8 timing]   at k=256: {x['ms'] * 1e6:.1f} ns, {halves(x['bound_sm'])}, "
+                  f"{x['ms'] / x['bound_sm_ms']:.2f}x; plain {x['plain_ms'] * 1e6:.1f} ns",
                   flush=True)
+        for kk, ex in ((None, e.get("extra", {})), (256, e.get("k256", {}).get("extra", {}))):
+            for v, r in ex.items():
+                if isinstance(r, dict) and "bound_sm" in r:
+                    print(f"[8 timing]   {v}{'' if kk is None else f' at k={kk}'}: "
+                          f"{r['ns']:.1f} ns, {halves(r['bound_sm'])}, "
+                          f"{r['ns'] * 1e-6 / r['bound_sm']['ms']:.2f}x", flush=True)
+    entries[0]["resources"] = _resources()
     return entries
 
 # ---- phases 9-12 -----------------------------------------------------------------
@@ -872,7 +973,7 @@ GOLDENS = {  # tests/update_goldens.py:41-52 (48x48, rr_depth=100)
 FURNACE_REL = 0.04  # sphere mean against albedo x radiance (tests/test_torch_dense_path.py)
 DIRECT_MEAN_REL = 1e-3  # render_direct, auto (mxu) against brute
 DIRECT_PIXEL_SHARE = 0.999
-GPU_TESTS = 12  # tests in tests/test_torch_cuda.py
+GPU_TESTS = 24  # tests in tests/test_torch_cuda.py
 
 
 def _modes_equal(fat, o, d, bound, occluded, gs):
@@ -1465,10 +1566,13 @@ def _gpu_tests():
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider",
-         "tests/test_torch_cuda.py", "-m", "cuda", "-q"],
+         "tests/test_torch_cuda.py", "-m", "cuda", "-q", "-rP"],
         cwd=ROOT, capture_output=True, text=True, timeout=900,
     )
     last = proc.stdout.strip().splitlines()[-1] if proc.stdout.strip() else ""
+    for ln in proc.stdout.splitlines():  # what the passing tests printed (-rP)
+        if ln.startswith("[T2 past 2^-12]"):
+            print(f"[12 gpu tests] {ln}", flush=True)
     print(f"[12 gpu tests] rc {proc.returncode}: {last} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     counts = {k: int(v) for v, k in re.findall(r"(\d+) (passed|failed|skipped|errors?)", last)}

@@ -9,8 +9,8 @@ not in what, they compute:
   float32, which gives the bytes the reference's PNGs hold for the sample
   assets (tests/test_torch_colonnade.py);
 - :func:`load_image` decodes PNG with :func:`read_png` and widens it to
-  RGBA as the reference's PIL path (``convert("RGBA")``) does; the port
-  imports no PIL.
+  RGBA as the reference's PIL path (``convert("RGBA")``) does, without
+  PIL.
 """
 
 from __future__ import annotations

@@ -65,9 +65,9 @@ class TextureStack(NamedTuple):
 
 
 def _area_resample(img: np.ndarray, res: int) -> np.ndarray:
-    """[H, W, C] -> [res, res, 4] float32 by nearest rows and columns (the
-    reference's numpy branch; an image already ``res`` square is kept as
-    it is, as every resampler keeps it)."""
+    """[H, W, C] -> [res, res, 4] float32, as the reference resamples: each
+    channel by PIL's LANCZOS in mode ``F`` where PIL imports, else by
+    nearest rows and columns. PIL is optional and imported here only."""
     img = np.asarray(img, np.float32)
     if img.ndim == 2:
         img = img[..., None]
@@ -75,9 +75,19 @@ def _area_resample(img: np.ndarray, res: int) -> np.ndarray:
         img = np.repeat(img, 3, axis=-1)
     if img.shape[-1] == 3:
         img = np.concatenate([img, np.ones_like(img[..., :1])], axis=-1)
-    ys = np.linspace(0, img.shape[0] - 1, res).astype(np.int32)
-    xs = np.linspace(0, img.shape[1] - 1, res).astype(np.int32)
-    return img[ys][:, xs]
+    try:
+        from PIL import Image
+
+        chans = [
+            np.asarray(Image.fromarray(img[..., c]).resize((res, res), Image.LANCZOS),
+                       np.float32)
+            for c in range(4)
+        ]
+        return np.stack(chans, axis=-1)
+    except Exception:
+        ys = np.linspace(0, img.shape[0] - 1, res).astype(np.int32)
+        xs = np.linspace(0, img.shape[1] - 1, res).astype(np.int32)
+        return img[ys][:, xs]
 
 
 def _downsample2(level: np.ndarray) -> np.ndarray:

@@ -18,7 +18,10 @@ on the CPU (for tests and rehearsal; the times it prints are the CPU's).
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import re
+import shutil
 import subprocess
 import time
 
@@ -30,11 +33,46 @@ import torch
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 SMS = 132
+# Thread instructions an SM completes per clock, by pipe (CUDA C++
+# Programming Guide, throughput of arithmetic instructions at compute
+# capability 9.0): every instruction issues at one warp instruction per
+# scheduler and clock (four schedulers), the FP32 pipe (FFMA, FMUL, FADD)
+# runs at that rate, the integer, logic, compare, min / max and select pipe
+# at half of it, the multifunction unit (MUFU: rcp, ex2, ...) at an eighth
+PIPE_RATES = {"issue": 128, "fp32": 128, "alu": 64, "mufu": 16}
 # Where two f32 sums of the same products are taken in other orders, each of
 # their n additions may round the partial sum by up to one ulp (tensor cores
 # may truncate instead of rounding to nearest), on both sides: the absolute
 # difference stays below SUM_ULPS * n * (sum of the products' magnitudes).
 SUM_ULPS = 2 * 2.0 ** -23
+
+
+def visit_bound_sm(flops: float, tests: int, ops: dict, clock_hz: float) -> dict:
+    """Least time (s) of one visit on one SM: the larger of its tensor-core
+    product (``flops`` at 1/132 of the bf16 peak) and its epilogue on the
+    CUDA cores: ``tests`` (lane, row) tests, each of ``ops`` instructions
+    by pipe ({"fp32", "alu", "mufu", "other"}; absent keys are 0, others
+    are not read), the longest of the pipes' times at PIPE_RATES per clock
+    of ``clock_hz``, where "issue" counts every instruction. Both halves
+    are returned, with each pipe's time, beside the bound and what sets it."""
+    tensor = flops / PEAK_BF16_FLOPS * SMS
+    n = {p: ops.get(p, 0) for p in ("fp32", "alu", "mufu", "other")}
+    n["issue"] = sum(n.values())
+    pipes = {p: tests * n[p] / (PIPE_RATES[p] * clock_hz) for p in PIPE_RATES}
+    pipe = max(pipes, key=pipes.get)
+    cuda = pipes[pipe]
+    return dict(tensor_s=tensor, epilogue_s=cuda, pipes_s=pipes, epilogue_pipe=pipe,
+                bound_s=max(tensor, cuda),
+                bound_by=f"epilogue ({pipe})" if cuda > tensor else "product")
+
+
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock as nvidia-smi reports it (Hz)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    return float(out) * 1e6
 
 
 def from_numpy(x: np.ndarray, device, dtype=None) -> torch.Tensor:
@@ -115,8 +153,99 @@ def lib() -> ctypes.CDLL:
             f = getattr(so, fn)
             f.argtypes = [ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints + [ctypes.c_void_p]
             f.restype = ctypes.c_int
+        so.mb_info.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        so.mb_info.restype = ctypes.c_int
+        so.mb_kernel_name.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_char_p)]
+        so.mb_kernel_name.restype = ctypes.c_int
         so._stratum_bound = True
     return so
+
+
+def kernel_info(tool: int, variant: int) -> dict:
+    """T1's (``tool`` 1) or T2's (2) compiled kernel of a variant (its index
+    in the tool's VARIANTS): registers per thread, static and dynamic shared
+    memory (bytes), resident CTAs per SM, local (spill) bytes per thread,
+    threads per CTA, and its symbol."""
+    out = (ctypes.c_int * 6)()
+    rc = lib().mb_info(tool, variant, out)
+    name = ctypes.c_char_p()
+    rc = rc or lib().mb_kernel_name(tool, variant, ctypes.byref(name))
+    if rc != 0:
+        raise RuntimeError(f"mb_info failed: cudaError {rc}")
+    return dict(zip(("registers", "static_smem", "dynamic_smem", "ctas_per_sm", "local_bytes",
+                     "threads"), out), symbol=name.value.decode())
+
+
+def library_sass() -> str:
+    """``cuobjdump -sass`` of the built ``csrc/microbench.cu``."""
+    from stratum_tpu_torch.utils import cuda_build
+
+    lib()
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([tool, "-sass", str(cuda_build.library_path("microbench"))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+
+
+# SASS opcodes (before the first ".") of the CUDA-core pipes of
+# PIPE_RATES; every other instruction (tensor cores, the uniform datapath,
+# memory, barriers, branches) takes an issue slot only
+SASS_PIPES = {
+    "fp32": ("FADD", "FMUL", "FFMA", "FADD32I", "FMUL32I", "FFMA32I"),
+    "mufu": ("MUFU",),
+    "alu": ("FSETP", "FSEL", "FMNMX", "FCHK", "ISETP", "IADD3", "VIADD", "IMAD", "LEA", "LOP3",
+            "PLOP3", "SEL", "SHF", "MOV", "PRMT", "P2R", "R2P", "VIMNMX", "VIADDMNMX", "IMNMX"),
+}
+_SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]\s+)?([A-Za-z0-9_.]+)([^;]*);")
+
+
+def sass_visit_ops(sass: str, symbol: str, parts: int) -> dict:
+    """Instructions per (lane, row) test, by pipe, of one tile visit of a
+    T1 / T2 kernel, counted from its SASS (``cuobjdump -sass``): the
+    innermost loop that issues wgmmas (HGMMA), walked from its head to its
+    back branch along the path a tile takes (a conditional forward branch
+    falls through, unless the block it falls into holds the division's
+    range check or slow-path call, FCHK / CALL, which only operands out of
+    the fast path's range take); every instruction once. The tests on that
+    path follow from its HGMMAs: an m64nNk16 covers 64 x N x 16 products, a
+    test needs 4 bands x 48 x ``parts`` (T2's three bf16 parts) of them, over
+    a warpgroup's 128 threads -> {"fp32", "alu", "mufu", "other"} per test,
+    and "tests" per thread on the path."""
+    body = sass.split("Function : " + symbol + "\n", 1)[1].split("Function : ", 1)[0]
+    ins = []
+    for m in _SASS_LINE.finditer(body):
+        op = m.group(3)
+        target = re.search(r"0x([0-9a-f]+)", m.group(4)) if op.startswith("BRA") else None
+        ins.append((int(m.group(1), 16), bool(m.group(2)), op,
+                    int(target.group(1), 16) if target else None))
+    at = {a: i for i, (a, *_) in enumerate(ins)}
+    mma = [a for a, _, op, _ in ins if op.startswith("HGMMA")]
+    head, back = min(((t, a) for a, _, op, t in ins
+                      if t is not None and t <= a and any(t <= h <= a for h in mma)),
+                     key=lambda loop: loop[1] - loop[0])
+    i, path = at[head], []
+    while True:
+        a, cond, op, t = ins[i]
+        path.append(op)
+        assert len(path) <= len(ins), symbol
+        if a == back:
+            break
+        if t is not None and not cond:
+            i = at[t]
+            continue
+        if t is not None and a < t <= back:
+            j = i + 1
+            while ins[j][3] is None and ins[j][0] < t and not ins[j][2].startswith(("FCHK", "CALL")):
+                j += 1
+            if ins[j][2].startswith(("FCHK", "CALL")):
+                i = at[t]
+                continue
+        i += 1
+    count = collections.Counter(op.split(".")[0] for op in path)
+    tests = sum(64 * int(re.match(r"HGMMA\.64x(\d+)x16", op).group(1)) * 16
+                for op in path if op.startswith("HGMMA")) / (4 * 48 * parts * 128)
+    ops = {pipe: sum(count[o] for o in names) / tests for pipe, names in SASS_PIPES.items()}
+    ops["other"] = len(path) / tests - sum(ops.values())
+    return dict(ops, tests=tests)
 
 
 def launch(fn: str, ptrs, ints, device: torch.device) -> None:

@@ -15,8 +15,11 @@ commit) and ``ring`` (the deferred-merge commit). The output is ``[2, 128]``
 f32: ``best + acc[0]`` and the slot.
 
 On the card the visit is ``csrc/microbench.cu``'s commit-pipeline kernel:
-one CTA, one warp per 16 lanes (``epi_x2``: per 32 lanes), the slab
-streamed through shared memory in 64-row tiles. ``run_inner`` also takes
+one CTA, two warpgroups of 64 lanes on wgmma, the slab streamed through a
+TMA ring of 32-row tiles by a producer warpgroup. ``epi_x2`` runs two such
+128-lane commits back to back, each its own pass over the slab;
+``epi_w256`` one commit of warpgroups of 128 lanes on 16-row tiles, each
+tile streamed once for all 256. ``run_inner`` also takes
 the lanes of several independent CTAs side by side, which times a visit
 per SM with the card full (the tool itself runs one). ``python3 -m
 stratum_tpu_torch.tools.perf_commit_pipeline [--iters=2048]

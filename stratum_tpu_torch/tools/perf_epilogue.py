@@ -21,7 +21,8 @@ accumulator. Where the rays are bf16 values of magnitude >= 2^-8 the
 perturbation rounds away and mid = lo = 0.
 
 On the card the execs run in ``csrc/microbench.cu``'s epilogue kernel: one
-CTA per 128 lanes, one warp per 16 lanes. ``python3 -m
+CTA per 128 lanes (two warpgroups of 64, the three products wgmma), the
+slab streamed through a TMA ring of 32-row tiles on every exec. ``python3 -m
 stratum_tpu_torch.tools.perf_epilogue [--k=512] [--sw=128] [--iters=64]
 [--reps=20] [--cpu]`` prints ns per exec of each variant.
 """
@@ -41,8 +42,8 @@ VARIANTS = ("none", "classify", "nodiv", "full", "fused")
 LANES = 128  # lanes per CTA of the kernel
 # |best| between two runs that sum the products in other orders, relative:
 # the packed argmin's 2^-13 band, doubled for the f32 sums of a
-# well-conditioned winner (~1e-6 relative); a winner whose determinant
-# nearly cancels, or that sits on a validity edge, can exceed it
+# well-conditioned winner (~1e-6 relative). A winner whose sums cancel past
+# CANCELLING can exceed it: the checks hold each lane to :func:`tolerance`
 REL_TOL = 2.0 ** -12
 
 LAUNCHES = {"epilogue": 0}
@@ -88,6 +89,112 @@ def run_plain(slab, rays, variant: str, k: int, sw: int, iters: int) -> torch.Te
         else:
             raise ValueError(variant)
     return best[None]
+
+
+def tolerance(slab, rays, variant: str, k: int, iters: int, want: torch.Tensor) -> torch.Tensor:
+    """Per-lane bound on |best| of two runs that sum each candidate's 48
+    products in other orders (``want``: [1, sw], one of them). Each sum may
+    differ by SUM_ULPS x 48 x the sum of its terms' magnitudes; carried into
+    the value the variant minimises (a; stn; stn |a|; stn / |a|) that is the
+    candidate's error. Over every candidate (exec, row) that may be valid on
+    either side (each accept condition held within its sums' errors, the
+    closer-than-best test left out) and whose value may reach the lane's
+    best, the bound is the largest error plus, where the minimum is packed,
+    the packed argmin's band (2^-13 of the value on each side)."""
+    u_sum = tools.SUM_ULPS * mt.C
+    s = slab.double()
+    bound = torch.zeros_like(want, dtype=torch.float64)
+    best = want.double().abs()
+    for i in range(iters):
+        r = (rays.float() + float(np.float32(i) * np.float32(1e-9))).double()
+        a, u, v, t = (x.T @ r for x in s.chunk(4, dim=1))
+        ea, eu, ev, et = (u_sum * (x.abs().T @ r.abs()) for x in s.chunk(4, dim=1))
+        sgn = torch.sign(a)
+        abs_a, su, sv, stn = a.abs(), u * sgn, v * sgn, t * sgn
+        maybe = ((abs_a + ea > 1e-12) & (su + eu >= 0) & (sv + ev >= 0)
+                 & (su + sv - eu - ev <= abs_a + ea) & (stn + et > 1e-4 * (abs_a - ea)))
+        if variant == "none":
+            val, err, maybe = a, ea, torch.ones_like(maybe)
+        elif variant == "classify":
+            val, err = stn, et
+        elif variant == "nodiv":
+            val, err = stn * abs_a, et * abs_a + stn.abs() * ea
+        else:
+            val = stn / abs_a
+            err = (et + val.abs() * ea) / abs_a
+        band = 0.0 if variant in ("none", "classify") else 2.0 ** -12 * val.abs()
+        reach = maybe & (val - err - band <= best + 2.0 ** -12 * best)
+        bound = torch.maximum(bound, torch.where(reach, err + band, 0.0).amax(dim=0, keepdim=True))
+    return bound
+
+
+# Where an f32 run sums a candidate's 48 products whose magnitudes add to c
+# times the sum's own, its value moves by up to SUM_ULPS x 48 x c relative:
+# past REL_TOL's 2^-12 once c exceeds this (about 10.7)
+CANCELLING = 2.0 ** -12 / (tools.SUM_ULPS * mt.C)
+
+
+def witness(slab, rays, variant: str, k: int, iters: int) -> dict:
+    """The variant run in float64, products exact: per lane ([sw] tensors)
+    its best (the least value over valid candidates; every candidate for
+    ``none``), the exec and row of the candidate that gives it, that
+    candidate's |a|, and how far its sums cancel: ``cancel_a`` and
+    ``cancel_t``, the sum of the magnitudes of its 48 a (t_num) products
+    over the magnitude of their sum (1 where nothing cancels; past
+    CANCELLING the f32 sums may move its value beyond REL_TOL)."""
+    s = slab.double()
+    sw = rays.shape[1]
+    di = [float(np.float32(i) * np.float32(1e-9)) for i in range(iters)]
+    best = torch.full((sw,), float("inf"), dtype=torch.float64, device=slab.device)
+    exe = torch.zeros(sw, dtype=torch.long, device=slab.device)
+    row = torch.zeros(sw, dtype=torch.long, device=slab.device)
+    for i in range(iters):
+        r = (rays.float() + di[i]).double()
+        a, u, v, t = (x.T @ r for x in s.chunk(4, dim=1))
+        sgn = torch.sign(a)
+        abs_a, su, sv, stn = a.abs(), u * sgn, v * sgn, t * sgn
+        if variant == "none":
+            val = a
+        else:
+            valid = ((abs_a > 1e-12) & (su >= 0) & (sv >= 0) & (su + sv <= abs_a)
+                     & (stn > 1e-4 * abs_a))
+            val = {"classify": stn, "nodiv": stn * abs_a}.get(
+                variant, stn / abs_a.clamp(min=1e-300))
+            val = torch.where(valid, val, float("inf"))
+        m, at = val.min(dim=0)
+        closer = m < best
+        best = torch.where(closer, m, best)
+        exe = torch.where(closer, i, exe)
+        row = torch.where(closer, at, row)
+    r = (rays.float() + torch.tensor(di, device=slab.device)[exe]).double()
+    terms_a = s[:, row] * r
+    terms_t = s[:, 3 * k + row] * r
+    abs_a = terms_a.sum(dim=0).abs()
+    return dict(best=best, exec=exe, row=row, abs_a=abs_a,
+                cancel_a=terms_a.abs().sum(dim=0) / abs_a,
+                cancel_t=terms_t.abs().sum(dim=0) / terms_t.sum(dim=0).abs())
+
+
+def past_band(slab, rays, variant: str, k: int, iters: int, got, want) -> list:
+    """The lanes where two runs (``got``, ``want``: [1, sw]) differ by more
+    than REL_TOL of the value, each beside the float64 run's winner
+    (:func:`witness`) -> [dict(lane, cancel, line)]: ``cancel`` the larger of
+    the winner's two cancellations, ``line`` all of it in words."""
+    g, w = got[0].double(), want[0].double()
+    past = (g != w) & ((g - w).abs() > REL_TOL * w.abs())
+    if not bool(past.any()):
+        return []
+    wit = witness(slab, rays, variant, k, iters)
+    out = []
+    for lane in past.nonzero().flatten().tolist():
+        ca, ct = float(wit["cancel_a"][lane]), float(wit["cancel_t"][lane])
+        out.append(dict(lane=lane, cancel=max(ca, ct), line=(
+            f"{variant} k={k} lane {lane}: {float(g[lane]):.9e} against {float(w[lane]):.9e} "
+            f"({float((g[lane] - w[lane]).abs() / w[lane].abs()):.3e} relative), float64 "
+            f"{float(wit['best'][lane]):.9e}; its winner exec {int(wit['exec'][lane])}, row "
+            f"{int(wit['row'][lane])}, |a| {float(wit['abs_a'][lane]):.4e}, a sums cancel "
+            f"{ca:.1f}x, t_num {ct:.1f}x")))
+    return out
 
 
 def main(argv=None) -> dict:

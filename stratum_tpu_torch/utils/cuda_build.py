@@ -68,7 +68,7 @@ def build(source: str, compiler: Callable[[], str], flags, key: bytes = b"") -> 
                 raise RuntimeError(
                     f"{Path(cmd[0]).name} failed for {source}:\n{proc.stdout}\n{proc.stderr}"
                 )
-            BUILD_LOG[source] = proc.stderr
+            BUILD_LOG[source] = proc.stdout + proc.stderr
             os.replace(tmp, out)
         finally:
             if os.path.exists(tmp):

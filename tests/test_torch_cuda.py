@@ -16,7 +16,8 @@ differ on a tie), t within 1e-3 relative where the slots agree (the
 Plucker sums of a short hit from a far origin round apart); lists, the two
 list modes, the emission's count and slots and the tiled emission bit for
 bit; T1-T4 on small-integer inputs bit for bit (every product and sum is
-exact); the dense tracer's product against float64 within 1e-5 of its
+exact), T1 and T2 also at k from 8 to 1,024 and on normal values within
+their tools' bounds; the dense tracer's product against float64 within 1e-5 of its
 magnitude (TF32 would lose 1e-3), and its render within test_torch_slice's
 bounds of the CPU render; texture samples within 1e-6 of the CPU's, and a
 textured colonnade render through K1/K2 within test_torch_slice's bounds of
@@ -227,6 +228,89 @@ def test_microbench_kernels_match_plain(dev):
         b = torch.from_numpy(np.abs(_values(rng, "int", (c, 64)))).to(dev)
         got = bench_mxu_model.run(a, b, iters, passes, reps)
         assert torch.equal(got, bench_mxu_model.run_plain(a, b, iters, passes, reps))
+
+
+# rows of a visit: below, at and past one 32-row tile, not a whole number of
+# tiles (72), and up to the packed argmin's 1,024 rows
+VISIT_KS = (8, 16, 72, 256, 512, 1024)
+VISITS = 6
+# least share of equal outputs on the normal sets. T1's best + acc[0] is
+# quantised by the packed argmin's 2^-13 band (least measured on the H100:
+# 0.945); T2's best is the f32 minimum itself, of sums taken in another
+# order (least measured: 0.332, the none variant)
+T1_EQUAL = 0.9
+T2_EQUAL = 0.25
+
+
+def _share_equal(got, want, tol, name):
+    """|got - want| <= tol on every output (equal values, inf included,
+    differ by 0) -> the share of outputs that are equal."""
+    diff = torch.where(got == want, 0.0, (got.double() - want.double()).abs())
+    assert bool((diff <= tol).all()), (name, float((diff / tol).max()))
+    return float((diff == 0).double().mean())
+
+
+@pytest.mark.parametrize("k", VISIT_KS)
+def test_commit_pipeline_kernel_at_k(dev, k):
+    """T1 (wgmma products on a TMA ring of slab tiles) against its plain
+    version at k rows, every variant (bare and classify scaled by 2^58, so
+    that acc[0] shows beside best's 3e38): small integers bit for bit on one
+    CTA and on three independent CTAs; standard normal values every lane's
+    row 0 within perf_commit_pipeline.tolerance (the f32 sums in another
+    order, the packed argmin's band), at least T1_EQUAL of it equal."""
+    t1 = perf_commit_pipeline
+    rng = np.random.default_rng(k)
+    word = torch.tensor([1, 0, 3, 1, 0, 1, 1, 2], dtype=torch.int32, device=dev)
+    n = torch.tensor([VISITS - 1], dtype=torch.int32, device=dev)
+    for v in t1.VARIANTS:
+        lanes = t1.lanes_of(v)
+        scale = 2.0 ** 58 if v in ("bare", "classify") else 1.0
+        for ctas in (1, 3):
+            rays = torch.from_numpy(_values(rng, "int", (48, ctas * lanes)) * scale).to(
+                dev, torch.bfloat16)
+            feat = torch.from_numpy(_values(rng, "int", (4, 48, 4 * k)) * scale).to(
+                dev, torch.bfloat16)
+            got = t1.run_inner(rays, feat, word, n, v, k, VISITS)
+            want = t1.run_inner_plain(rays, feat, word, n, v, k, VISITS)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (v, k, ctas)
+        rays = torch.from_numpy(_values(rng, "normal", (48, lanes)) * scale).to(dev, torch.bfloat16)
+        feat = torch.from_numpy(_values(rng, "normal", (4, 48, 4 * k)) * scale).to(
+            dev, torch.bfloat16)
+        got = t1.run_inner(rays, feat, word, n, v, k, VISITS)
+        want = t1.run_inner_plain(rays, feat, word, n, v, k, VISITS)
+        tol = t1.tolerance(rays, feat, k, VISITS, v, want)
+        assert _share_equal(got[0], want[0], tol, (v, k)) >= T1_EQUAL, (v, k)
+
+
+@pytest.mark.parametrize("k", VISIT_KS)
+def test_epilogue_kernel_at_k(dev, k):
+    """T2 (three wgmma products of the f32 rays' bf16 parts, the slab
+    streamed through the TMA ring) against its plain version at k rows,
+    every variant, 256 lanes (two CTAs): small nonzero integers bit for bit;
+    standard normal values every lane's best within perf_epilogue.tolerance
+    (the f32 sums of every candidate that may reach the best, SUM_ULPS per
+    term, and the packed argmin's band), at least T2_EQUAL equal, and every
+    lane past REL_TOL of its value shown (run with -rP) beside the float64
+    run's winner, whose a or t_num sums must cancel past CANCELLING."""
+    t2 = perf_epilogue
+    rng = np.random.default_rng(100 + k)
+    for v in t2.VARIANTS:
+        for kind in ("int", "normal"):
+            slab = torch.from_numpy(_values(rng, kind, (48, 4 * k))).to(dev, torch.bfloat16)
+            rays = torch.from_numpy(_values(rng, kind, (48, 256), nonzero=True)).to(
+                dev, torch.bfloat16)
+            want = t2.run_plain(slab, rays, v, k, 256, VISITS)
+            got = t2.run(slab, rays, v, k, 256, VISITS)
+            if kind == "int":
+                assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (v, k)
+            else:
+                tol = t2.tolerance(slab, rays, v, k, VISITS, want)
+                share = _share_equal(got, want, tol, (v, k))
+                assert share >= T2_EQUAL, (v, k, share)
+                # a lane past 2^-12 of its value is a winner whose sums cancel
+                for lane in t2.past_band(slab, rays, v, k, VISITS, got, want):
+                    print(f"[T2 past 2^-12] {lane['line']}")
+                    assert lane["cancel"] >= t2.CANCELLING, lane["line"]
 
 
 def test_dense_tracer_on_the_card(dev):

@@ -366,3 +366,129 @@ def test_tools_refuse_a_cpu_default_without_a_card():
     assert tools.device_of(Options(["--cpu"])).type == "cpu"
     with pytest.raises(ValueError):
         tools.check(torch.zeros(4), "x", torch.float32, (4,))
+
+
+@pytest.mark.parametrize("flops, tests, ops, clock, tensor_us, epilogue_us, by", [
+    # T1 epi at k = 1024: 2 x 48 x 4096 x 128 flop; 128 x 1024 tests of
+    # 14 fp32 + 12.84375 alu + 6.5 other instructions at 1.98 GHz: issue
+    # 131,072 x 33.34375 / (128 x 1.98e9) s, alu 131,072 x 12.84375 / 64 / ...
+    (50_331_648, 131_072, dict(fp32=14, alu=12.84375, other=6.5), 1.98e9, 6.717672,
+     17.244444, "epilogue (issue)"),
+    # T2 at K = 512: three products of 2 x 48 x 2048 x 128 flop; a short epilogue
+    (75_497_472, 65_536, dict(alu=2, other=8), 1.98e9, 10.076508, 2.585859, "product"),
+    # mostly compares: alu 10 / 64 over issue 12 / 128
+    (12_582_912, 32_768, dict(fp32=2, alu=10), 1.98e9, 1.679418, 2.585859, "epilogue (alu)"),
+    # the multifunction unit: 2 / 16 over issue 3 / 128
+    (12_582_912, 32_768, dict(mufu=2, other=1), 1.98e9, 1.679418, 2.068687, "epilogue (mufu)"),
+    # no epilogue work; then half the clock doubles the epilogue's time
+    (12_582_912, 32_768, {}, 1.98e9, 1.679418, 0.0, "product"),
+    (50_331_648, 131_072, dict(fp32=14, alu=12.84375, other=6.5), 0.99e9, 6.717672,
+     34.488889, "epilogue (issue)"),
+])
+def test_visit_bound_sm_counts_the_epilogue(flops, tests, ops, clock, tensor_us, epilogue_us,
+                                            by):
+    """The per-SM bound of a visit is the larger of the tensor-core time
+    (flop at 989 / 132 TFLOP/s) and the epilogue's CUDA-core time, the
+    longest of its pipes (every instruction issued at 128 a clock, fp32 at
+    128, alu at 64, mufu at 16), both halves and every pipe returned:
+    hand-counted cases."""
+    b = tools.visit_bound_sm(flops, tests, ops, clock)
+    assert b["tensor_s"] * 1e6 == pytest.approx(tensor_us, rel=1e-6)
+    assert b["epilogue_s"] * 1e6 == pytest.approx(epilogue_us, rel=1e-6, abs=1e-12)
+    assert b["epilogue_s"] == max(b["pipes_s"].values())
+    assert b["bound_s"] == max(b["tensor_s"], b["epilogue_s"]) and b["bound_by"] == by
+
+
+def _sass(symbol, lines):
+    """A cuobjdump -sass listing of one function: ``lines`` of "label:" or
+    instructions, branches naming a label, at 16-byte addresses."""
+    at, addr = {}, 0
+    for ln in lines:
+        if ln.endswith(":"):
+            at[ln[:-1]] = addr
+        else:
+            addr += 16
+    out, addr = [f"\t\tFunction : {symbol}", "\t.headerflags\t@\"EF_CUDA_SM90\""], 0
+    for ln in lines:
+        if ln.endswith(":"):
+            continue
+        for name, a in at.items():
+            ln = ln.replace(f"<{name}>", hex(a))
+        out.append(f"        /*{addr:04x}*/                   {ln} ;   /* 0x0000000000000000 */")
+        out.append("                                                   /* 0x0000000000000000 */")
+        addr += 16
+    return "\n".join(out) + "\n"
+
+
+# one tile of a T1-like loop (MT = 1): 12 HGMMA.64x32x16 (16 tests a thread);
+# per test 2 fp32 + 1 alu in the epilogue
+_TILE = ["HGMMA.64x32x16.F32.BF16 R24, R88, gdesc[UR4].tnspB, R24"] * 12 + [
+    "FMUL R1, R2, R3", "FADD R1, R2, R3", "FSETP.GT.AND P0, PT, R1, R2, PT"] * 16
+
+
+@pytest.mark.parametrize("name, lines, parts, want", [
+    # the loop's path: a spin wait (a loop without wgmma), the tile, the
+    # back branch; the prologue's HGMMA and the epilogue after are not read
+    ("plain", ["HGMMA.64x32x16.F32.BF16 R24, R88, gdesc[UR4].tnspB, RZ", "head:",
+               "SYNCS.PHASECHK.TRANS64.TRYWAIT P0, [UR8], R3", "spin:",
+               "@!P0 BRA <spin>"] + _TILE + ["ISETP.NE.AND P1, PT, R4, R5, PT",
+                                             "@P1 BRA <head>", "MUFU.RCP R1, R2", "EXIT"],
+     1, dict(fp32=2, alu=1 + 1 / 16, mufu=0, other=(12 + 3) / 16, tests=16)),
+    # a forward branch over the tail's copy is not taken; one over a block
+    # that opens with FCHK (the division's exact redo) is; an unconditional
+    # branch is followed
+    ("redo", ["head:"] + _TILE + ["@P0 BRA <tail>", "MUFU.RCP R1, R2", "@!P2 BRA <done>",
+                                  "FCHK P1, R1, R2", "MUFU.RCP R1, R2", "FFMA R1, R2, R3, R4",
+                                  "done:", "BRA <end>", "tail:", "FMUL R1, R2, R3", "end:",
+                                  "@P1 BRA <head>", "EXIT"],
+     3, dict(fp32=2 * 3, alu=1 * 3, mufu=3 / 16, other=(12 + 4) * 3 / 16, tests=16 / 3)),
+])
+def test_sass_visit_ops_walks_the_tile_loop(name, lines, parts, want):
+    """tools.sass_visit_ops on hand-made listings: the innermost loop that
+    issues wgmmas, walked along a tile's path, instructions per test by
+    pipe, the tests from the HGMMAs' shape and ``parts``."""
+    symbol = f"_Z6kernel_{name}"
+    sass = _sass("_Z5other", ["FADD R1, R2, R3", "EXIT"]) + _sass(symbol, lines)
+    got = tools.sass_visit_ops(sass, symbol, parts)
+    assert got == pytest.approx(want)
+
+
+@pytest.mark.parametrize("variant", perf_epilogue.VARIANTS)
+@pytest.mark.parametrize("kind", ["int", "normal"])
+def test_epilogue_witness_agrees_with_plain(variant, kind):
+    """perf_epilogue.witness, the float64 run that names each lane's winning
+    candidate: its best agrees with the plain version's f32 best within
+    perf_epilogue.tolerance (exactly on the integer set where no argmin is
+    packed), the winner is valid (|a| > 1e-12), and its sums' cancellation
+    is at least 1 (the sum of magnitudes over the magnitude of the sum);
+    perf_epilogue.past_band names a lane moved past REL_TOL, and no other."""
+    k, sw, iters = 24, 64, 3
+    rng = np.random.default_rng(24)
+    if kind == "int":
+        slab = rng.integers(-3, 4, (48, 4 * k))
+        rays = rng.choice([-3.0, -2.0, -1.0, 1.0, 2.0, 3.0], (48, sw))
+    else:
+        slab, rays = rng.standard_normal((48, 4 * k)), rng.standard_normal((48, sw))
+    slab = torch.from_numpy(slab.astype(np.float32)).to(torch.bfloat16)
+    rays = torch.from_numpy(rays.astype(np.float32)).to(torch.bfloat16)
+    want = perf_epilogue.run_plain(slab, rays, variant, k, sw, iters)[0].double()
+    w = perf_epilogue.witness(slab, rays, variant, k, iters)
+    found = torch.isfinite(w["best"])
+    assert bool(found.any())
+    assert bool((want[~found] == float(np.float32(mt_commit.T_INIT))).all())
+    tol = perf_epilogue.tolerance(slab, rays, variant, k, iters, want[None].float())[0]
+    diff = (want - w["best"])[found].abs()
+    if kind == "int" and variant in ("none", "classify"):
+        assert bool((diff == 0).all())
+    assert bool((diff <= tol[found]).all()), float((diff / tol[found]).max())
+    if variant != "none":
+        assert bool((w["abs_a"][found] > 1e-12).all())
+    assert bool((w["cancel_a"][found] >= 1 - 1e-12).all())
+    assert bool((w["cancel_t"][found] >= 1 - 1e-12).all())
+    # past_band names the lanes two runs put more than REL_TOL apart
+    lane = int(found.nonzero()[0])
+    got = want.float()[None].clone()
+    assert perf_epilogue.past_band(slab, rays, variant, k, iters, got, want.float()[None]) == []
+    got[0, lane] *= 1 + 4 * perf_epilogue.REL_TOL
+    (entry,) = perf_epilogue.past_band(slab, rays, variant, k, iters, got, want.float()[None])
+    assert entry["lane"] == lane and entry["cancel"] >= 1 - 1e-12

@@ -85,21 +85,41 @@ def test_linear_to_srgb_matches_reference():
     assert diff.max() <= 1 and (diff > 0).mean() <= 1e-4
 
 
-@pytest.mark.parametrize("res", [16, 8])
-def test_texture_stack_bit_for_bit(monkeypatch, res):
-    """flat and quad atlases equal bit for bit; at res 8 the sources are
-    resampled (the reference's numpy branch: its PIL path is a different
-    filter the port does not carry)."""
-    monkeypatch.setitem(sys.modules, "PIL", None)
-    imgs = _images(np.random.default_rng(1))
-    js = jtex.build_texture_stack(imgs, res=res)
-    ps = ptex.build_texture_stack(imgs, res=res)
+def _assert_stacks_equal(js, ps):
     assert (ps.base_res, ps.num_levels, ps.num_tex) == (js.base_res, js.num_levels, js.num_tex)
     assert ps.level_offsets() == js.level_offsets()
     np.testing.assert_array_equal(ps.flat.view(np.uint16), np.asarray(js.flat).view(np.uint16))
     np.testing.assert_array_equal(ps.quad.view(np.uint16), np.asarray(js.quad).view(np.uint16))
+
+
+@pytest.mark.parametrize("res", [16, 8])
+def test_texture_stack_bit_for_bit(monkeypatch, res):
+    """flat and quad atlases equal bit for bit without PIL; at res 8 the
+    sources are resampled by both packages' nearest-rows branch."""
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    imgs = _images(np.random.default_rng(1))
+    _assert_stacks_equal(jtex.build_texture_stack(imgs, res=res),
+                         ptex.build_texture_stack(imgs, res=res))
     empty = ptex.build_texture_stack([])
     assert empty.resolution == 1 and empty.flat.shape == (1, 4)
+
+
+@pytest.mark.parametrize("shapes", [((16, 16), (13, 21), (5, 7)), ((8, 8), (9, 30), (40, 3))])
+def test_texture_stack_resampled_with_pil(shapes):
+    """With PIL importable both packages resample each channel by PIL's
+    LANCZOS (mode F): at res 8, from sources of other sizes (down and up,
+    square or not, RGB, RGBA and grey), the atlases are equal bit for
+    bit."""
+    pytest.importorskip("PIL")
+    rng = np.random.default_rng(11)
+    imgs = [rng.random(shapes[0] + (3,), dtype=np.float32),
+            rng.random(shapes[1] + (4,), dtype=np.float32),
+            rng.random(shapes[2], dtype=np.float32)]
+    ps = ptex.build_texture_stack(imgs, res=8)
+    _assert_stacks_equal(jtex.build_texture_stack(imgs, res=8), ps)
+    nearest = [im[np.linspace(0, im.shape[0] - 1, 8).astype(np.int32)]
+               [:, np.linspace(0, im.shape[1] - 1, 8).astype(np.int32)] for im in imgs]
+    assert not np.array_equal(ps.flat, ptex.build_texture_stack(nearest, res=8).flat)
 
 
 @pytest.fixture(scope="module")
@@ -214,8 +234,7 @@ def _textured_scenes():
     """A quad with base color, emission, ORM and normal maps beside the
     Cornell box, its uvs reaching 4; both packages flatten it. The sources
     are 64 square, the stack's least resolution, so neither package
-    resamples them (the reference would through PIL where it is
-    installed)."""
+    resamples them."""
     rng = np.random.default_rng(10)
     imgs = [rng.random((64, 64, 3), dtype=np.float32) for _ in range(4)]
     pos = np.asarray([[0, 0, 0], [2, 0, 0], [2, 2, 0.5], [0, 2, 0]], np.float32)
