@@ -54,16 +54,20 @@ Phases, each printing its results:
    version on two input sets, small integers (bit for bit: every product
    and sum is exact) and standard normal values (within each tool's stated
    bound; T2's lanes past 2^-12 of their value are shown beside the
-   float64 run's winner, whose sums must cancel), T1 and T2 at k from 8 to
-   1,024, T3 and T4 at their default shapes and k=256, and the plain
-   versions and (T3/T4) one ``torch.matmul`` of the same bf16 product timed
-   per visit. T1's and T2's per-SM bound is the larger of the tensor cores'
-   time and the epilogue's on the CUDA cores (``tools.visit_bound_sm``:
-   each variant's instructions per test by pipe, counted from the SASS of
-   the library this run built by ``tools.sass_visit_ops``, at the card's
-   maximum SM clock); both halves and every pipe's time are printed, and
-   each T1/T2 kernel's registers, spills, shared memory,
-   resident CTAs and ptxas's wgmma remarks. Last, a visit of 256 slots by
+   float64 run's winner, whose sums must cancel), T1-T3 at k from 8 to
+   1,024, T4 in all eleven cases at passes 0, the case's own and 5, and
+   the plain versions and (T3/T4) one ``torch.matmul`` of the same bf16
+   product timed per visit (T4: per pass, every case), the call both
+   captured in a CUDA graph (the device's time) and issued back to back.
+   The per-SM bound is the larger of the tensor cores' time and the CUDA
+   cores' (``tools.visit_bound_sm``): T1-T3 their epilogue's instructions
+   per test by pipe (``tools.sass_visit_ops``), T4 the staging and issue
+   instructions of a pass (``tools.sass_pass_ops``) of the CTAs the busiest
+   SM runs, counted from the SASS of the library this run built, at the
+   card's maximum SM clock; both halves and every pipe's time are printed,
+   and each T kernel's registers, spills, shared memory, resident CTAs and
+   output tile, and ptxas's wgmma remarks (a remark that serialises a
+   wgmma, or a spill, fails the phase). Last, a visit of 256 slots by
    128 lanes per SM, at one CTA per SM and with the card full, both by T1
    ``epi`` (tensor cores) and by K1 (its exact-f32 counterpart), and by K1
    at 21 real slots per leaf (the atrium's entered leaves hold ~21
@@ -558,9 +562,11 @@ def _binned_sweep(fat, o, d, t, lanes: int = 1 << 17):
 
 
 MB_ITERS = 8  # visits per kernel-against-plain comparison of T1-T3
+T4_VARIANTS = 27  # T4's kernels: 0-8 k16 steps (0: the control) x three n-tiles
 # rows of T1's and T2's comparisons: below, at and past one 32-row tile, not
 # a whole number of tiles (72), and up to the packed argmin's 1,024 rows
 MB_KS = (8, 16, 72, 256, 512, 1024)
+T3_KS = (8, 16, 72, 256, 1024)  # T3's comparisons: the same, but for 512
 # CTAs of a visit-per-SM timing: at most one per SM, and 20 per SM (the card
 # full: more than can reside at once)
 SM_CTAS = (("ms", 128), ("ms_full", 2640))
@@ -665,10 +671,13 @@ def _t1_visit(dev, clock: float, ops: dict, k: int = 256, iters=(64, 256)):
 
 
 def _resources():
-    """Phase 8's record of the T1 / T2 kernels as compiled: registers per
-    thread (the kernel's; its consumer warpgroups raise theirs to 232 with
-    setmaxnreg), spill bytes, shared memory and resident CTAs per SM of each
-    variant, and any ptxas remark that serialises their wgmmas."""
+    """Phase 8's record of the T kernels as compiled: registers per thread
+    (T1-T3: the kernel's; their consumer warpgroups raise theirs to 232 with
+    setmaxnreg), spill bytes, shared memory (T4's at 5 passes or the most
+    that fit), resident CTAs per SM and the output tile of a CTA, of each
+    variant (T4: each k-step count, 0 the control, and n-tile), and ptxas's
+    wgmma remarks. A remark that serialises a wgmma, or a spill, fails the
+    phase."""
     from stratum_tpu_torch import tools
     from stratum_tpu_torch.tools import perf_commit_pipeline as t1
     from stratum_tpu_torch.tools import perf_epilogue as t2
@@ -679,26 +688,48 @@ def _resources():
         out[f"T1 {v}"] = tools.kernel_info(1, i)
     for i, v in enumerate(t2.VARIANTS):
         out[f"T2 {v}"] = tools.kernel_info(2, i)
+    out["T3"] = tools.kernel_info(3, 0)
+    for v in range(T4_VARIANTS):
+        r = tools.kernel_info(4, v)
+        out[f"T4 ks={v % 9} n={r['tile'][1]}"] = r
     for name, r in out.items():
         print(f"[8 resources] {name}: {r['registers']} registers, {r['local_bytes']} spill "
               f"bytes, {r['static_smem']} + {r['dynamic_smem']} B shared, {r['threads']} "
-              f"threads, {r['ctas_per_sm']} CTA(s) per SM", flush=True)
+              f"threads, {r['ctas_per_sm']} CTA(s) per SM, output tile {r['tile']}", flush=True)
+    spills = [name for name, r in out.items() if r["local_bytes"]]
     # ptxas's remarks on the wgmma pipelines (C7510-C7520): "serialized"
     # (the async overlap lost), or a fence / wait it injected
     remarks, serialised = {}, 0
     for ln in cuda_build.BUILD_LOG.get("microbench.cu", "").splitlines():
         code = re.search(r"\((C75\d\d)\)", ln)
-        kernel = re.search(r"(commit_pipeline_kernel|epilogue_kernel)ILi(\d)E(?:Li(\d)E)?(?:Li(\d)E)?",
-                           ln)
+        kernel = re.search(r"(commit_pipeline_kernel|epilogue_kernel|mxu_loop_kernel|"
+                           r"mxu_model_kernel)(?:ILi(\d+)E(?:Li(\d+)E)?(?:Li(\d+)E)?)?", ln)
         if code and kernel:
             key = f"{code.group(1)} {kernel.group(1)}<{','.join(filter(None, kernel.groups()[1:]))}>"
             remarks[key] = remarks.get(key, 0) + 1
             serialised += "serialized" in ln
-    print("[8 resources] ptxas wgmma remarks on T1/T2: " + (", ".join(
+    print("[8 resources] ptxas wgmma remarks on T1-T4: " + (", ".join(
         f"{key} x{n}" for key, n in sorted(remarks.items())) or "none")
-        + f"; wgmmas serialised in {serialised}", flush=True)
+        + f"; wgmmas serialised in {serialised}; spills in {spills or 'none'}", flush=True)
+    assert serialised == 0 and not spills, (remarks, spills)
     out["ptxas_wgmma_remarks"] = remarks
     return out
+
+
+def _graph_ms(fn, calls: int = 48, replays: int = 10) -> float:
+    """ms of one call of ``fn`` on the device: ``calls`` calls captured in a
+    CUDA graph, whose replays are timed with CUDA events (no host issue
+    between the calls)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return _timed(graph.replay, reps=replays)[1] / calls
 
 
 def _microbench():
@@ -718,8 +749,8 @@ def _microbench():
     # the SASS of the library this run built
     sass = tools.library_sass()
     ops = {}
-    for tool, mod, parts in ((1, t1, 1), (2, t2, 3)):
-        for i, v in enumerate(mod.VARIANTS):
+    for tool, variants, parts in ((1, t1.VARIANTS, 1), (2, t2.VARIANTS, 3), (3, ["loop"], 1)):
+        for i, v in enumerate(variants):
             ops[f"T{tool}", v] = o = tools.sass_visit_ops(
                 sass, tools.kernel_info(tool, i)["symbol"], parts)
             print(f"[8 sass] T{tool} {v}: per test fp32 {o['fp32']:.3f}, alu {o['alu']:.3f}, "
@@ -794,7 +825,7 @@ def _microbench():
                 for lane in t2.past_band(slab, rays, v, k, MB_ITERS, got, want):
                     print(f"[8 T2 past 2^-12] {lane['line']}", flush=True)
                     assert lane["cancel"] >= t2.CANCELLING, lane
-    for k in (1024, 256):
+    for k in T3_KS:
         for dep in (False, True):
             for kind in ("int", "normal"):
                 rays = vals(kind, (48, t3.B), nonzero=True).to(bf16)
@@ -821,23 +852,32 @@ def _microbench():
 
     # per-visit times (T4: per pass on the whole card) of the kernels, from
     # the tools' runs, beside the plain versions' and (T3/T4) one
-    # torch.matmul of the same bf16 product, at the reference defaults and
-    # (T1-T3) at k=256
+    # torch.matmul of the same bf16 product (in a CUDA graph, and as 20 calls
+    # issued back to back), at the reference defaults and (T1-T3) at k=256
     def bound(flops, nbytes):
         ops_ms = flops / tools.PEAK_BF16_FLOPS * 1e3
         bytes_ms = nbytes / tools.PEAK_BYTES_S * 1e3
         return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
     def sm_bound(flops, tests=0, ops=None):
-        """Least time of one visit on one SM: the larger of its flop at
-        1/132 of the tensor-core peak and its epilogue's tests x ``ops``
-        (instructions per test by pipe) on the CUDA cores at the card's
-        maximum SM clock (T3: the flop alone; the slabs come from L2, whose
+        """Least time of one visit (T4: one pass) on one SM: the larger of
+        its flop at 1/132 of the tensor-core peak and its CUDA-core work,
+        tests x ``ops`` (instructions per test by pipe) at the card's
+        maximum SM clock (T3: its bare epilogue, the carry's few
+        instructions a visit not counted; the slabs come from L2, whose
         rate has no published figure, and are not counted) -> dict of ms."""
         b = tools.visit_bound_sm(flops, tests, ops or {}, clock)
         return dict(ms=b["bound_s"] * 1e3, tensor_ms=b["tensor_s"] * 1e3,
                     epilogue_ms=b["epilogue_s"] * 1e3, by=b["bound_by"], tests=tests,
                     pipes_ms={p: x * 1e3 for p, x in b["pipes_s"].items()})
+
+    def halves(b, cuda="epilogue", unit="tests"):
+        if b["tests"] == 0:
+            return f"per-SM bound {b['ms'] * 1e6:.1f} ns (tensor cores)"
+        pipes = ", ".join(f"{p} {x * 1e6:.1f}" for p, x in b["pipes_ms"].items())
+        return (f"per-SM bound {b['ms'] * 1e6:.1f} ns ({b['by']}: tensor cores "
+                f"{b['tensor_ms'] * 1e6:.1f} ns, {cuda} {b['epilogue_ms'] * 1e6:.1f} ns; "
+                f"{b['tests']} {unit} at {clock / 1e6:.0f} MHz, by pipe: {pipes} ns)")
 
     def per_visit(fn, iters):
         return _timed(fn, warmup=False)[1] / iters
@@ -873,12 +913,14 @@ def _microbench():
         rays = vals("normal", (48, t3.B)).to(bf16)
         feat = vals("normal", (t3.NL, 48, 4 * k)).to(bf16)
         plain = per_visit(lambda: t3.run_plain(rays, feat, MB_ITERS, False), MB_ITERS)
-        lib = _timed(lambda: torch.matmul(feat[0].T, rays), reps=20)[1]
+        f0 = feat[0].T
+        lib = _graph_ms(lambda: torch.matmul(f0, rays))
         flops = 2 * 48 * 4 * k * t3.B
         nbytes = (48 * t3.B * 2 + t3.NL * 48 * 4 * k * 2 + t3.B * 4) / hi
         return ((run[(0, hi)]["ms"] - run[(0, lo)]["ms"]) / (hi - lo), plain,
-                bound(flops, nbytes), sm_bound(flops), lib,
+                bound(flops, nbytes), sm_bound(flops, t3.B * k, ops["T3", "loop"]), lib,
                 {"dep1_ms": (run[(1, hi)]["ms"] - run[(1, lo)]["ms"]) / (hi - lo),
+                 "library_events_ms": _timed(lambda: torch.matmul(f0, rays), reps=20)[1],
                  "trips_ms": {f"dep={d} iters={i}": x["ms"] for (d, i), x in run.items()}})
 
     common = dict(route="cuda", source="stratum_tpu_torch/csrc/microbench.cu")
@@ -896,26 +938,54 @@ def _microbench():
             common, name=f"{title}, k={k_def} ({name})", replaces=replaces,
             launches=launches[name], max_abs_err=max(errs[name]),
             max_rel_err=max(rels[name]), equal_share=min(equal[name]), ms=ms, plain_ms=plain,
-            bound_ms=b_ms, bound_by=b_by, library_ms=lib, unit=unit,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+            library_events_ms=extra.pop("library_events_ms", None), unit=unit,
             bound_sm_ms=b_sm["ms"], bound_sm=b_sm, extra=extra, k256=dict(
                 ms=ms2, plain_ms=plain2, bound_ms=b2, bound_sm_ms=b2_sm["ms"], bound_sm=b2_sm,
-                library_ms=lib2, extra=extra2)))
+                library_ms=lib2, library_events_ms=extra2.pop("library_events_ms", None),
+                extra=extra2)))
+    # T4 in each case: per pass on the whole card (the tool's slope), the
+    # whole-card bound, and the per-SM bound of its own grid: the CTAs the
+    # busiest SM runs, their flop (at the kernel's padded depth) against
+    # their staging and issue instructions a pass, counted from the SASS
+    cases = {}
+    for label, c, m, b, _, reps in t4.CASES:
+        (tm, tn), v = t4.geometry(c, m, b, 5)
+        assert t4.geometry(c, m, b, 1)[0] == (tm, tn), label
+        ks, ctas = v % 9, m // tm * (b // tn)
+        busiest = -(-ctas // 132)  # CTAs of the SM that runs the most
+        pass_ops = tools.sass_pass_ops(sass, tools.kernel_info(4, v)["symbol"],
+                                       min(2 * ks * tn, 128))
+        a16 = vals("normal", (c, m)).to(bf16).T
+        b16 = vals("normal", (c, b)).to(bf16)
+        cases[label] = dict(
+            ns_per_pass=runs["T4"][label]["ns_per_pass"], ctas=ctas, tile=(tm, tn), ks=ks,
+            bound=bound(2 * c * m * b, (c * m * 4 + c * b * 4 + m * b * 4) / (t4.ITERS * 5)),
+            bound_sm=sm_bound(busiest * 2 * 16 * ks * tm * tn, busiest, pass_ops),
+            pass_ops=pass_ops, library_ms=_graph_ms(lambda: torch.matmul(a16, b16)),
+            library_events_ms=_timed(lambda: torch.matmul(a16, b16), reps=20)[1])
+        x = cases[label]
+        print(f"[8 timing] T4 {label}: {x['ns_per_pass']:.1f} ns per pass, {ctas} CTAs of "
+              f"{tm} x {tn}; bound {x['bound'][0] * 1e6:.2f} ns ({x['bound'][1]}), "
+              f"{x['ns_per_pass'] * 1e-6 / x['bound'][0]:.2f}x; "
+              f"{halves(x['bound_sm'], 'staging and issue', 'CTA passes')}, "
+              f"{x['ns_per_pass'] * 1e-6 / x['bound_sm']['ms']:.2f}x; "
+              f"library {x['library_ms'] * 1e6:.1f} ns in a graph, "
+              f"{x['library_events_ms'] * 1e6:.1f} ns issued back to back", flush=True)
     label, c, m, b, _, reps = t4.CASES[0]
     a = vals("normal", (c, m))
     bb = vals("normal", (c, b))
     p1 = per_visit(lambda: t4.run_plain(a, bb, 4, 1, reps), 4)
     p5 = per_visit(lambda: t4.run_plain(a, bb, 4, 5, reps), 4)
-    a16, b16 = a.to(bf16), bb.to(bf16)
-    lib = _timed(lambda: torch.matmul(a16.T, b16), reps=20)[1]
-    b_ms, b_by = bound(2 * c * m * b, (c * m * 4 + c * b * 4 + m * b * 4) / (t4.ITERS * 5))
+    head = cases[label]
     entries.append(dict(
         common, name=f"mxu_model, {label} (T4)", replaces="tools/bench_mxu_model.py:35",
         launches=launches["T4"], max_abs_err=max(errs["T4"]), max_rel_err=max(rels["T4"]),
-        equal_share=min(equal["T4"]), ms=runs["T4"][label]["ns_per_pass"] * 1e-6,
-        plain_ms=(p5 - p1) / 4, bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+        equal_share=min(equal["T4"]), ms=head["ns_per_pass"] * 1e-6,
+        plain_ms=(p5 - p1) / 4, bound_ms=head["bound"][0], bound_by=head["bound"][1],
+        library_ms=head["library_ms"], library_events_ms=head["library_events_ms"],
         unit="per pass, whole card (slope of passes 1 -> 5)",
-        extra={lb: dict(ns_per_pass=r["ns_per_pass"], ctas=r["ctas"])
-               for lb, r in runs["T4"].items()}))
+        bound_sm_ms=head["bound_sm"]["ms"], bound_sm=head["bound_sm"], extra=cases))
     per_sm = entries[0]["visit_per_sm"] = dict(
         T1=_t1_visit(dev, clock, ops["T1", "epi"]), K1=_k1_visit(dev),
         K1_real21=_k1_visit(dev, real=21))
@@ -923,29 +993,27 @@ def _microbench():
         f"{ctas} CTAs {per_sm['T1'][key] / per_sm['K1'][key]:.3f}" for key, ctas in SM_CTAS),
         flush=True)
 
-    def halves(b):
-        if b["tests"] == 0:
-            return f"per-SM bound {b['ms'] * 1e6:.1f} ns (tensor cores)"
-        pipes = ", ".join(f"{p} {x * 1e6:.1f}" for p, x in b["pipes_ms"].items())
-        return (f"per-SM bound {b['ms'] * 1e6:.1f} ns ({b['by']}: tensor cores "
-                f"{b['tensor_ms'] * 1e6:.1f} ns, epilogue {b['epilogue_ms'] * 1e6:.1f} ns; "
-                f"{b['tests']} tests at {clock / 1e6:.0f} MHz, by pipe: {pipes} ns)")
-
     for e in entries:
-        sm = f", {halves(e['bound_sm'])}, {e['ms'] / e['bound_sm_ms']:.2f}x" \
+        labels = ("staging and issue", "CTA passes") if e["name"].endswith("(T4)") else ()
+        sm = f", {halves(e['bound_sm'], *labels)}, {e['ms'] / e['bound_sm_ms']:.2f}x" \
             if "bound_sm" in e else ""
         lib = "none" if e["library_ms"] is None else f"{e['library_ms'] * 1e6:.1f} ns"
+        if e.get("library_events_ms") is not None:
+            lib += f" in a graph, {e['library_events_ms'] * 1e6:.1f} ns issued back to back"
         print(f"[8 timing] {e['name']}: {e['ms'] * 1e6:.1f} ns {e['unit']}; bound "
               f"{e['bound_ms'] * 1e6:.2f} ns ({e['bound_by']}){sm}; plain "
               f"{e['plain_ms'] * 1e6:.1f} ns; library {lib}", flush=True)
         if "k256" in e:
             x = e["k256"]
+            lib = "" if x["library_ms"] is None else (
+                f"; library {x['library_ms'] * 1e6:.1f} ns in a graph, "
+                f"{x['library_events_ms'] * 1e6:.1f} ns issued back to back")
             print(f"[8 timing]   at k=256: {x['ms'] * 1e6:.1f} ns, {halves(x['bound_sm'])}, "
-                  f"{x['ms'] / x['bound_sm_ms']:.2f}x; plain {x['plain_ms'] * 1e6:.1f} ns",
+                  f"{x['ms'] / x['bound_sm_ms']:.2f}x; plain {x['plain_ms'] * 1e6:.1f} ns{lib}",
                   flush=True)
         for kk, ex in ((None, e.get("extra", {})), (256, e.get("k256", {}).get("extra", {}))):
             for v, r in ex.items():
-                if isinstance(r, dict) and "bound_sm" in r:
+                if isinstance(r, dict) and "ns" in r:
                     print(f"[8 timing]   {v}{'' if kk is None else f' at k={kk}'}: "
                           f"{r['ns']:.1f} ns, {halves(r['bound_sm'])}, "
                           f"{r['ns'] * 1e-6 / r['bound_sm']['ms']:.2f}x", flush=True)
@@ -973,7 +1041,7 @@ GOLDENS = {  # tests/update_goldens.py:41-52 (48x48, rr_depth=100)
 FURNACE_REL = 0.04  # sphere mean against albedo x radiance (tests/test_torch_dense_path.py)
 DIRECT_MEAN_REL = 1e-3  # render_direct, auto (mxu) against brute
 DIRECT_PIXEL_SHARE = 0.999
-GPU_TESTS = 24  # tests in tests/test_torch_cuda.py
+GPU_TESTS = 36  # tests in tests/test_torch_cuda.py
 
 
 def _modes_equal(fat, o, d, bound, occluded, gs):

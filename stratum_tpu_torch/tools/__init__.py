@@ -157,23 +157,27 @@ def lib() -> ctypes.CDLL:
         so.mb_info.restype = ctypes.c_int
         so.mb_kernel_name.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_char_p)]
         so.mb_kernel_name.restype = ctypes.c_int
+        so.mb_mxu_model_tile.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        so.mb_mxu_model_tile.restype = ctypes.c_int
         so._stratum_bound = True
     return so
 
 
 def kernel_info(tool: int, variant: int) -> dict:
-    """T1's (``tool`` 1) or T2's (2) compiled kernel of a variant (its index
-    in the tool's VARIANTS): registers per thread, static and dynamic shared
-    memory (bytes), resident CTAs per SM, local (spill) bytes per thread,
-    threads per CTA, and its symbol."""
-    out = (ctypes.c_int * 6)()
+    """The compiled kernel of T``tool`` (1-4) and a variant (T1, T2: its
+    index in the tool's VARIANTS; T3: 0; T4: as ``bench_mxu_model.geometry``
+    gives it): registers per thread, static and dynamic shared memory
+    (bytes; T4's at 5 passes or the most that fit), resident CTAs per SM,
+    local (spill) bytes per thread, threads per CTA, the [rows, columns] of
+    the output one CTA writes (``tile``), and its symbol."""
+    out = (ctypes.c_int * 8)()
     rc = lib().mb_info(tool, variant, out)
     name = ctypes.c_char_p()
     rc = rc or lib().mb_kernel_name(tool, variant, ctypes.byref(name))
     if rc != 0:
         raise RuntimeError(f"mb_info failed: cudaError {rc}")
     return dict(zip(("registers", "static_smem", "dynamic_smem", "ctas_per_sm", "local_bytes",
-                     "threads"), out), symbol=name.value.decode())
+                     "threads"), out), tile=(out[6], out[7]), symbol=name.value.decode())
 
 
 def library_sass() -> str:
@@ -198,18 +202,9 @@ SASS_PIPES = {
 _SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]\s+)?([A-Za-z0-9_.]+)([^;]*);")
 
 
-def sass_visit_ops(sass: str, symbol: str, parts: int) -> dict:
-    """Instructions per (lane, row) test, by pipe, of one tile visit of a
-    T1 / T2 kernel, counted from its SASS (``cuobjdump -sass``): the
-    innermost loop that issues wgmmas (HGMMA), walked from its head to its
-    back branch along the path a tile takes (a conditional forward branch
-    falls through, unless the block it falls into holds the division's
-    range check or slow-path call, FCHK / CALL, which only operands out of
-    the fast path's range take); every instruction once. The tests on that
-    path follow from its HGMMAs: an m64nNk16 covers 64 x N x 16 products, a
-    test needs 4 bands x 48 x ``parts`` (T2's three bf16 parts) of them, over
-    a warpgroup's 128 threads -> {"fp32", "alu", "mufu", "other"} per test,
-    and "tests" per thread on the path."""
+def _sass_function(sass: str, symbol: str) -> list:
+    """One function of a ``cuobjdump -sass`` listing as (address, predicated,
+    opcode, branch target or None) per instruction."""
     body = sass.split("Function : " + symbol + "\n", 1)[1].split("Function : ", 1)[0]
     ins = []
     for m in _SASS_LINE.finditer(body):
@@ -217,10 +212,20 @@ def sass_visit_ops(sass: str, symbol: str, parts: int) -> dict:
         target = re.search(r"0x([0-9a-f]+)", m.group(4)) if op.startswith("BRA") else None
         ins.append((int(m.group(1), 16), bool(m.group(2)), op,
                     int(target.group(1), 16) if target else None))
+    return ins
+
+
+def _loop_path(ins: list, marker: str, symbol: str) -> list:
+    """The opcodes of the innermost loop that holds an instruction starting
+    with ``marker``, walked from its head to its back branch along the path
+    an iteration takes (a conditional forward branch falls through, unless
+    the block it falls into holds the division's range check or slow-path
+    call, FCHK / CALL, which only operands out of the fast path's range
+    take); every instruction once."""
     at = {a: i for i, (a, *_) in enumerate(ins)}
-    mma = [a for a, _, op, _ in ins if op.startswith("HGMMA")]
+    marked = [a for a, _, op, _ in ins if op.startswith(marker)]
     head, back = min(((t, a) for a, _, op, t in ins
-                      if t is not None and t <= a and any(t <= h <= a for h in mma)),
+                      if t is not None and t <= a and any(t <= h <= a for h in marked)),
                      key=lambda loop: loop[1] - loop[0])
     i, path = at[head], []
     while True:
@@ -228,7 +233,7 @@ def sass_visit_ops(sass: str, symbol: str, parts: int) -> dict:
         path.append(op)
         assert len(path) <= len(ins), symbol
         if a == back:
-            break
+            return path
         if t is not None and not cond:
             i = at[t]
             continue
@@ -240,12 +245,46 @@ def sass_visit_ops(sass: str, symbol: str, parts: int) -> dict:
                 i = at[t]
                 continue
         i += 1
+
+
+def _by_pipe(path: list, per: float) -> dict:
+    """{"fp32", "alu", "mufu", "other"}: the opcodes of ``path`` by pipe
+    (SASS_PIPES; "other" every remaining instruction), each divided by
+    ``per``."""
     count = collections.Counter(op.split(".")[0] for op in path)
+    ops = {pipe: sum(count[o] for o in names) / per for pipe, names in SASS_PIPES.items()}
+    ops["other"] = len(path) / per - sum(ops.values())
+    return ops
+
+
+def sass_visit_ops(sass: str, symbol: str, parts: int) -> dict:
+    """Instructions per (lane, row) test, by pipe, of one tile visit of a
+    T1 / T2 / T3 kernel, counted from its SASS (``cuobjdump -sass``): the
+    innermost loop that issues wgmmas (HGMMA), walked along the path a tile
+    takes (``_loop_path``). The tests on that path follow from its HGMMAs:
+    an m64nNk16 covers 64 x N x 16 products, a test needs 4 bands x 48 x
+    ``parts`` (T2's three bf16 parts) of them, over a warpgroup's 128
+    threads -> {"fp32", "alu", "mufu", "other"} per test, and "tests" per
+    thread on the path."""
+    path = _loop_path(_sass_function(sass, symbol), "HGMMA", symbol)
     tests = sum(64 * int(re.match(r"HGMMA\.64x(\d+)x16", op).group(1)) * 16
                 for op in path if op.startswith("HGMMA")) / (4 * 48 * parts * 128)
-    ops = {pipe: sum(count[o] for o in names) / tests for pipe, names in SASS_PIPES.items()}
-    ops["other"] = len(path) / tests - sum(ops.values())
-    return dict(ops, tests=tests)
+    return dict(_by_pipe(path, tests), tests=tests)
+
+
+def sass_pass_ops(sass: str, symbol: str, stagers: int) -> dict:
+    """Thread instructions of one pass of one T4 CTA (one warpgroup), by
+    pipe, counted from its SASS: the iteration loop's two inner loops over
+    the passes, the staging of the B operands (the innermost loop that
+    stores to shared memory, STS; run by the ``stagers`` threads that write
+    a pass's tile) and the issue of their wgmmas (the innermost loop that
+    holds HGMMA; run by all 128 threads), each walked once -> {"fp32",
+    "alu", "mufu", "other"}, and "hgmma", the wgmmas of a pass."""
+    ins = _sass_function(sass, symbol)
+    stage, issue = _loop_path(ins, "STS", symbol), _loop_path(ins, "HGMMA", symbol)
+    a, b = _by_pipe(stage, 1), _by_pipe(issue, 1)
+    return dict({p: stagers * a[p] + 128 * b[p] for p in a},
+                hgmma=sum(op.startswith("HGMMA") for op in issue))
 
 
 def launch(fn: str, ptrs, ints, device: torch.device) -> None:

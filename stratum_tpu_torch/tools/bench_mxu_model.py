@@ -15,20 +15,26 @@ never zeroed (in interpret mode it returns NaN; the port starts from 0), and
 it builds its operands as constants inside the jitted call, which lets XLA
 fold the program (the port takes runtime tensors).
 
-On the card the loop is ``csrc/microbench.cu``'s model kernel: one CTA per
-64 x 32 output tile, spread over the SMs, each holding its accumulator in
-registers across all iterations; C below 16 is padded with zeros to one
-16-deep tensor-core step. ``reps`` changes nothing there: a slice of
-M / reps rows is whole 64-row tiles, each already a product of its own, so
-the per-leaf case (``reps=8``) launches exactly what its batched twin
-launches and cannot price separate calls. The grid is M / 64 x B / 32 CTAs:
-64 at M = 1024, B = 128, fewer than the card's 132 SMs; 512 at M = 8192.
-``python3 -m stratum_tpu_torch.tools.bench_mxu_model [--cpu]`` prints the
-marginal ns per pass of the reference's 11 cases.
+On the card the loop is ``csrc/microbench.cu``'s model kernel: one CTA (one
+warpgroup) per output tile of 64 rows and 16, 32 or 64 columns (the widest
+whose grid still fills the card; :func:`geometry` reads the library's
+choice), its accumulator in the wgmma registers across all iterations and
+passes, a^T in registers as bf16 (C padded with zeros to a multiple of 16),
+and each pass's operand bf16(b fi + p) staged by the CTA's own threads into
+shared memory while the last iteration's wgmmas run. ``reps`` changes
+nothing there: a slice of M / reps rows is whole tiles, each already a
+product of its own, so the per-leaf case (``reps=8``) launches exactly what
+its batched twin launches and cannot price separate calls. The grid is 128
+CTAs at M = 1024 and B = 128 or 512, 256 at M = 8192, B = 128 and 1,024 at
+M = 8192, B = 512. ``python3 -m stratum_tpu_torch.tools.bench_mxu_model
+[--cpu]`` prints the marginal ns per pass of the reference's 11 cases and,
+on the card, each case's CTAs.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import sys
 
 import numpy as np
@@ -39,7 +45,6 @@ from stratum_tpu_torch.ops import mt_commit as mt
 from stratum_tpu_torch.utils.flags import Options
 
 ITERS = 512
-TILE_M, TILE_N = 64, 32  # output tile of one CTA of the kernel
 MAX_C = 128
 FI_STEP = np.float32(1.0000001)
 CASES = [
@@ -60,6 +65,24 @@ CASES = [
 LAUNCHES = {"mxu_model": 0}
 
 
+@functools.lru_cache(maxsize=None)
+def geometry(c: int, m: int, b: int, passes: int) -> tuple:
+    """((rows, columns) of one CTA's output tile, the kernel's variant for
+    ``tools.kernel_info(4, ...)``) that the built library takes for an
+    [m, b] output at C = c and ``passes``."""
+    out = (ctypes.c_int * 3)()
+    if tools.lib().mb_mxu_model_tile(c, m, b, passes, out) != 0:
+        raise ValueError(f"C={c}, passes={passes}: the kernel takes 1 <= C <= {MAX_C} and "
+                         "passes >= 0")
+    return (out[0], out[1]), out[2]
+
+
+def ctas(m: int, b: int) -> int:
+    """CTAs of the kernel's grid for an [m, b] output."""
+    (tm, tn), _ = geometry(1, m, b, 1)
+    return m // tm * (b // tn)
+
+
 def run(a, b, iters: int, passes: int, reps: int) -> torch.Tensor:
     """``[M, B]`` f32 accumulator after ``iters`` iterations. a: f32 [C, M];
     b: f32 [C, B]. CUDA tensors launch the kernel, CPU tensors run
@@ -68,9 +91,10 @@ def run(a, b, iters: int, passes: int, reps: int) -> torch.Tensor:
         return run_plain(a, b, iters, passes, reps)
     c, m = a.shape
     nb = b.shape[1]
-    if not (1 <= c <= MAX_C and m % (TILE_M * reps) == 0 and nb % TILE_N == 0):
-        raise ValueError(f"C={c}, M={m}, B={nb}, reps={reps}: the kernel takes C <= {MAX_C}, "
-                         f"M a multiple of {TILE_M} * reps and B a multiple of {TILE_N}")
+    (tm, tn), _ = geometry(c, m, nb, passes)
+    if not (m % (tm * reps) == 0 and nb % tn == 0):
+        raise ValueError(f"M={m}, B={nb}, reps={reps}: the kernel takes M a multiple of "
+                         f"{tm} * reps and B a multiple of {tn}")
     tools.check(a, "a", torch.float32, (c, m))
     tools.check(b, "b", torch.float32, (c, nb))
     out = torch.empty((m, nb), dtype=torch.float32, device=a.device)
@@ -138,14 +162,16 @@ def main(argv=None) -> dict:
         per_pass = max((t5 - t1) / 4.0, 1e-12)
         mflop = 2.0 * c * m * b / 1e6
         eff = 2.0 * 16 * m * b / 1e6  # useful MT work at 16-feature rows
+        grid = ctas(m, b) if device.type == "cuda" else None
         # MFLOP per second / 1e6 is TFLOP/s (the reference labels it GFLOP/s)
         print(
             f"{label:45s} {per_pass * 1e9:9.1f} ns/pass "
             f"(t1={t1 * 1e9:7.1f} t5={t5 * 1e9:7.1f})  "
             f"{mflop / per_pass / 1e6:9.1f} TFLOP/s issued "
             f"({eff / per_pass / 1e6:8.1f} useful/pass)"
+            + ("" if grid is None else f"  {grid} CTAs")
         )
-        results[label] = dict(c=c, m=m, b=b, reps=reps, ctas=m // TILE_M * (b // TILE_N),
+        results[label] = dict(c=c, m=m, b=b, reps=reps, ctas=grid,
                               ns_per_pass=per_pass * 1e9,
                               t1_ns=t1 * 1e9, t5_ns=t5 * 1e9,
                               tflops=mflop / per_pass / 1e6)

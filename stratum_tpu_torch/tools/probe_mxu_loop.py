@@ -8,9 +8,10 @@ pallas_call :60).
 to bf16, is added to the rays before every product, so no product can start
 before the previous one ends. The output ``[1, 128]`` is ``acc[0] + carry``.
 
-On the card the loop is ``csrc/microbench.cu``'s product-loop kernel: one
-CTA (the carry is one scalar), one warp per 16 lanes, the slab streamed
-through shared memory in 64-row tiles. ``python3 -m
+On the card the loop is ``csrc/microbench.cu``'s product-loop kernel, the
+commit pipeline's bare visit (wgmma products of the slab's 32-row tiles,
+streamed by TMA through a ring in shared memory) plus the carry, in one CTA
+(the carry is one scalar that every lane reads). ``python3 -m
 stratum_tpu_torch.tools.probe_mxu_loop [--k=1024] [--cpu]`` times it at 256,
 1024 and 4096 iterations, without and with ``dep``.
 """

@@ -16,8 +16,8 @@ differ on a tie), t within 1e-3 relative where the slots agree (the
 Plucker sums of a short hit from a far origin round apart); lists, the two
 list modes, the emission's count and slots and the tiled emission bit for
 bit; T1-T4 on small-integer inputs bit for bit (every product and sum is
-exact), T1 and T2 also at k from 8 to 1,024 and on normal values within
-their tools' bounds; the dense tracer's product against float64 within 1e-5 of its
+exact), T1-T3 also at k from 8 to 1,024 and T4 at C from 8 to 128 on normal
+values within their tools' bounds; the dense tracer's product against float64 within 1e-5 of its
 magnitude (TF32 would lose 1e-3), and its render within test_torch_slice's
 bounds of the CPU render; texture samples within 1e-6 of the CPU's, and a
 textured colonnade render through K1/K2 within test_torch_slice's bounds of
@@ -311,6 +311,73 @@ def test_epilogue_kernel_at_k(dev, k):
                 for lane in t2.past_band(slab, rays, v, k, VISITS, got, want):
                     print(f"[T2 past 2^-12] {lane['line']}")
                     assert lane["cancel"] >= t2.CANCELLING, lane["line"]
+
+
+@pytest.mark.parametrize("k", VISIT_KS)
+def test_mxu_loop_kernel_at_k(dev, k):
+    """T3 (T1's bare visit on the TMA ring of slab tiles, plus the scalar
+    carry fed back into the rays with dep) against its plain version at k
+    rows, dep 0 and 1: small integers (rays nonzero, so rays + bf16(carry)
+    stays exact) bit for bit; standard normal values every lane within
+    probe_mxu_loop.tolerance."""
+    t3 = probe_mxu_loop
+    rng = np.random.default_rng(200 + k)
+    for dep in (False, True):
+        for kind in ("int", "normal"):
+            rays = torch.from_numpy(_values(rng, kind, (48, t3.B), nonzero=True)).to(
+                dev, torch.bfloat16)
+            feat = torch.from_numpy(_values(rng, kind, (t3.NL, 48, 4 * k))).to(
+                dev, torch.bfloat16)
+            got = t3.run(rays, feat, VISITS, dep)
+            want = t3.run_plain(rays, feat, VISITS, dep)
+            if kind == "int":
+                assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (k, dep)
+            else:
+                _share_equal(got, want, t3.tolerance(rays, feat, VISITS), (k, dep))
+
+
+@pytest.mark.parametrize("c", [8, 16, 32, 48, 128])
+def test_mxu_model_kernel_at_c(dev, c):
+    """T4 (wgmma products of bf16 operands that the CTA's own threads stage,
+    passes and iterations summed in the accumulators) against its plain
+    version at C = c (48: not a multiple of 16), passes 0, 1, 3 and 5: at
+    reps 1 and 8 on two output tiles in each direction of every slice, and
+    on 1024 x 256 and 1024 x 512 outputs, whose tiles the library makes 32
+    and 64 columns wide where shared memory allows; small integers (b >= 0,
+    so b fi + p never cancels) bit for bit, standard normal values within
+    bench_mxu_model.tolerance."""
+    t4 = bench_mxu_model
+    rng = np.random.default_rng(300 + c)
+    for passes in (0, 1, 3, 5):
+        for m, b, reps in ((128, 32, 1), (1024, 32, 8), (1024, 256, 1), (1024, 512, 1)):
+            (tm, tn), _ = t4.geometry(c, m, b, passes)
+            if b == 32:  # two tiles of each slice in each direction
+                assert (m // reps, b) == (2 * tm, 2 * tn), (tm, tn)
+            for kind in ("int", "normal"):
+                a = torch.from_numpy(_values(rng, kind, (c, m))).to(dev)
+                bb = torch.from_numpy(_values(rng, kind, (c, b))).to(dev)
+                bb = bb.abs() if kind == "int" else bb
+                got = t4.run(a, bb, VISITS, passes, reps)
+                want = t4.run_plain(a, bb, VISITS, passes, reps)
+                if kind == "int":
+                    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (
+                        passes, m, b, reps)
+                else:
+                    _share_equal(got, want, t4.tolerance(a, bb, VISITS, passes),
+                                 (passes, m, b, reps))
+
+
+def test_mxu_model_refuses_partial_tiles(dev):
+    """T4 takes outputs of whole CTA tiles only, each slice of M / reps rows
+    too, and C from 1 to 128: the wrapper raises for the rest."""
+    t4 = bench_mxu_model
+    (tm, tn), _ = t4.geometry(16, 128, 32, 3)
+    for c, m, b, reps in ((16, tm + tm // 2, 2 * tn, 1), (16, 2 * tm, tn + 8, 1),
+                          (16, 2 * tm, 2 * tn, 4), (129, 2 * tm, 2 * tn, 1)):
+        a = torch.zeros((c, m), device=dev)
+        bb = torch.zeros((c, b), device=dev)
+        with pytest.raises(ValueError):
+            t4.run(a, bb, 2, 3, reps)
 
 
 def test_dense_tracer_on_the_card(dev):

@@ -384,6 +384,15 @@ def test_tools_refuse_a_cpu_default_without_a_card():
     (12_582_912, 32_768, {}, 1.98e9, 1.679418, 0.0, "product"),
     (50_331_648, 131_072, dict(fp32=14, alu=12.84375, other=6.5), 0.99e9, 6.717672,
      34.488889, "epilogue (issue)"),
+    # T4, one pass on the busiest SM: its CTAs' flop (2 x 16 KS x 64 x N
+    # each) against their staging and issue instructions by pipe ("tests"
+    # are CTAs, the ops a CTA's thread instructions of a pass). At C = 16,
+    # M = 1024, B = 128 one 64 x 16 tile on the SM, 1,728 instructions
+    (32_768, 1, dict(fp32=256, alu=224, other=1248), 1.98e9, 0.004373484, 0.006818182,
+     "epilogue (issue)"),
+    # at M = 8192, B = 512: 1,024 tiles of 64 x 64, 8 on the busiest SM
+    (1_048_576, 8, dict(fp32=1024, alu=512, other=1920), 1.98e9, 0.139951498, 0.109090909,
+     "product"),
 ])
 def test_visit_bound_sm_counts_the_epilogue(flops, tests, ops, clock, tensor_us, epilogue_us,
                                             by):
@@ -451,6 +460,45 @@ def test_sass_visit_ops_walks_the_tile_loop(name, lines, parts, want):
     sass = _sass("_Z5other", ["FADD R1, R2, R3", "EXIT"]) + _sass(symbol, lines)
     got = tools.sass_visit_ops(sass, symbol, parts)
     assert got == pytest.approx(want)
+
+
+def _model_loop(stage, issue):
+    """A T4-like iteration loop: b * fi, the staging loop over the passes
+    (``stage``, then its counter and back branch), the barrier, the issue
+    loop (``issue``, then its back branch), the wait; prologue and tail
+    outside."""
+    return (["LDG.E R2, desc[UR6][R4.64]", "outer:", "FMUL R40, R19, R10", "stage:"] + stage
+            + ["VIADD R20, R20, 0x4", "ISETP.GE.AND P1, PT, R20, R17, PT", "@!P1 BRA <stage>",
+               "BAR.SYNC.DEFER_BLOCKING 0x1, 0x80", "issue:"] + issue
+            + ["UISETP.GE.AND UP0, UPT, UR5, UR6, UPT", "@!UP0 BRA <issue>",
+               "WARPGROUP.DEPBAR.LE gsb0, 0x1", "ISETP.GE.AND P2, PT, R18, R19, PT",
+               "@!P2 BRA <outer>", "WARPGROUP.DEPBAR.LE gsb0, 0x0", "STG.E desc[UR6][R2.64], R24",
+               "EXIT"])
+
+
+_STAGE = ["I2FP.F32.S32 R7, R20", "FADD R4, R40, R7", "FADD R5, R39, R7",
+          "F2FP.BF16.F32.PACK_AB R4, R5, R4", "STS.128 [R41], R4"]
+_ISSUE = ["WARPGROUP.ARRIVE", "UIADD3 UR8, UR4, 0x20, URZ",
+          "HGMMA.64x16x16.F32.BF16 R24, R32, gdesc[UR8].tnspB, R24, gsb0"]
+
+
+@pytest.mark.parametrize("stage, issue, stagers, want", [
+    # a pass staged by 32 threads (the threads of a chunk split the passes):
+    # 8 staging instructions a pass (2 fp32, 2 alu, 4 other) and 5 issue
+    # instructions (all other) on all 128 threads
+    (_STAGE, _ISSUE, 32, dict(fp32=2 * 32, alu=2 * 32, mufu=0, other=4 * 32 + 5 * 128, hgmma=1)),
+    # two chunks a thread on all 128, two k-steps a pass
+    (_STAGE + _STAGE[1:], _ISSUE + _ISSUE[1:], 128,
+     dict(fp32=4 * 128, alu=2 * 128, mufu=0, other=6 * 128 + 7 * 128, hgmma=2)),
+])
+def test_sass_pass_ops_walks_the_model_loop(stage, issue, stagers, want):
+    """tools.sass_pass_ops on hand-made T4 listings: the staging loop (the
+    innermost loop that stores to shared memory) on ``stagers`` threads and
+    the issue loop (the innermost that holds HGMMA) on 128, each walked
+    once; the outer iteration loop, its prologue and tail are not read."""
+    symbol = "_Z6kernel_model"
+    sass = _sass("_Z5other", ["STS [R1], R2", "EXIT"]) + _sass(symbol, _model_loop(stage, issue))
+    assert tools.sass_pass_ops(sass, symbol, stagers) == pytest.approx(want)
 
 
 @pytest.mark.parametrize("variant", perf_epilogue.VARIANTS)
