@@ -95,7 +95,8 @@ Phases, each printing its results:
    sphere within 4 % of 0.4); ``render_direct`` on the Cornell box at
    1080p with ``auto`` and ``brute``, finite and in agreement;
 12. ``tests/test_torch_cuda.py`` in a subprocess (``--noconftest``): every
-   test must pass, none skip;
+   test must pass, none skip (39: the kernels against their plain versions
+   and three equalities of the wavefront entry points);
 13. the textured colonnade, bench.py's config 4: ``write_colonnade`` at its
    defaults (110,408 triangles, three 256-texel PNG textures, a 256-wide HDR
    sky) into ``build/colonnade``, loaded through the OBJ + MTL loader and
@@ -111,7 +112,30 @@ Phases, each printing its results:
    CPU bounds; ``packet`` and ``bvh`` on the Cornell box and the golden's
    small colonnade at 128x128 against the brute-force tracers (the same
    triangle on non-degenerate hits, occlusion flags), timed, and one path
-   sample through each.
+   sample through each;
+14. the rest of the path integrator at 1920x1080: on the full atrium with
+   the bench configuration, ``render_path_batched`` at 4 spp (equal to
+   ``render_path_progressive`` at seeds 0-3 within rtol 1e-5 / atol 1e-7,
+   its ray count their sum), ``render_path_lanes`` at 2 and 4 spp (image
+   mean within the parity bound of the same seeds' sequential mean; without
+   the light tile equal to the sequential samples), K1 and K2 timed whole against
+   their bounds on the lanes = 4 sample's closest wave 1 (8,294,400 lanes)
+   and deferred wave (41,472,000) and held to plain on N_CHECK-lane slices;
+   ``wave_caps=(1, 1, 0.6, 0.082, 0.031)`` (the alive share per bounce of
+   phase 5's sample against each cap, 1 warm-up and 4 timed samples, the
+   device busy share, K1 on a compacted wave whole and on its live lanes,
+   caps of 1.0 equal to phase 5's sample), RIS with 4 candidates (1 + 2
+   samples), NEE off and MIS off (one sample each); the alpha test on the
+   reference's masked quad (``pallas`` and ``auto``: the cut-out half sees
+   the emitter, the opaque half does not); ``smoky_cornell()`` with the
+   Cornell path's configuration (the dense tracer; 1 + 2 samples) and the
+   ``cornell_smoke`` golden; the analytic furnace, the sphere-light box,
+   analytic against tessellated at 256x256, and the atrium with one
+   analytic sphere (whose merged hits resolve without the fused payload).
+   A layer split (a synchronise around each tracer layer) of a plain
+   sample, a capped one and lane-batched ones gives their glue per sample
+   in one call. Each timed line gives ms/spp, Mrays/s and peak memory
+   beside the card's name and power limit.
 
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 result line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -344,10 +368,11 @@ def _zero_launches():
             counts[k] = 0
 
 
-def _timed_samples(scene, view, cfg_run, label, scene_name, smi):
-    """1 warm-up and 4 timed samples of ``render_path_with_counts`` with
-    every launch counter zeroed just before and read just after ->
-    (launches, last image, dict of ms/spp, Mrays/s, peak GiB, image mean)."""
+def _timed_samples(scene, view, cfg_run, label, scene_name, smi, samples: int = 5):
+    """1 warm-up and ``samples`` - 1 timed samples of
+    ``render_path_with_counts`` with every launch counter zeroed just before
+    and read just after -> (launches, last image, dict of ms/spp, Mrays/s,
+    peak GiB, image mean)."""
     import torch
     from stratum_tpu_torch.ops import binned, block_trace
     from stratum_tpu_torch.render import integrator
@@ -356,7 +381,7 @@ def _timed_samples(scene, view, cfg_run, label, scene_name, smi):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_launches()
-    samples, times, total_rays = 5, [], 0
+    times, total_rays = [], 0
     for seed in range(samples):
         t0 = time.perf_counter()
         img, n = integrator.render_path_with_counts(scene, view, cfg_run, seed)
@@ -1041,7 +1066,7 @@ GOLDENS = {  # tests/update_goldens.py:41-52 (48x48, rr_depth=100)
 FURNACE_REL = 0.04  # sphere mean against albedo x radiance (tests/test_torch_dense_path.py)
 DIRECT_MEAN_REL = 1e-3  # render_direct, auto (mxu) against brute
 DIRECT_PIXEL_SHARE = 0.999
-GPU_TESTS = 36  # tests in tests/test_torch_cuda.py
+GPU_TESTS = 39  # tests in tests/test_torch_cuda.py
 
 
 def _modes_equal(fat, o, d, bound, occluded, gs):
@@ -1626,6 +1651,446 @@ def _colonnade(dev, smi):
                 tracers=tracers)
 
 
+CAPS = (1, 1, 0.6, 0.082, 0.031)  # wave_caps the reference measured on its TPU
+EQ_RTOL, EQ_ATOL = 1e-5, 1e-7  # the reference's equalities (tests/test_render.py:356-371)
+SMOKE_GOLDEN = dict(sigma=0.05)  # tests/update_goldens.py:67-68 (48x48, 8 spp, 3 bounces)
+SPHERE_BOX = 256  # sphere-light box frame, analytic against tessellated
+SPHERE_BOX_REL = 0.05  # tests/test_spheres.py:101-120
+
+
+def _whole_wave(fat, occluded, o, d, t, rng, label):
+    """One wave of K1 (closest) or K2 (occluded) timed whole against its
+    bound, and held to its plain version on an N_CHECK-lane slice -> dict."""
+    import torch
+    from stratum_tpu_torch.ops import block_trace
+
+    limit = t * block_trace.SHADOW_EPS if occluded else t
+    prep = block_trace._prepare(fat, o, d, limit)
+    _, ms = _timed(lambda: block_trace.launch(fat, prep, occluded), reps=3)
+    if occluded:
+        blocked = block_trace.block_occluded(fat, o, d, t)
+        tests = _needed_tri_tests(fat, o, d, limit, blocked=blocked)
+    else:
+        hk = block_trace.block_closest(fat, o, d, t)
+        tests = _needed_tri_tests(fat, o, d, torch.where(hk.slot >= 0, hk.t, t))
+    bound_ms, bound_by = _bound(tests, _block_bytes(fat, prep, occluded))
+    del prep
+    os_, ds_, ts_ = _wave_slice(o, d, t, rng)
+    if occluded:
+        ok = block_trace.block_occluded(fat, os_, ds_, ts_)
+        op, plain_ms = _timed(lambda: block_trace.block_occluded_plain(fat, os_, ds_, ts_),
+                              warmup=False)
+        c = _check_occluded(f"{label} slice", ok, op, ts_ > 0)
+    else:
+        hk = block_trace.block_closest(fat, os_, ds_, ts_)
+        hp, plain_ms = _timed(lambda: block_trace.block_closest_plain(fat, os_, ds_, ts_),
+                              warmup=False)
+        c = _compare_closest(fat, os_, ds_, hk, hp, ts_ > 0)
+        _check_closest(f"{label} slice", c)
+    print(f"[14 waves] {label} ({o.shape[0]} lanes, {int((t > 0).sum())} live): kernel "
+          f"{ms:.3f} ms (bound {bound_ms:.3f} ms, {bound_by}; {tests} tests); "
+          f"{os_.shape[0]}-lane slice: plain {plain_ms:.3f} ms", flush=True)
+    return dict(c, ms=ms, plain_slice_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                tests=tests, lanes=o.shape[0])
+
+
+def _sync_ms(fn):
+    """(result, host ms) of ``fn`` ending in a device synchronise."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _glue_split(dev, fn, spp: int):
+    """``fn`` (a render of ``spp`` samples) with a synchronise around every
+    tracer layer (``profile_sample.timed_layers``) -> ms per sample of the
+    whole, the kernels, the rest of the tracer wrappers with the prep,
+    ``finalize_hit`` and the glue (everything else)."""
+    import torch
+    from stratum_tpu_torch import profile_sample
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile_sample.timed_layers(torch.device(dev)) as acc:
+        fn()
+        torch.cuda.synchronize()
+    total = (time.perf_counter() - t0) * 1e3
+    ms = {layer: v[0] / spp for layer, v in acc.items()}
+    return dict(sample=total / spp, kernel=ms["kernel"], tracer_rest=ms["trace"] - ms["kernel"],
+                finalize_hit=ms["finalize_hit"],
+                glue=(total / spp) - ms["trace"] - ms["binned"] - ms["finalize_hit"])
+
+
+def _lanes_run(scene, view, cfg, spp, smi, capture=None):
+    """One ``render_path_lanes`` call -> (image, dict of ms/spp, Mrays/s,
+    peak GiB, launches)."""
+    import torch
+    from stratum_tpu_torch.ops import block_trace
+    from stratum_tpu_torch.render import integrator
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    (img, rays), ms = _sync_ms(
+        lambda: integrator.render_path_lanes(scene, view, cfg, spp, 0, capture=capture))
+    rays = int(rays)
+    line = dict(spp=spp, ms_spp=ms / spp, mrays=rays / ms / 1e3, rays=rays,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30, mean=float(img.mean()),
+                launches=dict(block_trace.LAUNCHES))
+    print(f"[14 lanes] spp={spp} ({spp * cfg.width * cfg.height} lanes a wave): "
+          f"{line['ms_spp']:.1f} ms/spp, {line['mrays']:.3f} Mrays/s, peak "
+          f"{line['peak_gib']:.2f} GiB, launches {line['launches']}, image mean "
+          f"{line['mean']:.6f} | {smi}", flush=True)
+    assert bool(torch.isfinite(img).all())
+    return img, line
+
+
+def _masked_quad():
+    """The reference's alpha-test scene (tests/test_texture.py:143-205): a
+    quad whose left half is cut out, in front of a larger emitter facing
+    the camera."""
+    import numpy as np
+    from stratum_tpu_torch.scene.graph import MeshPrimitive, NodeGraph
+    from stratum_tpu_torch.scene.material import Material
+
+    mask = np.ones((8, 8, 4), np.float32)
+    mask[:, :4, 3] = 0.0
+    quad = np.asarray([[-1, -1, 1], [1, -1, 1], [1, 1, 1], [-1, 1, 1]], np.float32)
+    uvq = np.asarray([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+    idx = np.asarray([[0, 1, 2], [0, 2, 3]], np.int32)
+    g = NodeGraph()
+    g.root.add_child("masked").make_component(MeshPrimitive(
+        positions=quad, indices=idx, uvs=uvq, material=Material(alpha_image=mask)))
+    g.root.add_child("emitter").make_component(MeshPrimitive(
+        positions=quad * np.asarray([3, 3, 1], np.float32) + np.asarray([0, 0, 2], np.float32),
+        indices=idx[:, ::-1].copy(),
+        material=Material(base_color=np.zeros(3, np.float32),
+                          emission=np.full(3, 5.0, np.float32))))
+    return g
+
+
+def _sphere_light_box(analytic):
+    """The reference's floor lit by one emissive sphere
+    (tests/test_spheres.py:60-98), analytic or tessellated 48 x 96."""
+    import numpy as np
+    from stratum_tpu_torch.core.transform import look_at
+    from stratum_tpu_torch.scene.graph import (CameraComponent, MeshPrimitive, NodeGraph,
+                                               SpherePrimitive, TransformComponent)
+    from stratum_tpu_torch.scene.material import Material
+
+    g = NodeGraph()
+    s = 10.0
+    g.root.add_child("floor").make_component(MeshPrimitive(
+        positions=np.asarray([[-s, 0, -s], [-s, 0, s], [s, 0, s], [s, 0, -s]], np.float32),
+        indices=np.asarray([[0, 1, 2], [0, 2, 3]], np.int32),
+        material=Material(base_color=np.full(3, 0.6, np.float32))))
+    lamp = g.root.add_child("lamp")
+    t = np.eye(3, 4, dtype=np.float32)
+    t[:, 3] = (0.0, 4.0, 0.0)
+    lamp.make_component(TransformComponent(matrix=t))
+    lamp.make_component(SpherePrimitive(
+        radius=0.5, material=Material(base_color=np.zeros(3, np.float32),
+                                      emission=np.full(3, 40.0, np.float32)),
+        analytic=analytic, stacks=48, slices=96))
+    cam = g.root.add_child("camera")
+    cam.make_component(TransformComponent(matrix=look_at((0.0, 3.0, -8.0), (0.0, 1.0, 0.0))))
+    cam.make_component(CameraComponent(fovy=np.radians(45.0)))
+    return g
+
+
+def _wavefront(dev, smi, scene, view, main5, img5):
+    """Phase 14: the rest of the path integrator on the full atrium at
+    1920x1080 (batched and lane-batched samples, wave_caps, RIS, NEE and
+    MIS off), the alpha test, the smoky Cornell box and analytic spheres
+    -> dict for the JSON line's ``paths``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from stratum_tpu_torch import profile_sample
+    from stratum_tpu_torch.ops import block_trace
+    from stratum_tpu_torch.render import camera, integrator
+    from stratum_tpu_torch.scene import builtin, flatten
+
+    W, H = FRAME
+    n = W * H
+    fat = scene.fat_bvh
+    rng = np.random.default_rng(14)
+    cfg = integrator.RenderConfig(width=W, height=H, **BENCH)
+    out = {}
+
+    def rel(a, b):
+        return abs(a - b) / b
+
+    # -- render_path_batched against render_path_progressive, seeds 0-3 ----
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    (img_b, rays_b), ms_b = _sync_ms(lambda: integrator.render_path_batched(scene, view, cfg, 4, 0))
+    launches_b = dict(block_trace.LAUNCHES)
+    img_p = integrator.render_path_progressive(scene, view, cfg, 4, 0)
+    singles = [integrator.render_path_with_counts(scene, view, cfg, s) for s in range(4)]
+    counts = [int(c) for _, c in singles]
+    seq_mean = {2: float((singles[0][0] + singles[1][0]).mean()) / 2, 4: float(img_p.mean())}
+    del singles
+    diff = float((img_b - img_p).abs().max())
+    out["batched"] = dict(ms_spp=ms_b / 4, mrays=int(rays_b) / ms_b / 1e3, rays=int(rays_b),
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                          max_abs_diff_progressive=diff, launches=launches_b,
+                          mean=float(img_b.mean()))
+    print(f"[14 batched] spp=4: {ms_b / 4:.1f} ms/spp, {out['batched']['mrays']:.3f} Mrays/s, "
+          f"peak {out['batched']['peak_gib']:.2f} GiB, launches {launches_b}; vs "
+          f"render_path_progressive max |diff| {diff:.3e}; n_rays {int(rays_b)} = sum of "
+          f"{counts} ({sum(counts)}) | {smi}", flush=True)
+    torch.testing.assert_close(img_b, img_p, rtol=EQ_RTOL, atol=EQ_ATOL)
+    assert int(rays_b) == sum(counts)
+    assert launches_b == {"closest": 20, "occluded": 4}, launches_b
+    del img_b, img_p
+
+    # -- render_path_lanes ------------------------------------------------------
+    out["lanes"] = {}
+    for spp in (2, 4):
+        waves = {} if spp == 4 else None
+        img_l, line = _lanes_run(scene, view, cfg, spp, smi, capture=waves)
+        line["mean_rel_sequential"] = rel(line["mean"], seq_mean[spp])
+        print(f"[14 lanes] spp={spp}: image mean {line['mean']:.6f} vs the mean of the "
+              f"sequential samples at seeds 0-{spp - 1} {seq_mean[spp]:.6f} "
+              f"(rel {line['mean_rel_sequential']:.2e})", flush=True)
+        assert line["mean_rel_sequential"] <= PARITY_MEAN_REL
+        assert line["launches"] == {"closest": 5, "occluded": 1}, line["launches"]
+        out["lanes"][f"spp{spp}"] = line
+        del img_l
+    # the lanes = 4 waves: 5 closest waves of 4 x W x H lanes, the deferred
+    # wave of 5 x 4 x W x H
+    assert [w[0].shape[0] for w in waves["closest"]] == [4 * n] * 5
+    ((o, w, t),) = waves["occluded"]
+    assert t.shape[0] == 20 * n
+    out["lanes"]["closest_wave1"] = _whole_wave(fat, False, *waves["closest"][1], rng,
+                                                "lanes=4 closest wave 1")
+    del waves
+    out["lanes"]["deferred"] = _whole_wave(fat, True, o, w, t, rng, "lanes=4 deferred wave")
+    del o, w, t
+    torch.cuda.empty_cache()
+    nopre = dataclasses.replace(cfg, presample_lights=0, coherent_tiles=0)
+    img_l, _ = integrator.render_path_lanes(scene, view, nopre, 2, 0)
+    img_s = integrator.render_path_progressive(scene, view, nopre, 2, 0)
+    diff = float((img_l - img_s).abs().max())
+    print(f"[14 lanes] presample_lights=0, spp=2: lanes vs sequential max |diff| {diff:.3e}",
+          flush=True)
+    torch.testing.assert_close(img_l, img_s, rtol=EQ_RTOL, atol=EQ_ATOL)
+    out["lanes"]["nopresample_max_abs_diff"] = diff
+    del img_l, img_s
+
+    # -- wave_caps ------------------------------------------------------------
+    caps_cfg = dataclasses.replace(cfg, wave_caps=CAPS)
+    waves = {}
+    integrator.render_path_with_counts(scene, view, cfg, 0, capture=waves)
+    alive = [int((tm > 0).sum()) for _, _, tm in waves["closest"]]
+    budgets = [integrator._budget(caps_cfg, b, n) for b in range(cfg.max_bounces + 1)]
+    binds = [a > bgt for a, bgt in zip(alive, budgets)]
+    print("[14 wave_caps] phase 5's sample (seed 0): alive share per bounce "
+          + ", ".join(f"{b}: {a / n:.4f} (cap {bgt / n:.4f}, {'binds' if bd else 'free'})"
+                      for b, (a, bgt, bd) in enumerate(zip(alive, budgets, binds))), flush=True)
+    del waves
+    launches_c, img_c, line = _timed_samples(scene, view, caps_cfg, "14 wave_caps", "atrium",
+                                             smi)
+    busy, ops = profile_sample.device_profile(scene, view, caps_cfg, 1)
+    line.update(launches=launches_c, alive_share=[a / n for a in alive],
+                budgets=budgets, binds=binds, device_busy_ms=busy,
+                busy_share=None if busy is None else busy / line["ms_spp"], top_ops_ms=ops[:4],
+                mean_rel_phase5=rel(line["mean"], main5["mean"]))
+    share = ("not measured: the profiler recorded no device events" if busy is None
+             else f"{busy:.3f} ms of a {line['ms_spp']:.1f} ms sample, "
+                  f"{100 * busy / line['ms_spp']:.1f} %")
+    print(f"[14 wave_caps] {line['ms_spp']:.1f} ms/spp vs {main5['ms_spp']:.1f} (phase 5); "
+          f"device busy {share}; image mean {line['mean']:.6f} vs {main5['mean']:.6f} "
+          f"(rel {line['mean_rel_phase5']:.2e})", flush=True)
+    assert line["mean_rel_phase5"] <= PARITY_MEAN_REL
+    waves = {}
+    integrator.render_path_with_counts(scene, view, caps_cfg, 1, capture=waves)
+    lanes_c = [wv[0].shape[0] for wv in waves["closest"]]
+    print(f"[14 wave_caps] closest wave lanes {lanes_c}, deferred wave "
+          f"{waves['occluded'][0][0].shape[0]} lanes", flush=True)
+    assert lanes_c == budgets, lanes_c
+    o, d, tm = waves["closest"][3]
+    del waves
+    line["compacted_wave3"] = _whole_wave(fat, False, o, d, tm, rng, "wave_caps closest wave 3")
+    live = tm > 0  # its live lanes alone: a count that is not whole CTAs
+    o_l, d_l, t_l = o[live], d[live], tm[live]
+    hk = block_trace.block_closest(fat, o_l, d_l, t_l)
+    hp = block_trace.block_closest_plain(fat, o_l, d_l, t_l)
+    c = _compare_closest(fat, o_l, d_l, hk, hp)
+    print(f"[14 waves] wave_caps closest wave 3, live lanes only ({o_l.shape[0]} lanes, "
+          f"{o_l.shape[0] % block_trace.CTA} past the last whole CTA): {c}", flush=True)
+    _check_closest("wave_caps closest wave 3 live lanes", c)
+    line["compacted_wave3_live"] = c
+    del o, d, tm, o_l, d_l, t_l, hk, hp
+    seed5 = 4  # phase 5's last sample
+    img_free, _ = integrator.render_path_with_counts(
+        scene, view, dataclasses.replace(cfg, wave_caps=(1.0,)), seed5)
+    diff = float((img_free - img5).abs().max())
+    print(f"[14 wave_caps] caps (1.0,) vs phase 5's sample {seed5}: max |diff| {diff:.3e}",
+          flush=True)
+    torch.testing.assert_close(img_free, img5, rtol=EQ_RTOL, atol=EQ_ATOL)
+    line["nonbinding_max_abs_diff"] = diff
+    out["wave_caps"] = line
+    del img_c, img_free
+    torch.cuda.empty_cache()
+
+    # -- the glue with and without compaction or lane batching, one call -----
+    splits = {}
+    for label, fn, spp in (
+        ("plain", lambda: integrator.render_path_with_counts(scene, view, cfg, 1), 1),
+        ("wave_caps", lambda: integrator.render_path_with_counts(scene, view, caps_cfg, 1), 1),
+        ("lanes2", lambda: integrator.render_path_lanes(scene, view, cfg, 2, 0), 2),
+        ("lanes4", lambda: integrator.render_path_lanes(scene, view, cfg, 4, 0), 4),
+    ):
+        splits[label] = _glue_split(dev, fn, spp)
+        print(f"[14 split] {label}: per sample {splits[label]['sample']:.1f} ms = kernels "
+              f"{splits[label]['kernel']:.1f} + prep and wrappers "
+              f"{splits[label]['tracer_rest']:.1f} + finalize_hit "
+              f"{splits[label]['finalize_hit']:.1f} + glue {splits[label]['glue']:.1f} ms "
+              f"(a synchronise around each tracer layer)", flush=True)
+    busy, ops = profile_sample.device_profile(scene, view, cfg, 1)
+    splits["plain"].update(device_busy_ms=busy)
+    print(f"[14 split] plain sample device busy "
+          + ("not measured" if busy is None else f"{busy:.3f} ms"), flush=True)
+    out["glue_split"] = splits
+
+    # -- RIS, NEE off, MIS off ------------------------------------------------
+    _, _, line = _timed_samples(scene, view, dataclasses.replace(cfg, ris_candidates=4),
+                                "14 ris", "atrium", smi, samples=3)
+    line["mean_rel_phase5"] = rel(line["mean"], main5["mean"])
+    print(f"[14 ris] ris_candidates=4: image mean {line['mean']:.6f} vs {main5['mean']:.6f} "
+          f"(phase 5; rel {line['mean_rel_phase5']:.2e})", flush=True)
+    assert line["mean_rel_phase5"] <= PARITY_MEAN_REL
+    out["ris"] = line
+    for name, kw in (("nee_off", dict(use_nee=False)), ("mis_off", dict(use_mis=False))):
+        (img, rays), ms = _sync_ms(lambda: integrator.render_path_with_counts(
+            scene, view, dataclasses.replace(cfg, **kw), 1))
+        out[name] = dict(ms=ms, rays=int(rays), mean=float(img.mean()))
+        print(f"[14 {name}] {kw}: one sample {ms:.1f} ms, {int(rays)} rays, image mean "
+              f"{out[name]['mean']:.6f} (phase 5 {main5['mean']:.6f})", flush=True)
+        assert bool(torch.isfinite(img).all()) and out[name]["mean"] > 0
+    del img
+
+    # -- the alpha test -------------------------------------------------------
+    from stratum_tpu_torch.core.transform import look_at
+
+    quad, _ = flatten.flatten(_masked_quad().root, device=dev)
+    qview = camera.make_view(look_at((0, 0, -2), (0, 0, 1)), np.radians(40), W, H, device=dev)
+    # the quad spans 24-76 % of the width (16:9, vertical fov 40 degrees, 3 away)
+    left = np.s_[int(0.15 * H):int(0.85 * H), int(0.28 * W):int(0.46 * W)]
+    right = np.s_[int(0.15 * H):int(0.85 * H), int(0.54 * W):int(0.72 * W)]
+    out["alpha"] = {}
+    for tracer in ("pallas", "auto"):
+        res = {}
+        for at in (True, False):
+            acfg = integrator.RenderConfig(width=W, height=H, max_bounces=1, alpha_test=at,
+                                           tracer=tracer)
+            _zero_launches()
+            img, ms = _sync_ms(lambda: integrator.render_path(quad, qview, acfg, 0))
+            img = img.cpu().numpy()
+            res[at] = dict(ms=ms, left_mean=float(img[left].mean()),
+                           right_max=float(img[right].max()),
+                           launches=dict(block_trace.LAUNCHES))
+        print(f"[14 alpha] {tracer} ({integrator.resolved_tracer(quad, acfg)}) {W}x{H}: "
+              f"alpha_test on: cut-out half mean {res[True]['left_mean']:.4f}, opaque half "
+              f"max {res[True]['right_max']:.4f}, {res[True]['ms']:.1f} ms, launches "
+              f"{res[True]['launches']}; off: cut-out half mean {res[False]['left_mean']:.4f}",
+              flush=True)
+        assert res[True]["left_mean"] >= 4.0 and res[True]["right_max"] < 4.0
+        assert res[False]["left_mean"] < 4.0
+        if tracer == "pallas":  # each bounce re-traces 3 times past cut-out texels
+            assert res[True]["launches"]["closest"] == 2 * 4, res[True]["launches"]
+        out["alpha"][tracer] = res
+    del quad
+
+    # -- participating media --------------------------------------------------
+    g = builtin.smoky_cornell()
+    smoke, _ = flatten.flatten(g.root, device=dev)
+    node, cam = flatten.find_camera(g.root)
+    sview = camera.make_view(node.to_world(), cam.fovy, W, H, device=dev)
+    scfg = integrator.RenderConfig(width=W, height=H, **CORNELL)
+    assert integrator.resolved_tracer(smoke, scfg) == "mxu"
+    _, _, line = _timed_samples(smoke, sview, scfg, "14 smoke", "smoky_cornell", smi,
+                                samples=3)
+    out["smoke"] = line
+    del smoke
+    g = builtin.smoky_cornell(**SMOKE_GOLDEN)
+    smoke, _ = flatten.flatten(g.root, device=dev)
+    gview = camera.make_view(node.to_world(), cam.fovy, 48, 48, device=dev)
+    img = integrator.render_path_progressive(
+        smoke, gview, integrator.RenderConfig(width=48, height=48, rr_depth=100, max_bounces=3),
+        8).cpu().numpy()
+    ref = np.load(ROOT / "tests" / "golden" / "cornell_smoke.npy")
+    mean_rel, pix = _parity(img, ref)
+    out["smoke"]["golden"] = dict(mean=float(img.mean()), ref_mean=float(ref.mean()),
+                                  mean_rel=mean_rel, pixels=pix)
+    print(f"[14 smoke] cornell_smoke golden (48x48, 8 spp): mean {img.mean():.6f} vs "
+          f"{ref.mean():.6f} (rel {mean_rel:.2e}), pixels agreeing {pix:.4f}", flush=True)
+    del smoke
+
+    # -- analytic spheres -----------------------------------------------------
+    from stratum_tpu_torch.scene.graph import SpherePrimitive, TransformComponent
+
+    g = builtin.furnace()
+    for _, prim in g.root.find_in_descendants(SpherePrimitive):
+        prim.analytic = True
+    furn, _ = flatten.flatten(g.root, device=dev)
+    node, cam = flatten.find_camera(g.root)
+    fn = 128
+    img = integrator.render_path_progressive(
+        furn, camera.make_view(node.to_world(), cam.fovy, fn, fn, device=dev),
+        integrator.RenderConfig(width=fn, height=fn, max_bounces=4), 16).cpu().numpy()
+    px, py = np.meshgrid(np.arange(fn) + 0.5, np.arange(fn) + 0.5)
+    tan = np.hypot(px - fn / 2, py - fn / 2) / (fn / 2) * np.tan(np.radians(22.5))
+    sphere_mean = float(img[tan < 0.2].mean())
+    env_exact = bool(np.all(img[tan > 0.3] == np.float32(0.5)))
+    print(f"[14 spheres] analytic furnace {fn}x{fn}, 16 spp: environment pixels all 0.5: "
+          f"{env_exact}; sphere mean {sphere_mean:.6f} (0.4, bound {FURNACE_REL:.0%})",
+          flush=True)
+    assert env_exact and abs(sphere_mean - 0.4) <= FURNACE_REL * 0.4
+    out["spheres"] = dict(furnace_sphere_mean=sphere_mean, furnace_env_exact=env_exact)
+    imgs = {}
+    for analytic in (True, False):
+        g = _sphere_light_box(analytic)
+        box, _ = flatten.flatten(g.root, device=dev)
+        node, cam = flatten.find_camera(g.root)
+        bcfg = integrator.RenderConfig(width=SPHERE_BOX, height=SPHERE_BOX, max_bounces=2)
+        imgs[analytic], ms = _sync_ms(lambda: integrator.render_path_progressive(
+            box, camera.make_view(node.to_world(), cam.fovy, SPHERE_BOX, SPHERE_BOX,
+                                  device=dev), bcfg, 16))
+        imgs[analytic] = imgs[analytic].cpu().numpy()
+        out["spheres"][f"box_{'analytic' if analytic else 'tessellated'}_ms"] = ms
+    # the block tracer with spheres: the merged hits drop the fused payload
+    # and resolve by one tri_payload gather (reference :418-431)
+    g = builtin.atrium()
+    ball = g.root.add_child("ball")
+    t = np.eye(3, 4, dtype=np.float32)
+    t[:, 3] = (0.0, 1.5, 0.0)
+    ball.make_component(TransformComponent(matrix=t))
+    ball.make_component(SpherePrimitive(radius=1.5, analytic=True))
+    ball_scene, _ = flatten.flatten(g.root, device=dev)
+    _, _, line = _timed_samples(ball_scene, view, cfg, "14 spheres", "atrium + 1 analytic sphere",
+                                smi, samples=3)
+    out["spheres"]["atrium_ball"] = line
+    print(f"[14 spheres] atrium + 1 analytic sphere: {line['ms_spp']:.1f} ms/spp vs "
+          f"{main5['ms_spp']:.1f} (phase 5)", flush=True)
+    del ball_scene
+    a, t_ = imgs[True], imgs[False]
+    mask = t_.max(axis=-1) < 5.0  # off the emitter's disc
+    box_rel = rel(float(a[mask].mean()), float(t_[mask].mean()))
+    print(f"[14 spheres] sphere-light box {SPHERE_BOX}x{SPHERE_BOX}, 16 spp: analytic mean "
+          f"{a[mask].mean():.6f} vs tessellated {t_[mask].mean():.6f} (rel {box_rel:.2e}, "
+          f"bound {SPHERE_BOX_REL:.0%})", flush=True)
+    assert np.isfinite(a).all() and box_rel <= SPHERE_BOX_REL
+    out["spheres"]["box_mean_rel"] = box_rel
+    return out
+
+
 def _gpu_tests():
     """Phase 12: tests/test_torch_cuda.py in a subprocess (no conftest: the
     card has no JAX); every test must pass, none skip."""
@@ -1895,6 +2360,10 @@ def main() -> int:
     # ---- 13: the textured colonnade (bench.py's config 4) ------------------
     col = _colonnade(dev, smi)
 
+    # ---- 14: the rest of the path integrator --------------------------------
+    torch.cuda.empty_cache()
+    wave = _wavefront(dev, smi, scene, view, main5, img5)
+
     # ms / plain_ms / wrapper_ms of K1 are means per closest wave over the
     # main path's five waves; K2's are the deferred shadow wave's. K3's are
     # closest wave 1's and the deferred wave's at gs=1, its launches those of
@@ -2008,7 +2477,7 @@ def main() -> int:
     ] + t_kernels
     print(json.dumps({"kernels": kernels,
                       "paths": {"main": main5, "binned": main6, "cornell": cornell,
-                                "colonnade": col["path"]},
+                                "colonnade": col["path"], **wave},
                       "colonnade": {k: col[k] for k in ("golden", "tracers")},
                       "past_budgets": {k: past[k] for k in ("leaves", "triangles", "list_keys",
                                                            "emit_tile")},

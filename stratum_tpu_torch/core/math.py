@@ -10,6 +10,7 @@ import torch
 
 INV_PI = 1.0 / np.pi
 TWO_PI = 2.0 * np.pi
+INV_4PI = 1.0 / (4.0 * np.pi)
 
 
 def dot(a, b):
@@ -108,6 +109,16 @@ def spherical_uv_to_cartesian(uv):
     return torch.stack(
         [sin_t * torch.cos(phi), torch.cos(theta), sin_t * torch.sin(phi)],
         dim=-1,
+    )
+
+
+def sample_uniform_sphere(u1, u2):
+    """Two uniforms -> unit direction uniform on the sphere."""
+    phi = TWO_PI * u2
+    cos_theta = 2.0 * u1 - 1.0
+    sin_theta = safe_sqrt(1.0 - cos_theta * cos_theta)
+    return torch.stack(
+        [sin_theta * torch.cos(phi), cos_theta, sin_theta * torch.sin(phi)], dim=-1
     )
 
 

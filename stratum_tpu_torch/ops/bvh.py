@@ -97,7 +97,8 @@ def build_bvh(positions, indices, valid_mask=None) -> BVHData:
     hi_pts = np.where(valid[:, None], np.maximum(np.maximum(p0, p1), p2), -_BIG)
     scene_lo = lo_pts.min(axis=0)
     extent = np.maximum(hi_pts.max(axis=0) - scene_lo, np.float32(1e-9))
-    codes = morton3(torch.from_numpy((centroid - scene_lo) / extent)).numpy()
+    with np.errstate(over="ignore"):  # no valid triangle: every code is replaced below
+        codes = morton3(torch.from_numpy((centroid - scene_lo) / extent)).numpy()
     codes = np.where(valid, codes, _M32)
     order = np.argsort(codes, kind="stable").astype(np.int32)
 

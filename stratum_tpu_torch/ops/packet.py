@@ -94,6 +94,18 @@ def build_fat_bvh_sah(positions, indices, valid_mask=None,
     )
 
 
+def empty_fat_bvh(leaf_size: int = 256) -> FatBVH:
+    """One leaf with no triangle (numpy): the fat BVH of a scene whose
+    geometry is all analytic spheres. No ray enters its inverted box."""
+    big = np.float32(3e37)
+    return FatBVH(
+        leaf_lo=np.full((1, 3), big, np.float32),
+        leaf_hi=np.full((1, 3), -big, np.float32),
+        leaf_feat=np.zeros((1, leaf_size, 10, 4), np.float32),
+        leaf_tri=np.full((1, leaf_size), -1, np.int32),
+    )
+
+
 def safe_inv(direction):
     """1/d with the reference's +-1e20 stand-in for |d| <= 1e-20."""
     return torch.where(

@@ -1,7 +1,8 @@
 """Next-event-estimation light sampling (counterpart of
-stratum_tpu/render/lights.py:26-343): power-weighted emissive triangles,
-the environment through its 2D CDF tables or its luminance mip pyramid
-(``ENV_SAMPLER``), the env/area split and the MIS pdfs.
+stratum_tpu/render/lights.py): power-weighted emissive triangles and
+analytic sphere lights, the environment through its 2D CDF tables or its
+luminance mip pyramid (``ENV_SAMPLER``), the env/area split, the MIS pdfs,
+and the receiver-aware solid-angle cone sampler of sphere lights.
 """
 
 from __future__ import annotations
@@ -173,19 +174,28 @@ def env_pdf_w_mis(scene, direction):
     return environment_pdf_w(scene, direction) * p_env
 
 
-def sample_area_light(scene, u_sel, u1, u2) -> LightSampleRecord:
-    """Emissive triangle from the power distribution, uniform point on it;
-    pdf_area = P(light) / area. One packed-row gather per sample."""
-    lights = scene.lights
+def _light_index(lights, u_sel):
     li, _, _ = sample_dist1d(lights.power_dist, u_sel)
-    li = torch.clamp(li, max=max(lights.num_lights, 1) - 1)
-    row = lights.packed[li]
+    return torch.clamp(li, max=max(lights.num_lights, 1) - 1)
+
+
+def sample_area_light(scene, u_sel, u1, u2) -> LightSampleRecord:
+    """Emissive primitive from the power distribution and a uniform point on
+    it (on a sphere light's surface where the row is one); pdf_area =
+    P(light) / area. One packed-row gather per sample."""
+    row = scene.lights.packed[_light_index(scene.lights, u_sel)]
     p0, e1, e2 = row[..., 0:3], row[..., 3:6], row[..., 6:9]
     b1, b2 = smath.sample_uniform_triangle(u1, u2)
     pos = p0 + e1 * b1[..., None] + e2 * b2[..., None]
+    nrm = smath.normalize(smath.cross(e1, e2))
+    if scene.spheres.num_spheres > 0:
+        sph3 = (row[..., 15] > 0.5)[..., None]
+        sdir = smath.sample_uniform_sphere(u1, u2)
+        pos = torch.where(sph3, p0 + sdir * row[..., 3:4], pos)
+        nrm = torch.where(sph3, sdir, nrm)
     return LightSampleRecord(
         position=pos,
-        normal=smath.normalize(smath.cross(e1, e2)),
+        normal=nrm,
         radiance=row[..., 9:12],
         pdf_area=row[..., 13] / torch.clamp(row[..., 12], min=1e-12),
         is_env=torch.zeros(pos.shape[:-1], dtype=torch.bool, device=pos.device),
@@ -240,3 +250,66 @@ def env_eval_and_pdf_w_mis(scene, direction):
     pdf_w = row[..., 3] / (_TWO_PI2 * _sin_theta(direction))
     p_env = scene.lights.env_probability if scene.lights.num_lights > 0 else 1.0
     return row[..., 0:3], pdf_w * p_env
+
+
+def _sphere_cone(lights, row, ref_pos):
+    """(solid-angle pdf of the cone sampler, cos of the cone's half angle,
+    squared distance to the center) of sphere-light rows seen from
+    ``ref_pos``."""
+    center, radius = row[..., 0:3], row[..., 3]
+    d2 = smath.length_squared(center - ref_pos)
+    sin2_max = torch.clamp(radius * radius / torch.clamp(d2, min=1e-20), 0.0, 1.0)
+    cos_max = smath.safe_sqrt(1.0 - sin2_max)
+    p_area_branch = 1.0 - lights.env_probability if lights.num_lights > 0 else 0.0
+    pdf_w = row[..., 13] / torch.clamp(smath.TWO_PI * (1.0 - cos_max), min=1e-9) * p_area_branch
+    return pdf_w, cos_max, d2
+
+
+def sample_sphere_light_cone(scene, ref_pos, u_sel, u1, u2):
+    """Receiver-aware NEE: a sphere light samples the cone of directions it
+    subtends from ``ref_pos`` instead of its area (outside the sphere and
+    past the small-angle limit); triangle and env samples are
+    :func:`sample_light`'s. -> (LightSampleRecord, pdf_is_w [N] bool):
+    where pdf_is_w, ``pdf_area`` holds the solid-angle pdf."""
+    base = sample_light(scene, u_sel, u1, u2)
+    lights = scene.lights
+    p_env = lights.env_probability
+    u_area = torch.clamp((u_sel - p_env) / max(1.0 - p_env, 1e-6), 0.0, 1.0 - 1e-7)
+    row = lights.packed[_light_index(lights, u_area)]
+    is_sphere = (row[..., 15] > 0.5) & ~base.is_env
+    center, radius = row[..., 0:3], row[..., 3]
+    pdf_w, cos_max, d2 = _sphere_cone(lights, row, ref_pos)
+    to_c = center - ref_pos
+    d = torch.sqrt(torch.clamp(d2, min=1e-20))
+    inside = d2 <= radius * radius * 1.0001
+    cos_t = 1.0 - u1 * (1.0 - cos_max)
+    sin_t = smath.safe_sqrt(1.0 - cos_t * cos_t)
+    phi = smath.TWO_PI * u2
+    local = torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi), cos_t], dim=-1)
+    wi = smath.to_world(local, to_c / d[..., None])
+    # the near intersection along wi
+    b = smath.dot(-to_c, wi)
+    t_hit = -b - torch.sqrt(torch.clamp(b * b - (d2 - radius * radius), min=0.0))
+    pos = ref_pos + wi * t_hit[..., None]
+    use_cone = is_sphere & ~inside & (cos_max < 1.0 - 1e-7)
+    cone3 = use_cone[..., None]
+    return LightSampleRecord(
+        position=torch.where(cone3, pos, base.position),
+        normal=torch.where(cone3, smath.normalize(pos - center), base.normal),
+        radiance=base.radiance,
+        pdf_area=torch.where(use_cone, pdf_w, base.pdf_area),
+        is_env=base.is_env,
+        tri=base.tri,
+    ), use_cone
+
+
+def sphere_cone_pdf_w(scene, ref_pos, light_row):
+    """Solid-angle pdf with which :func:`sample_sphere_light_cone` yields a
+    direction onto sphere light ``light_row`` from ``ref_pos`` (MIS of a
+    BSDF ray that hits a sphere emitter) -> (pdf_w, usable)."""
+    row = scene.lights.packed[torch.clamp(light_row, min=0).long()]
+    pdf_w, cos_max, d2 = _sphere_cone(scene.lights, row, ref_pos)
+    radius = row[..., 3]
+    usable = ((row[..., 15] > 0.5) & (light_row >= 0) & (d2 > radius * radius * 1.0001)
+              & (cos_max < 1.0 - 1e-7))
+    return pdf_w, usable

@@ -1,13 +1,13 @@
 """Shading points and material rows from fused hit payloads, and the
-texture terms (counterpart of stratum_tpu/render/shading.py:21-268).
-Analytic-sphere terms are not on the port's path: such scenes are refused
-at build time (ROADMAP Queue 1 item 4).
+texture terms (counterpart of stratum_tpu/render/shading.py:21-268),
+analytic-sphere rows included.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from stratum_tpu_torch.core import math as smath
@@ -27,12 +27,17 @@ class ShadingPoint(NamedTuple):
     uv_area: torch.Tensor | None = None  # f32 [N] uv area per world area
 
 
-def shading_point_from_row(row, tri, bary, direction, textured: bool = False) -> ShadingPoint:
+def shading_point_from_row(row, tri, bary, direction, textured: bool = False,
+                           spheres: bool = False) -> ShadingPoint:
     """ShadingPoint from a gathered [N, 32] packed shading row
     (p0|e1|e2|n0|n1|n2|uv0|uv1|uv2|material|light|instance|pad); ``tri``
     only masks misses (-1). ``textured`` adds what the texture terms read:
     the interpolated uv, the material row, the dP/du tangent and the uv
-    area per world area (the ray-cone LOD's input)."""
+    area per world area (the ray-cone LOD's input). ``spheres`` (a scene
+    with analytic spheres) reads rows whose slot 27 is set as spheres:
+    center p0, radius at slot 3, and ``bary`` the hit's (phi / 2pi,
+    theta / pi), from which position, normal, uv, tangent and uv area
+    follow."""
     p0, e1, e2 = row[..., 0:3], row[..., 3:6], row[..., 6:9]
     u = bary[..., 0:1]
     v = bary[..., 1:2]
@@ -41,6 +46,15 @@ def shading_point_from_row(row, tri, bary, direction, textured: bool = False) ->
     ng = smath.normalize(ng_raw)
     ns = smath.normalize(w * row[..., 9:12] + u * row[..., 12:15] + v * row[..., 15:18])
     ns = torch.where(smath.dot(ns, ng)[..., None] < 0.0, -ns, ns)
+    position = p0 + u * e1 + v * e2
+    if spheres:
+        is_sphere = row[..., 27] > 0.5
+        sph_n = smath.spherical_uv_to_cartesian(bary)
+        radius = row[..., 3]
+        sph3 = is_sphere[..., None]
+        position = torch.where(sph3, p0 + sph_n * radius[..., None], position)
+        ng = torch.where(sph3, sph_n, ng)
+        ns = torch.where(sph3, sph_n, ns)
     front = smath.dot(direction, ng) < 0.0
     sign = torch.where(front, 1.0, -1.0)[..., None]
     tex = {}
@@ -60,8 +74,16 @@ def shading_point_from_row(row, tri, bary, direction, textured: bool = False) ->
                                 smath.normalize(tangent), t_fallback),
             uv_area=smath.safe_div(torch.abs(det) * 0.5, torch.clamp(area, min=1e-20)),
         )
+        if spheres:
+            sph_area = 4.0 * np.pi * radius * radius
+            tex.update(
+                uv=torch.where(sph3, bary, tex["uv"]),
+                tangent=torch.where(sph3, smath.make_orthonormal(sph_n)[0], tex["tangent"]),
+                uv_area=torch.where(is_sphere, smath.safe_div(
+                    torch.ones_like(sph_area), torch.clamp(sph_area, min=1e-20)), tex["uv_area"]),
+            )
     return ShadingPoint(
-        position=p0 + u * e1 + v * e2,
+        position=position,
         geom_normal=ng * sign,
         shading_normal=ns * sign,
         light=torch.where(tri >= 0, row[..., 25].to(torch.int32), -1),

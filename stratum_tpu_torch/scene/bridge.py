@@ -3,9 +3,10 @@ SceneData, so a test can feed both packages the very same scene.
 
 ``numpy_fields`` walks any nested NamedTuple (the JAX SceneData included)
 into ``{"geo.positions": array, ...}`` with ``np.asarray`` on the leaves;
-``scene_from_numpy`` builds the port's scene from such a dict. Neither
-imports JAX. The reference's texture stack is no NamedTuple, so only
-untextured scenes bridge (with the 1x1 sentinel stack the reference has).
+``scene_from_numpy`` builds the port's scene from such a dict, analytic
+spheres and media included. Neither imports JAX. The reference's texture
+stack is no NamedTuple, so only untextured scenes bridge (with the 1x1
+sentinel stack the reference has).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 from stratum_tpu_torch.core.distribution import Dist1D, Dist2D
 from stratum_tpu_torch.ops.bvh import BVHData
 from stratum_tpu_torch.ops.packet import FatBVH
+from stratum_tpu_torch.render.medium import MediumData
 from stratum_tpu_torch.render.texture import build_texture_stack
 from stratum_tpu_torch.scene import schema
 
@@ -36,14 +38,15 @@ def _dist1d(f, key):
     return Dist1D(pdf=f[key + ".pdf"], cdf=f[key + ".cdf"])
 
 
+def _slots_used(majorant) -> int:
+    used = np.nonzero(majorant > 0)[0]
+    return int(used[-1]) + 1 if used.size else 0
+
+
 def scene_from_numpy(fields: dict, device) -> schema.SceneData:
     """Port SceneData on ``device`` from :func:`numpy_fields` output (an
     untextured scene's)."""
     f = fields
-    if "spheres.radius" in f and f["spheres.radius"].shape[0] > 0:
-        raise NotImplementedError("analytic spheres: ROADMAP Queue 1 item 4")
-    if "media.density" in f and f["media.density"].shape[1] > 1:
-        raise NotImplementedError("participating media: ROADMAP Queue 1 item 4")
     if any((f["materials." + t] >= 0).any() for t in schema.MATERIAL_TEXTURES):
         raise ValueError("textured scenes do not bridge: flatten them with the port")
 
@@ -80,5 +83,8 @@ def scene_from_numpy(fields: dict, device) -> schema.SceneData:
         tri_payload=schema.build_tri_payload(f["geo.packed_tri"], f["materials.packed"]),
         bvh=sub(BVHData, "bvh."),
         textures=build_texture_stack([]),
+        spheres=sub(schema.SphereSoA, "spheres."),
+        media=MediumData(**{k: f["media." + k] for k in MediumData._fields if k != "slots_used"},
+                         slots_used=_slots_used(f["media.majorant"])),
     )
     return schema.to_device(scene, device)

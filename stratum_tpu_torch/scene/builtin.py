@@ -1,6 +1,6 @@
-"""Built-in scenes (counterpart of stratum_tpu/scene/builtin.py:24-250,
-286-313): the Cornell box, the material spheres, the procedural atrium and
-the white furnace, built on the port's
+"""Built-in scenes (counterpart of stratum_tpu/scene/builtin.py:24-313):
+the Cornell box, the material spheres, the procedural atrium, the smoky
+Cornell box and the white furnace, built on the port's
 node graph with its numpy sphere tessellation and look_at, so building them
 pulls in nothing of the JAX package.
 """
@@ -12,6 +12,7 @@ import numpy as np
 from stratum_tpu_torch.scene.graph import (
     CameraComponent,
     EnvironmentComponent,
+    MediumComponent,
     MeshPrimitive,
     NodeGraph,
     SpherePrimitive,
@@ -193,6 +194,31 @@ def atrium(columns: int = 6, stacks: int = 24, slices: int = 48) -> NodeGraph:
         matrix=look_at((0.0, 4.0, -hl + 2.0), (0.0, 4.0, hl))
     ))
     cam.make_component(CameraComponent(fovy=np.radians(55.0)))
+    return g
+
+
+def smoky_cornell(res: int = 32, sigma: float = 0.02) -> NodeGraph:
+    """The Cornell box without its boxes, filled by a heterogeneous smoke
+    plume: a swirling column (radial falloff around an axis displaced
+    sinusoidally with height, thinning upward) on a ``res``^3 grid."""
+    g = cornell_box(boxes=False)
+    z = np.linspace(0.0, 1.0, res, dtype=np.float32)
+    zz, yy, xx = np.meshgrid(z, z, z, indexing="ij")  # [D, H, W] = (z, y, x)
+    ax = 0.5 + 0.18 * np.sin(6.0 * yy)
+    az = 0.5 + 0.18 * np.cos(5.0 * yy + 1.3)
+    r2 = (xx - ax) ** 2 + (zz - az) ** 2
+    radius = 0.10 + 0.22 * yy
+    core = np.exp(-r2 / np.maximum(radius**2, 1e-6))
+    ripple = 0.75 + 0.25 * np.sin(12.0 * xx + 9.0 * zz + 7.0 * yy)
+    density = (sigma * core * ripple * (1.0 - 0.6 * yy)).astype(np.float32)
+    smoke = g.root.add_child("smoke")
+    smoke.make_component(MediumComponent(
+        density=density,
+        box_lo=np.asarray([80.0, 0.0, 80.0], np.float32),
+        box_hi=np.asarray([475.0, 460.0, 475.0], np.float32),
+        albedo=np.asarray([0.85, 0.85, 0.9], np.float32),
+        g=0.3,
+    ))
     return g
 
 

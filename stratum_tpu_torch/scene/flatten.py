@@ -7,8 +7,9 @@ the texture stack, the environment tables, the light table, the native SAH
 fat BVH (K = 256), the LBVH, the fused per-slot hit payload and the dense
 tracers' triangle features and per-triangle payload, all in numpy, then
 moves the result onto ``device`` (the card unless the caller names
-another). Scenes with analytic spheres or media are refused: their render
-paths are not ported yet (ROADMAP Queue 1 item 4).
+another). Analytic spheres become a ``SphereSoA`` with their shading rows
+after the padded triangles' (and sphere lights in the light table);
+``MediumComponent`` volumes become the density bricks of ``build_media``.
 """
 
 from __future__ import annotations
@@ -31,8 +32,9 @@ from stratum_tpu_torch.scene.material import Material
 from stratum_tpu_torch.core.distribution import Dist1D, Dist2D, build_env_dist2d
 from stratum_tpu_torch.ops.bvh import build_bvh
 from stratum_tpu_torch.ops.mxu import build_tri_features
-from stratum_tpu_torch.ops.packet import build_fat_bvh_sah
+from stratum_tpu_torch.ops.packet import build_fat_bvh_sah, empty_fat_bvh
 from stratum_tpu_torch.render import texture as stex
+from stratum_tpu_torch.render.medium import build_media
 from stratum_tpu_torch.scene import schema
 
 LEAF_SIZE = 256
@@ -156,6 +158,7 @@ def flatten(root: Node, env_probability: float = 0.5, device="cuda"):
         stats.num_instances += 1
 
     env_component = None
+    media_list, sphere_list = [], []
     for node in root.descendants():
         mp = node.find(MeshPrimitive)
         if mp is not None:
@@ -163,20 +166,39 @@ def flatten(root: Node, env_probability: float = 0.5, device="cuda"):
         sp = node.find(SpherePrimitive)
         if sp is not None:
             if sp.analytic:
-                raise NotImplementedError(
-                    "analytic spheres: ROADMAP Queue 1 item 4 (media and spheres)"
-                )
-            pos, nrm, uv, idx = tessellate_sphere(sp.radius, sp.stacks, sp.slices)
-            add_mesh(node, pos, idx, nrm, uv, sp.material)
+                # exact quadratic hits; a uniform scale is assumed (the
+                # sphere carries a radius, not a general transform)
+                m = node.to_world()
+                sphere_list.append(dict(
+                    center=np.asarray(m[:, 3], np.float32),
+                    radius=np.float32(sp.radius * float(np.cbrt(abs(np.linalg.det(m[:, :3]))))),
+                    material=material_row(sp.material), instance=stats.num_instances,
+                ))
+                stats.num_instances += 1
+            else:
+                pos, nrm, uv, idx = tessellate_sphere(sp.radius, sp.stacks, sp.slices)
+                add_mesh(node, pos, idx, nrm, uv, sp.material)
         ec = node.find(EnvironmentComponent)
         if ec is not None:
             env_component = ec
-        if node.find(MediumComponent) is not None:
-            raise NotImplementedError(
-                "participating media: ROADMAP Queue 1 item 4 (media and spheres)"
-            )
+        mc = node.find(MediumComponent)
+        if mc is not None:
+            m = node.to_world()
+            lo = m[:, :3] @ np.asarray(mc.box_lo, np.float32) + m[:, 3]
+            hi = m[:, :3] @ np.asarray(mc.box_hi, np.float32) + m[:, 3]
+            media_list.append(dict(density=mc.density, box_lo=np.minimum(lo, hi),
+                                   box_hi=np.maximum(lo, hi), albedo=mc.albedo, g=mc.g))
+    if not all_pos and not sphere_list:
+        raise ValueError("scene contains no geometry")
     if not all_pos:
-        raise ValueError("scene contains no triangle geometry")
+        # an all-analytic scene: one degenerate, unhittable triangle anchors
+        # the padded triangle arrays
+        all_pos.append(np.zeros((3, 3), np.float32))
+        all_nrm.append(np.tile([[0.0, 0.0, 1.0]], (3, 1)).astype(np.float32))
+        all_uv.append(np.zeros((3, 2), np.float32))
+        all_idx.append(np.zeros((1, 3), np.int32))
+        all_mat.append(np.full((1,), -1, np.int32))
+        all_inst.append(np.zeros((1,), np.int32))
 
     tex_images: list = []
     tex_ids: dict = {}
@@ -222,19 +244,34 @@ def flatten(root: Node, env_probability: float = 0.5, device="cuda"):
         np.concatenate(all_uv), np.concatenate(all_idx),
         np.concatenate(all_mat), np.concatenate(all_inst),
     )
-    lights, tri_light = schema.build_lights(
+    spheres = schema.empty_spheres()
+    if sphere_list:
+        spheres = schema.SphereSoA(
+            center=np.stack([x["center"] for x in sphere_list]),
+            radius=np.asarray([x["radius"] for x in sphere_list], np.float32),
+            material=np.asarray([x["material"] for x in sphere_list], np.int32),
+            light=spheres.light,
+            instance=np.asarray([x["instance"] for x in sphere_list], np.int32),
+        )
+    lights, tri_light, sphere_light = schema.build_lights(
         pos_p, idx_p, mat_p, mats.emission,
         env_probability=env_probability if has_env else 0.0,
+        sphere_center=spheres.center, sphere_radius=spheres.radius,
+        sphere_material=spheres.material,
     )
+    spheres = spheres._replace(light=sphere_light)
     packed_rows = schema.pack_tri_rows(
         pos_p, nrm_p, uv_p, idx_p, mat_p, tri_light, inst_p
     )
+    if sphere_list:  # a hit with tri >= T is sphere tri - T
+        packed_rows = np.concatenate([packed_rows, schema.pack_sphere_rows(*spheres)])
     geo = schema.GeometrySoA(
         positions=pos_p, normals=nrm_p, uvs=uv_p, indices=idx_p,
         tri_material=mat_p, tri_light=tri_light, tri_instance=inst_p,
         packed_tri=packed_rows,
     )
-    fat = build_fat_bvh_sah(pos_p, idx_p, mat_p >= 0, leaf_size=LEAF_SIZE)
+    fat = (build_fat_bvh_sah(pos_p, idx_p, mat_p >= 0, leaf_size=LEAF_SIZE)
+           if (mat_p >= 0).any() else empty_fat_bvh(LEAF_SIZE))
     scene = schema.SceneData(
         geo=geo, materials=mats, lights=lights, env=env, fat_bvh=fat,
         slot_payload=build_slot_payload(packed_rows, mats, fat),
@@ -242,6 +279,8 @@ def flatten(root: Node, env_probability: float = 0.5, device="cuda"):
         tri_payload=schema.build_tri_payload(packed_rows, mats.packed),
         bvh=build_bvh(pos_p, idx_p, mat_p >= 0),
         textures=textures,
+        spheres=spheres,
+        media=build_media(media_list),
     )
     stats.num_triangles = int(sum(i.shape[0] for i in all_idx))
     stats.num_vertices = int(vert_base)

@@ -15,6 +15,7 @@ import torch
 from stratum_tpu_torch.core.distribution import Dist1D, Dist2D, build_dist1d, build_dist2d
 from stratum_tpu_torch.ops.bvh import BVHData
 from stratum_tpu_torch.ops.packet import FatBVH
+from stratum_tpu_torch.render.medium import MediumData
 from stratum_tpu_torch.render.texture import TextureStack
 
 TRI_PAD = 128
@@ -69,14 +70,52 @@ class DisneyMaterials(NamedTuple):
     packed: torch.Tensor  # f32 [M, 24] one-gather row
 
 
+class SphereSoA(NamedTuple):
+    """Analytic sphere primitives; radius <= 0 marks padding. A sphere's
+    shading row follows the padded triangles' rows in ``packed_tri`` and
+    ``tri_payload`` (row T + sid, the sphere flag at slot 27)."""
+
+    center: torch.Tensor  # f32 [S, 3] world space
+    radius: torch.Tensor  # f32 [S]
+    material: torch.Tensor  # i32 [S]
+    light: torch.Tensor  # i32 [S] light row or -1
+    instance: torch.Tensor  # i32 [S]
+
+    @property
+    def num_spheres(self) -> int:
+        return self.radius.shape[0]
+
+
+def empty_spheres() -> SphereSoA:
+    return SphereSoA(
+        center=np.zeros((0, 3), np.float32), radius=np.zeros((0,), np.float32),
+        material=np.zeros((0,), np.int32), light=np.full((0,), -1, np.int32),
+        instance=np.zeros((0,), np.int32),
+    )
+
+
+def pack_sphere_rows(center, radius, material, light, instance) -> np.ndarray:
+    """[S, 32] shading rows of analytic spheres: [0:3] center, [3] radius,
+    [24] material, [25] light, [26] instance, [27] 1.0 (the sphere flag)."""
+    rows = np.zeros((radius.shape[0], 32), np.float32)
+    rows[:, 0:3] = center
+    rows[:, 3] = radius
+    rows[:, 24] = material
+    rows[:, 25] = light
+    rows[:, 26] = instance
+    rows[:, 27] = 1.0
+    return rows
+
+
 class LightData(NamedTuple):
-    """Emissive-triangle light table and its power distribution."""
+    """Emissive-triangle and sphere-light table and its power distribution
+    (row slot 15: 0 triangle, 1 sphere)."""
 
     tri_index: torch.Tensor  # i32 [L]
     area: torch.Tensor  # f32 [L]
     power: torch.Tensor  # f32 [L]
     power_dist: Dist1D  # over L
-    num_lights: int  # 0 => no area lights
+    num_lights: int  # triangle and sphere lights; 0 => none
     env_probability: float  # P(sample env | sampling a light)
     packed: torch.Tensor  # f32 [L, 16] p0|e1|e2|Le|area|sel_pdf|tri|type
 
@@ -112,6 +151,8 @@ class SceneData(NamedTuple):
     tri_payload: torch.Tensor
     bvh: BVHData  # the LBVH (ops/bvh.py, tracer="bvh")
     textures: TextureStack  # render/texture.py; base_res 1 = untextured
+    spheres: SphereSoA  # analytic spheres (ops/spheres.py)
+    media: MediumData  # volumes (render/medium.py); a 1^3 brick = none
 
     @property
     def device(self) -> torch.device:
@@ -285,9 +326,12 @@ def triangle_areas(positions, indices):
 
 
 def build_lights(positions, indices, tri_material, emission,
-                 env_probability: float = 0.0):
-    """Emissive triangles and their power distribution (numpy).
-    Returns (LightData, tri_light[T])."""
+                 env_probability: float = 0.0, sphere_center=None,
+                 sphere_radius=None, sphere_material=None):
+    """Emissive triangles and emissive analytic spheres, and their power
+    distribution (numpy). Sphere rows: [0:3] center, [3] radius, [12]
+    4 pi r^2, [14] -2 - sid, [15] 1.0. Returns (LightData, tri_light[T],
+    sphere_light[S])."""
     t = indices.shape[0]
     tri_light = np.full((t,), -1, np.int32)
     valid = tri_material >= 0
@@ -295,8 +339,18 @@ def build_lights(positions, indices, tri_material, emission,
     lum[valid] = emission[tri_material[valid]].mean(axis=-1)
     light_tris = np.nonzero(lum > 0.0)[0].astype(np.int32)
     nl = len(light_tris)
-    npad = max(_pad_to(max(nl, 1), 8), 8)
+    s = 0 if sphere_radius is None else sphere_radius.shape[0]
+    sphere_light = np.full((s,), -1, np.int32)
+    light_sph = np.zeros((0,), np.int32)
+    if s:
+        light_sph = np.nonzero(
+            (emission[np.maximum(sphere_material, 0)].mean(axis=-1) > 0) & (sphere_radius > 0)
+        )[0].astype(np.int32)
+    ns = len(light_sph)
+    ntot = nl + ns
+    npad = max(_pad_to(max(ntot, 1), 8), 8)
     tri_light[light_tris] = np.arange(nl, dtype=np.int32)
+    sphere_light[light_sph] = nl + np.arange(ns, dtype=np.int32)
     areas = np.zeros((npad,), np.float32)
     powers = np.zeros((npad,), np.float32)
     tri_idx = np.zeros((npad,), np.int32)
@@ -311,6 +365,17 @@ def build_lights(positions, indices, tri_material, emission,
         packed[:nl, 3:6] = positions[indices[light_tris, 1]] - p0
         packed[:nl, 6:9] = positions[indices[light_tris, 2]] - p0
         packed[:nl, 9:12] = emission[tri_material[light_tris]]
+    if ns:
+        r = sphere_radius[light_sph]
+        a = 4.0 * np.pi * r * r
+        le = emission[sphere_material[light_sph]]
+        areas[nl:ntot] = a
+        powers[nl:ntot] = le.mean(axis=-1) * a * np.pi
+        tri_idx[nl:ntot] = -2 - light_sph
+        packed[nl:ntot, 0:3] = sphere_center[light_sph]
+        packed[nl:ntot, 3] = r
+        packed[nl:ntot, 9:12] = le
+        packed[nl:ntot, 15] = 1.0
     weights = powers if powers.sum() > 0 else np.ones((npad,), np.float32)
     power_dist = build_dist1d(weights)
     packed[:, 12] = areas
@@ -319,8 +384,9 @@ def build_lights(positions, indices, tri_material, emission,
     return (
         LightData(
             tri_index=tri_idx, area=areas, power=powers, power_dist=power_dist,
-            num_lights=nl, env_probability=float(np.float32(env_probability)),
+            num_lights=ntot, env_probability=float(np.float32(env_probability)),
             packed=packed,
         ),
         tri_light,
+        sphere_light,
     )

@@ -21,8 +21,13 @@ values within their tools' bounds; the dense tracer's product against float64 wi
 magnitude (TF32 would lose 1e-3), and its render within test_torch_slice's
 bounds of the CPU render; texture samples within 1e-6 of the CPU's, and a
 textured colonnade render through K1/K2 within test_torch_slice's bounds of
-the CPU render.
+the CPU render. On the tiny atrium through K1/K2, ``render_path_batched``
+and ``render_path_lanes`` (without the light tile) against the sequential
+samples, and caps of 1.0 (``wave_caps``) against the uncapped render, at
+rtol 1e-5 / atol 1e-7.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -467,3 +472,52 @@ def test_colonnade_render_on_the_card(dev, tmp_path):
     assert np.isfinite(img).all()
     assert abs(img.mean() - ref.mean()) <= 0.02 * ref.mean()
     assert np.all(np.abs(img - ref) <= 1e-3 * (1 + np.abs(ref)), axis=-1).mean() >= 0.97
+
+
+@pytest.fixture(scope="module")
+def tiny_render(atrium, dev):
+    """The tiny atrium's view at 64x32 and the bench configuration (3
+    bounces) on the block kernel."""
+    g = builtin.atrium(columns=1, stacks=6, slices=12)
+    node, cam = flatten.find_camera(g.root)
+    view = camera.make_view(node.to_world(), cam.fovy, 64, 32, device=dev)
+    cfg = integrator.RenderConfig(width=64, height=32, max_bounces=3, bsdf="disney",
+                                  presample_lights=4096, coherent_tiles=16, tracer="pallas")
+    return atrium["scene"], view, cfg
+
+
+def test_batched_equals_progressive_on_the_card(tiny_render):
+    """``render_path_batched`` sums the same samples as
+    ``render_path_progressive`` (rtol 1e-5, atol 1e-7); its ray count is
+    the samples' sum."""
+    scene, view, cfg = tiny_render
+    before = block_trace.LAUNCHES["closest"]
+    img, rays = integrator.render_path_batched(scene, view, cfg, 3, 2)
+    assert block_trace.LAUNCHES["closest"] - before == 3 * 4
+    ref = integrator.render_path_progressive(scene, view, cfg, 3, 2)
+    torch.testing.assert_close(img, ref, rtol=1e-5, atol=1e-7)
+    counts = [int(integrator.render_path_with_counts(scene, view, cfg, s)[1]) for s in (2, 3, 4)]
+    assert int(rays) == sum(counts)
+
+
+def test_lanes_without_presample_equal_sequential_on_the_card(tiny_render):
+    """Without the light tile, ``render_path_lanes`` (2 samples as one
+    4,096-lane wave) is the sequential mean (rtol 1e-5, atol 1e-7)."""
+    scene, view, cfg = tiny_render
+    cfg = dataclasses.replace(cfg, presample_lights=0, coherent_tiles=0)
+    img, rays = integrator.render_path_lanes(scene, view, cfg, 2, 5)
+    ref = integrator.render_path_progressive(scene, view, cfg, 2, 5)
+    torch.testing.assert_close(img, ref, rtol=1e-5, atol=1e-7)
+    counts = [int(integrator.render_path_with_counts(scene, view, cfg, s)[1]) for s in (5, 6)]
+    assert int(rays) == sum(counts)
+
+
+def test_non_binding_wave_caps_equal_uncapped_on_the_card(tiny_render):
+    """Caps of 1.0 never compact: the uncapped render (rtol 1e-5, atol
+    1e-7) and its ray count."""
+    scene, view, cfg = tiny_render
+    img, n = integrator.render_path_with_counts(
+        scene, view, dataclasses.replace(cfg, wave_caps=(1.0,)), 1)
+    ref, n_ref = integrator.render_path_with_counts(scene, view, cfg, 1)
+    torch.testing.assert_close(img, ref, rtol=1e-5, atol=1e-7)
+    assert int(n) == int(n_ref)

@@ -136,8 +136,9 @@ def _scene_with(component_node):
 
 @pytest.mark.parametrize("what", ["analytic_sphere", "medium", "texture", "env_image"])
 def test_unported_scene_features_raise(what):
-    """Analytic spheres and media raise naming their ROADMAP item;
-    textures and environment images, ported since, flatten."""
+    """Every scene feature of the reference flattens since ROADMAP Queue 1
+    items 2 (textures, environment images) and 4 (analytic spheres,
+    media); each case checks what ``flatten`` built."""
     def add(n):
         if what == "analytic_sphere":
             n.make_component(SpherePrimitive(radius=5.0, analytic=True))
@@ -152,15 +153,18 @@ def test_unported_scene_features_raise(what):
             n.make_component(EnvironmentComponent(
                 color=np.ones(3, np.float32), image=np.ones((4, 8, 3), np.float32)))
 
-    if what in ("texture", "env_image"):  # ported with ROADMAP Queue 1 item 2
-        scene, _ = flatten.flatten(_scene_with(add).root, device="cpu")
-        if what == "texture":
-            assert scene.textures.num_tex == 1 and scene.textures.resolution == 64
-        else:
-            assert scene.env.emission.shape == (4, 8, 3) and scene.lights.env_probability > 0
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flatten.flatten(_scene_with(add).root, device="cpu")
+    scene, _ = flatten.flatten(_scene_with(add).root, device="cpu")
+    if what == "texture":
+        assert scene.textures.num_tex == 1 and scene.textures.resolution == 64
+    elif what == "env_image":
+        assert scene.env.emission.shape == (4, 8, 3) and scene.lights.env_probability > 0
+    elif what == "analytic_sphere":
+        assert scene.spheres.num_spheres == 1 and float(scene.spheres.radius[0]) == 5.0
+        assert scene.geo.packed_tri.shape[0] == scene.geo.num_triangles + 1
+        assert float(scene.geo.packed_tri[-1, 27]) == 1.0
+    else:
+        assert scene.media.slots_used == 1 and scene.media.density.shape == (8, 64, 64, 64)
+        assert scene.media.majorant.tolist() == [1.0] + [0.0] * 7
 
 
 def test_entry_points_default_to_the_card():

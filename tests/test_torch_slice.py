@@ -250,7 +250,11 @@ def test_clamp_and_shadow_rr_match_reference(depth):
     np.testing.assert_allclose(pc.numpy(), np.asarray(jc), rtol=1e-6)
 
 
-PORTED_OPTIONS = (dict(tracer="packet"), dict(tracer="bvh"), dict(tex_filter="stochastic"))
+PORTED_OPTIONS = (
+    dict(tracer="packet"), dict(tracer="bvh"), dict(tex_filter="stochastic"),
+    dict(alpha_test=True), dict(ris_candidates=4), dict(wave_caps=(1.0, 0.5)),
+    dict(slim_carry=True), dict(use_nee=False), dict(use_mis=False),
+)
 
 
 @pytest.mark.parametrize("option", [
@@ -264,7 +268,10 @@ def test_unported_options_raise(case, option):
     """Each option raises naming its ROADMAP item until the item is ported;
     the tracers ``packet`` and ``bvh`` and ``tex_filter="stochastic"``
     (items 1 and 2) are accepted since (their renders:
-    test_torch_tracers.py, test_torch_colonnade.py)."""
+    test_torch_tracers.py, test_torch_colonnade.py), and so are the alpha
+    test, RIS, ``wave_caps``, ``slim_carry`` and NEE or MIS off (items 3
+    and 4; their renders: test_torch_wavefront.py,
+    test_torch_estimators.py)."""
     cfg = _cfg(**{**BENCH, **option})
     if option in PORTED_OPTIONS:
         integrator.check_supported(cfg)
