@@ -95,8 +95,10 @@ Phases, each printing its results:
    sphere within 4 % of 0.4); ``render_direct`` on the Cornell box at
    1080p with ``auto`` and ``brute``, finite and in agreement;
 12. ``tests/test_torch_cuda.py`` in a subprocess (``--noconftest``): every
-   test must pass, none skip (39: the kernels against their plain versions
-   and three equalities of the wavefront entry points);
+   test must pass, none skip (44: the kernels against their plain versions,
+   three equalities of the wavefront entry points, BDPT and light tracing
+   on K1/K2 against the brute-force tracer, same-seed BDPT renders and the
+   splat bit-equal);
 13. the textured colonnade, bench.py's config 4: ``write_colonnade`` at its
    defaults (110,408 triangles, three 256-texel PNG textures, a 256-wide HDR
    sky) into ``build/colonnade``, loaded through the OBJ + MTL loader and
@@ -135,7 +137,25 @@ Phases, each printing its results:
    A layer split (a synchronise around each tracer layer) of a plain
    sample, a capped one and lane-batched ones gives their glue per sample
    in one call. Each timed line gives ms/spp, Mrays/s and peak memory
-   beside the card's name and power limit.
+   beside the card's name and power limit;
+15. the integrators above the path tracer at 1920x1080 on the full atrium:
+   BDPT at bench.py's configuration (3 bounces, Disney, sorted waves,
+   ``lvc_connections=4``) through ``render_bdpt_chunked(..., chunks=16)``:
+   one chunk's waves captured (camera and light walk waves 0 and 1 on K1,
+   the s = 1, light-cache and t = 1 splat occlusion batches on K2), each
+   timed whole against its bound and held to plain on N_CHECK lanes, with
+   the per-CTA list mean of the camera and light (from the emitters) first
+   waves; 1 warm-up and 2 timed samples with the launch counters zeroed
+   around them (128 K1 and 48 K2 launches a sample), peak memory, a
+   same-seed render bit-equal, the device busy share of one profiled
+   sample; at 480x270, paired BDPT in 16 chunks against 1 (rtol 1e-4,
+   atol 1e-6), BDPT's mean against the path tracer's (5 %, 4 spp each) and
+   two frames of ``render_bdpt_reuse`` against two without reuse (6 %).
+   Then ``render_lt`` (1 + 2 samples, 5 K1 and 4 K2 launches a sample),
+   ``restir_di`` (4 candidates, 2 spatial taps, three frames with the state
+   fed back), ``render_adaptive`` (a 4 spp budget, pilot 2, frac 0.25), one
+   sample under ``QMC = "kron"`` (mean within phase 4's parity bound of
+   phase 5's, ``QMC`` restored) and one ``indirect_only`` sample.
 
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 result line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -1066,7 +1086,7 @@ GOLDENS = {  # tests/update_goldens.py:41-52 (48x48, rr_depth=100)
 FURNACE_REL = 0.04  # sphere mean against albedo x radiance (tests/test_torch_dense_path.py)
 DIRECT_MEAN_REL = 1e-3  # render_direct, auto (mxu) against brute
 DIRECT_PIXEL_SHARE = 0.999
-GPU_TESTS = 39  # tests in tests/test_torch_cuda.py
+GPU_TESTS = 44  # tests in tests/test_torch_cuda.py
 
 
 def _modes_equal(fat, o, d, bound, occluded, gs):
@@ -1658,7 +1678,7 @@ SPHERE_BOX = 256  # sphere-light box frame, analytic against tessellated
 SPHERE_BOX_REL = 0.05  # tests/test_spheres.py:101-120
 
 
-def _whole_wave(fat, occluded, o, d, t, rng, label):
+def _whole_wave(fat, occluded, o, d, t, rng, label, phase="14", smi=""):
     """One wave of K1 (closest) or K2 (occluded) timed whole against its
     bound, and held to its plain version on an N_CHECK-lane slice -> dict."""
     import torch
@@ -1687,11 +1707,11 @@ def _whole_wave(fat, occluded, o, d, t, rng, label):
                               warmup=False)
         c = _compare_closest(fat, os_, ds_, hk, hp, ts_ > 0)
         _check_closest(f"{label} slice", c)
-    print(f"[14 waves] {label} ({o.shape[0]} lanes, {int((t > 0).sum())} live): kernel "
+    print(f"[{phase} waves] {label} ({o.shape[0]} lanes, {int((t > 0).sum())} live): kernel "
           f"{ms:.3f} ms (bound {bound_ms:.3f} ms, {bound_by}; {tests} tests); "
-          f"{os_.shape[0]}-lane slice: plain {plain_ms:.3f} ms", flush=True)
+          f"{os_.shape[0]}-lane slice: plain {plain_ms:.3f} ms | {smi}", flush=True)
     return dict(c, ms=ms, plain_slice_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                tests=tests, lanes=o.shape[0])
+                tests=tests, lanes=o.shape[0], wave_live=int((t > 0).sum()))
 
 
 def _sync_ms(fn):
@@ -1868,9 +1888,10 @@ def _wavefront(dev, smi, scene, view, main5, img5):
     ((o, w, t),) = waves["occluded"]
     assert t.shape[0] == 20 * n
     out["lanes"]["closest_wave1"] = _whole_wave(fat, False, *waves["closest"][1], rng,
-                                                "lanes=4 closest wave 1")
+                                                "lanes=4 closest wave 1", smi=smi)
     del waves
-    out["lanes"]["deferred"] = _whole_wave(fat, True, o, w, t, rng, "lanes=4 deferred wave")
+    out["lanes"]["deferred"] = _whole_wave(fat, True, o, w, t, rng, "lanes=4 deferred wave",
+                                           smi=smi)
     del o, w, t
     torch.cuda.empty_cache()
     nopre = dataclasses.replace(cfg, presample_lights=0, coherent_tiles=0)
@@ -1916,7 +1937,8 @@ def _wavefront(dev, smi, scene, view, main5, img5):
     assert lanes_c == budgets, lanes_c
     o, d, tm = waves["closest"][3]
     del waves
-    line["compacted_wave3"] = _whole_wave(fat, False, o, d, tm, rng, "wave_caps closest wave 3")
+    line["compacted_wave3"] = _whole_wave(fat, False, o, d, tm, rng, "wave_caps closest wave 3",
+                                          smi=smi)
     live = tm > 0  # its live lanes alone: a count that is not whole CTAs
     o_l, d_l, t_l = o[live], d[live], tm[live]
     hk = block_trace.block_closest(fat, o_l, d_l, t_l)
@@ -2089,6 +2111,233 @@ def _wavefront(dev, smi, scene, view, main5, img5):
     assert np.isfinite(a).all() and box_rel <= SPHERE_BOX_REL
     out["spheres"]["box_mean_rel"] = box_rel
     return out
+
+
+BDPT = dict(max_bounces=3, bsdf="disney", sort_rays=True, lvc_connections=4,
+            presample_lights=4096)  # bench.py:176-179
+BDPT_CHUNKS = 16  # bench.py:181: 129,600 lanes a chunk at 1080p
+# per sample: 4 camera and 4 light closest waves a chunk; the s = 1, LVC and
+# t = 1 occlusion batches a chunk
+BDPT_LAUNCHES = {"closest": 8 * BDPT_CHUNKS, "occluded": 3 * BDPT_CHUNKS}
+SMALL = (480, 270)  # the chunk and estimator checks (one 1080p chunk's pixels)
+CHUNK_RTOL, CHUNK_ATOL = 1e-4, 1e-6  # tests/test_bdpt.py:203 (paired, 16 chunks vs 1)
+BDPT_PT_REL = 0.05  # tests/test_bdpt.py:29, BDPT's mean against the path tracer's
+LVC_REUSE_REL = 0.06  # tests/test_bdpt.py:185, reuse against no reuse
+ESTIMATOR_SPP = 4  # samples of each side of the estimator checks at SMALL
+
+
+def _timed_runs(label, fn, seeds, smi, lanes):
+    """``fn(seed)`` over ``seeds`` (the first a warm-up) with the launch
+    counters zeroed after the warm-up -> (last result, dict of ms per call,
+    peak GiB, launches)."""
+    import torch
+    from stratum_tpu_torch.ops import binned, block_trace
+
+    fn(seeds[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    times = []
+    for seed in seeds[1:]:
+        out, ms = _sync_ms(lambda: fn(seed))
+        times.append(ms)
+    launches = dict(block_trace.LAUNCHES)
+    assert not any(binned.LAUNCHES.values()), dict(binned.LAUNCHES)
+    line = dict(ms=times, ms_mean=sum(times) / len(times),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                launches={k: v / len(times) for k, v in launches.items()})
+    print(f"[15 {label}] {lanes}: {', '.join(f'{t:.1f}' for t in times)} ms "
+          f"(mean {line['ms_mean']:.1f}), peak {line['peak_gib']:.2f} GiB, launches a call "
+          f"{line['launches']} | {smi}", flush=True)
+    return out, line
+
+
+def _bdpt_phase(dev, smi, scene, view, main5, img5):
+    """Phase 15: BDPT at bench.py's configuration on the full atrium at
+    1920x1080 in 16 chunks (its waves through K1/K2, timed samples, the
+    launch counts, determinism, chunked = unchunked, BDPT = PT and
+    cross-frame reuse at 480x270), then light tracing, ReSTIR DI, adaptive
+    sampling, the Kronecker lattice and indirect_only -> (dict for the
+    JSON line's ``paths``, K1 and K2 wave records)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from stratum_tpu_torch import profile_sample
+    from stratum_tpu_torch.core import rng as srng
+    from stratum_tpu_torch.ops import block_trace
+    from stratum_tpu_torch.render import adaptive, bdpt, camera, integrator, lighttrace, restir
+    from stratum_tpu_torch.scene import builtin, flatten
+
+    W, H = FRAME
+    n = W * H
+    fat = scene.fat_bvh
+    rng = np.random.default_rng(15)
+    cfg = integrator.RenderConfig(width=W, height=H, **BDPT)
+    assert integrator.resolved_tracer(scene, cfg) == "pallas"
+    out = {}
+
+    # -- one chunk's waves, as the wrappers get them -------------------------
+    per = n // BDPT_CHUNKS
+    px, py = camera.pixel_grid(W, H, dev)
+    waves = {}
+    bdpt.trace_bdpt(scene, view, cfg, 1, px[:per], py[:per], lane0=0, num_light_paths=n,
+                    capture=waves)
+    assert [w[0].shape[0] for w in waves["closest"]] == [per] * 8, len(waves["closest"])
+    assert [w[0].shape[0] for w in waves["occluded"]] == [4 * per, 4 * per, 5 * per]
+    lists = {}
+    # the walks trace camera wave i, then light wave i
+    for name, i in (("camera", 0), ("light", 1)):
+        o, d, tm = waves["closest"][i]
+        prep = block_trace._prepare(fat, o, d, tm)
+        *_, st = block_trace.launch(fat, prep, False, stats="ncand")
+        lists[name] = float(st.ncand.float().mean())
+        del prep
+    print(f"[15 lists] candidate groups per CTA, wave 0: camera {lists['camera']:.2f}, "
+          f"light (from the emitters) {lists['light']:.2f}", flush=True)
+    k1, k2 = {}, {}
+    for label, i in (("camera wave 0", 0), ("camera wave 1", 2), ("light wave 0", 1),
+                     ("light wave 1", 3)):
+        o, d, tm = waves["closest"][i]
+        k1[label] = _whole_wave(fat, False, o, d, tm, rng, f"BDPT {label}", "15", smi)
+    for label, i in (("s=1 batch", 0), ("LVC batch", 1), ("t=1 splat batch", 2)):
+        o, w, t = waves["occluded"][i]
+        k2[label] = _whole_wave(fat, True, o, w, t, rng, f"BDPT {label}", "15", smi)
+    del waves
+    torch.cuda.empty_cache()
+
+    # -- timed samples, launch counts, determinism, busy share ---------------
+    def bdpt_sample(seed):
+        return bdpt.render_bdpt_chunked(scene, view, cfg, seed, chunks=BDPT_CHUNKS)
+
+    img, line = _timed_runs("BDPT", bdpt_sample, [0, 1, 2], smi, f"atrium {W}x{H}, "
+                            f"{BDPT_CHUNKS} chunks of {per} lanes")
+    assert line["launches"] == BDPT_LAUNCHES, line["launches"]
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
+    same = torch.equal(img, bdpt_sample(2))
+    busy, ops = profile_sample.device_profile(
+        scene, view, cfg, 3, render=lambda s, v, c, seed: bdpt_sample(seed), cpu_ops=False)
+    line.update(mean=float(img.mean()), same_seed_equal=same, busy_ms=busy,
+                busy_share=None if busy is None else busy / line["ms_mean"],
+                top_kernels=ops, lists=lists)
+    print(f"[15 BDPT] {line['ms_mean']:.1f} ms/spp, image mean {line['mean']:.6f}, same-seed "
+          f"renders bit-equal: {same}, device busy {busy} ms "
+          f"({line['busy_share']}), top kernels {ops} | {smi}", flush=True)
+    assert same
+    out["bdpt"] = line
+
+    # -- chunked = unchunked, BDPT = PT, reuse at 480x270 --------------------
+    sw, sh = SMALL
+    node, cam = flatten.find_camera(builtin.atrium().root)
+    view_s = camera.make_view(node.to_world(), cam.fovy, sw, sh, device=dev)
+    cfg_s = integrator.RenderConfig(width=sw, height=sh, **BDPT)
+    paired = dataclasses.replace(cfg_s, lvc_connections=0)
+    full = bdpt.render_bdpt_chunked(scene, view_s, paired, 5, chunks=1)
+    chunked = bdpt.render_bdpt_chunked(scene, view_s, paired, 5, chunks=BDPT_CHUNKS)
+    diff = torch.abs(chunked - full)
+    exact = float((chunked == full).all(dim=-1).float().mean())
+    within = bool((diff <= CHUNK_ATOL + CHUNK_RTOL * torch.abs(full)).all())
+    bd = bdpt.render_bdpt_progressive(scene, view_s, cfg_s, ESTIMATOR_SPP, 10, 1)
+    pt = integrator.render_path_progressive(
+        scene, view_s, integrator.RenderConfig(width=sw, height=sh, max_bounces=3,
+                                               bsdf="disney"), ESTIMATOR_SPP, 10)
+    acc, state = torch.zeros_like(bd), None
+    for s in range(2):
+        frame, state = bdpt.render_bdpt_reuse(scene, view_s, cfg_s, 20 + s, state)
+        assert bool(torch.isfinite(frame).all())
+        acc = acc + frame
+    base = bdpt.render_bdpt_progressive(scene, view_s, cfg_s, 2, 20, 1)
+    est = dict(chunk_exact_share=exact, chunk_max_abs=float(diff.max()), chunk_within=within,
+               bdpt_mean=float(bd.mean()), pt_mean=float(pt.mean()),
+               reuse_mean=float(acc.mean() / 2), no_reuse_mean=float(base.mean()),
+               reuse_state_rows=int(state["pos"].shape[0]))
+    est["bdpt_pt_rel"] = abs(est["bdpt_mean"] - est["pt_mean"]) / est["pt_mean"]
+    est["reuse_rel"] = abs(est["reuse_mean"] - est["no_reuse_mean"]) / est["no_reuse_mean"]
+    print(f"[15 estimator] {sw}x{sh}: paired 16 chunks vs 1 within rtol {CHUNK_RTOL} / atol "
+          f"{CHUNK_ATOL}: {within} (bit-equal pixels {exact:.4f}, max |diff| "
+          f"{est['chunk_max_abs']:.3g}); BDPT {ESTIMATOR_SPP} spp mean {est['bdpt_mean']:.6f} vs "
+          f"PT {est['pt_mean']:.6f} (rel {est['bdpt_pt_rel']:.3e}, bound {BDPT_PT_REL}); "
+          f"reuse 2 frames {est['reuse_mean']:.6f} vs no reuse {est['no_reuse_mean']:.6f} "
+          f"(rel {est['reuse_rel']:.3e}, bound {LVC_REUSE_REL}) | {smi}", flush=True)
+    assert within and exact > 0.9
+    assert bool(torch.isfinite(bd).all()) and est["bdpt_pt_rel"] <= BDPT_PT_REL
+    assert est["reuse_rel"] <= LVC_REUSE_REL
+    out["bdpt_estimator"] = est
+    del full, chunked, bd, pt, acc, state, base
+    torch.cuda.empty_cache()
+
+    # -- light tracing -------------------------------------------------------
+    lt_cfg = integrator.RenderConfig(width=W, height=H, max_bounces=3, bsdf="disney")
+    img, line = _timed_runs("LT", lambda seed: lighttrace.render_lt(scene, view, lt_cfg, seed),
+                            [0, 1, 2], smi, f"render_lt atrium {W}x{H}, {n} light paths")
+    assert line["launches"] == {"closest": 5, "occluded": 4}, line["launches"]
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
+    out["lt"] = dict(line, mean=float(img.mean()))
+
+    # -- ReSTIR DI: three frames, the state fed back --------------------------
+    rs_cfg = integrator.RenderConfig(width=W, height=H, max_bounces=3, bsdf="disney")
+    state = restir.init_restir(n, device=dev)
+    frames = []
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    for s in range(3):
+        (state, img), ms = _sync_ms(lambda: restir.restir_di(
+            scene, view, rs_cfg, state, s, candidates=4, spatial_taps=2))
+        frames.append(ms)
+        assert bool(torch.isfinite(img).all())
+    line = dict(ms=frames, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                launches=dict(block_trace.LAUNCHES), mean=float(img.mean()),
+                m_mean=float(state.m.mean()))
+    print(f"[15 ReSTIR] candidates 4, spatial_taps 2, {W}x{H}: frames "
+          f"{', '.join(f'{t:.1f}' for t in frames)} ms, "
+          f"peak {line['peak_gib']:.2f} GiB, launches {line['launches']}, image mean "
+          f"{line['mean']:.6f}, mean M {line['m_mean']:.2f} | {smi}", flush=True)
+    assert line["launches"] == {"closest": 3, "occluded": 3} and line["m_mean"] > 4
+    out["restir"] = line
+
+    # -- adaptive sampling -----------------------------------------------------
+    ad_cfg = integrator.RenderConfig(width=W, height=H, **BENCH)
+    torch.cuda.reset_peak_memory_stats()
+    (img, st), ms = _sync_ms(lambda: adaptive.render_adaptive(scene, view, ad_cfg, 4, pilot=2,
+                                                              frac=0.25, seed0=0))
+    cnt = st.count
+    line = dict(ms=ms, ms_per_budget_spp=ms / 4, count_mean=float(cnt.mean()),
+                count_min=float(cnt.min()), count_max=float(cnt.max()), mean=float(img.mean()),
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"[15 adaptive] a 4 spp budget, pilot 2, frac 0.25, {W}x{H}: {ms:.1f} ms "
+          f"({line['ms_per_budget_spp']:.1f} ms per spp of budget), counts mean "
+          f"{line['count_mean']:.4f} min {line['count_min']} max {line['count_max']}, image "
+          f"mean {line['mean']:.6f} vs phase 5 {main5['mean']:.6f}, peak "
+          f"{line['peak_gib']:.2f} GiB | {smi}", flush=True)
+    assert bool(torch.isfinite(img).all()) and abs(line["count_mean"] - 4) <= 0.01
+    assert abs(line["mean"] - main5["mean"]) <= PARITY_MEAN_REL * main5["mean"]
+    out["adaptive"] = line
+
+    # -- the Kronecker lattice, then indirect_only ----------------------------
+    seed = 4  # phase 5's last sample
+    old = srng.QMC
+    srng.QMC = "kron"
+    try:
+        (kimg, _), ms = _sync_ms(lambda: integrator.render_path_with_counts(
+            scene, view, integrator.RenderConfig(width=W, height=H, **BENCH), seed))
+    finally:
+        srng.QMC = old
+    rel = abs(float(kimg.mean()) - main5["mean"]) / main5["mean"]
+    out["kron"] = dict(ms=ms, mean=float(kimg.mean()), rel=rel, differs=not torch.equal(kimg, img5))
+    print(f"[15 kron] one sample {ms:.1f} ms, image mean {out['kron']['mean']:.6f} vs rand "
+          f"{main5['mean']:.6f} (rel {rel:.3e}, bound {PARITY_MEAN_REL}); QMC restored to "
+          f"{srng.QMC!r} | {smi}", flush=True)
+    assert srng.QMC == "rand" and rel <= PARITY_MEAN_REL and out["kron"]["differs"]
+    assert bool(torch.isfinite(kimg).all())
+    (iimg, n_rays), ms = _sync_ms(lambda: integrator.render_path_with_counts(
+        scene, view, integrator.RenderConfig(width=W, height=H, indirect_only=True, **BENCH),
+        seed))
+    out["indirect_only"] = dict(ms=ms, mean=float(iimg.mean()), rays=int(n_rays))
+    print(f"[15 indirect_only] one sample {ms:.1f} ms, image mean "
+          f"{out['indirect_only']['mean']:.6f} (the full sample's {main5['mean']:.6f}) | {smi}",
+          flush=True)
+    assert bool(torch.isfinite(iimg).all()) and 0 < out["indirect_only"]["mean"] < main5["mean"]
+    return out, k1, k2
 
 
 def _gpu_tests():
@@ -2364,6 +2613,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     wave = _wavefront(dev, smi, scene, view, main5, img5)
 
+    # ---- 15: BDPT, light tracing, ReSTIR, adaptive, kron, indirect_only -----
+    torch.cuda.empty_cache()
+    more, bd_k1, bd_k2 = _bdpt_phase(dev, smi, scene, view, main5, img5)
+
     # ms / plain_ms / wrapper_ms of K1 are means per closest wave over the
     # main path's five waves; K2's are the deferred shadow wave's. K3's are
     # closest wave 1's and the deferred wave's at gs=1, its launches those of
@@ -2377,6 +2630,15 @@ def main() -> int:
         return sum(r[key] for r in rows) / len(rows)
 
     emits = [c["emit"] for c in k5 + [k5o]]
+
+    def bdpt_waves(kind, rows):
+        """BDPT's waves of one kernel (phase 15) for the JSON line."""
+        keys = ("lanes", "wave_live", "ms", "bound_ms", "bound_by", "plain_slice_ms", "tests",
+                "agree")
+        return dict(launches_per_sample=more["bdpt"]["launches"][kind],
+                    waves={k: {f: c[f] for f in keys} for k, c in rows.items()},
+                    max_abs_err=max(c.get("max_abs_err", float(c.get("mismatch", 0) > 0))
+                                    for c in rows.values()))
 
     common = dict(route="cuda", library_ms=None)
     bt = dict(common, source="stratum_tpu_torch/csrc/block_trace.cu")
@@ -2398,6 +2660,7 @@ def main() -> int:
              rays=[c["rays"] for c in closest_waves],
              live=[c["live"] for c in closest_waves],
              forced_global_lists=past["atrium_forced"]["closest"],
+             bdpt=bdpt_waves("closest", bd_k1),
              colonnade=dict(launches=col["path"]["launches"]["block closest"],
                             wave_ms=[c["ms"] for c in col["waves"]["closest"]],
                             wave_bound_ms=[c["bound_ms"] for c in col["waves"]["closest"]],
@@ -2414,6 +2677,7 @@ def main() -> int:
              wrapper_ms=wrap_ms_o, agree=occ["agree"], mismatch=occ["mismatch"],
              ncand_cta=per_cta_o, ncand_block=per_block_o, tri_tests=tests_o, rays=occ["rays"],
              live=occ["live"], forced_global_lists=past["atrium_forced"]["occluded"],
+             bdpt=bdpt_waves("occluded", bd_k2),
              colonnade=dict(launches=col["path"]["launches"]["block occluded"],
                             ms=col["waves"]["occluded"]["ms"],
                             bound_ms=col["waves"]["occluded"]["bound_ms"],
@@ -2477,7 +2741,7 @@ def main() -> int:
     ] + t_kernels
     print(json.dumps({"kernels": kernels,
                       "paths": {"main": main5, "binned": main6, "cornell": cornell,
-                                "colonnade": col["path"], **wave},
+                                "colonnade": col["path"], **wave, **more},
                       "colonnade": {k: col[k] for k in ("golden", "tracers")},
                       "past_budgets": {k: past[k] for k in ("leaves", "triangles", "list_keys",
                                                            "emit_tile")},

@@ -9,13 +9,23 @@ tensors holding the same 32 bits: wrapping int32 add and multiply give the
 uint32 bits exactly, and logical right shifts are emulated with a mask,
 ``(x >> s) & ((1 << (32 - s)) - 1)``. Constants above 2^31 enter as their
 signed int32 twins (:func:`u32`). Words are bit-exact against the JAX
-reference (tests/test_torch_rng.py). Only the ``QMC == "rand"`` sampler is
-ported; the Kronecker lattice waits (ROADMAP Queue 1).
+reference (tests/test_torch_rng.py, tests/test_torch_sampling.py).
+
+``QMC`` picks the sampler, read at each draw as the reference reads it at
+trace time: ``"rand"`` is the pcg4d counter RNG; ``"kron"`` the
+Cranley-Patterson-rotated Kronecker lattice, where dimension d of sample s
+of a pixel is ``frac(rot(pixel, d) + (s + 1) * alpha_d)`` with alpha_d =
+frac(sqrt(prime_d)) in uint32 fixed point (the sum wraps mod 2^32, so the
+lattice is exact at any sample index) and rot a pcg4d hash of (pixel, dim).
+The setting is process-global: whoever sets it restores it.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+QMC = "rand"
 
 
 def u32(c: int) -> int:
@@ -80,8 +90,50 @@ def _bits_to_float(bits: torch.Tensor) -> torch.Tensor:
     return mantissa.view(torch.float32) - 1.0
 
 
+def _alpha_table(n: int = 512) -> np.ndarray:
+    """frac(sqrt(prime)) of the first ``n`` primes in uint32 fixed point
+    (rng.py:103-112); dimensions past the table wrap."""
+    sieve = np.ones(8192, bool)
+    sieve[:2] = False
+    for i in range(2, 91):
+        if sieve[i]:
+            sieve[i * i:: i] = False
+    primes = np.nonzero(sieve)[0][:n].astype(np.float64)
+    frac = np.sqrt(primes) % 1.0
+    return (frac * 4294967296.0).astype(np.uint64).astype(np.uint32)
+
+
+_ALPHAS = _alpha_table().astype(np.int64)
+_ALPHA_CACHE: dict = {}
+
+
+def _alphas(device) -> torch.Tensor:
+    key = str(device)
+    if key not in _ALPHA_CACHE:
+        _ALPHA_CACHE[key] = torch.from_numpy(_ALPHAS).to(device)
+    return _ALPHA_CACHE[key]
+
+
+def _kron_bits(state, dims):
+    """Lattice words of dimensions ``dims`` ([..., k] words) of the state's
+    sample index (state[..., 2]); the rotation is keyed by (pixel, dim)
+    (rng.py:118-135). ``rot + (s + 1) * alpha mod 2^32`` is formed in int64
+    on 16-bit halves of alpha, so no product leaves int64."""
+    rot_state = torch.stack([
+        state[..., 0:1].expand(dims.shape), state[..., 1:2].expand(dims.shape),
+        torch.full_like(dims, u32(0xA511E9B3)), dims,
+    ], dim=-1)
+    rot = pcg4d(rot_state)[..., 0].to(torch.int64) & 0xFFFFFFFF
+    alpha = _alphas(dims.device)[(dims & (_ALPHAS.shape[0] - 1)).long()]
+    s1 = ((state[..., 2:3].to(torch.int64) & 0xFFFFFFFF) + 1) & 0xFFFFFFFF
+    prod = s1 * (alpha & 0xFFFF) + (((s1 * (alpha >> 16)) & 0xFFFF) << 16)
+    return as_u32((rot + prod) & 0xFFFFFFFF)
+
+
 def next_uint(state):
     state = skip(state, 1)
+    if QMC == "kron":
+        return _kron_bits(state, state[..., 3:4])[..., 0], state
     return pcg4d(state)[..., 0], state
 
 
@@ -96,6 +148,8 @@ def next_floats(state, k: int):
     returned state has ``w += k`` (rng.py:150-165). Returns (u[..., k], st)."""
     w = state[..., 3]
     offs = torch.arange(1, k + 1, dtype=torch.int32, device=state.device)
+    if QMC == "kron":
+        return _bits_to_float(_kron_bits(state, w[..., None] + offs)), skip(state, k)
     states = state[..., None, :].expand(state.shape[:-1] + (k, 4)).clone()
     states[..., 3] = w[..., None] + offs
     bits = pcg4d(states)[..., 0]

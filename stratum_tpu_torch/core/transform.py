@@ -11,6 +11,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from stratum_tpu_torch.core import math as smath
+
 
 def _linear_apply(m, v):
     return (
@@ -22,6 +24,23 @@ def _linear_apply(m, v):
 
 def transform_vector(m, v):
     return _linear_apply(m[..., :3], v)
+
+
+def transform_point(m, p):
+    """Apply a [..., 3, 4] affine to points [..., 3]."""
+    return _linear_apply(m[..., :3], p) + m[..., 3]
+
+
+def inverse(m):
+    """Inverse of a 3x4 affine through the 3x3 adjugate (transform.py:72-82)."""
+    a = m[..., :3]
+    c0 = smath.cross(a[..., 1], a[..., 2])
+    c1 = smath.cross(a[..., 2], a[..., 0])
+    c2 = smath.cross(a[..., 0], a[..., 1])
+    det = smath.dot(a[..., 0], c0)[..., None, None]
+    inv_lin = torch.stack([c0, c1, c2], dim=-2) / det
+    inv_trans = -_linear_apply(inv_lin, m[..., 3])
+    return torch.cat([inv_lin, inv_trans[..., None]], dim=-1)
 
 
 def look_at(eye, target, up=(0.0, 1.0, 0.0)) -> np.ndarray:
@@ -68,6 +87,17 @@ def make_perspective(fovy, aspect, offset=(0.0, 0.0), znear=0.001,
         sensor_area=f32(sensor_area),
         vertical_fov=f32(fovy),
     )
+
+
+def project_point(proj: ProjectionData, p):
+    """Camera-space point -> clip coordinates [..., 4], reversed z with an
+    infinite far plane (transform.py:193-219; perspective, as back_project)."""
+    return torch.stack([
+        p[..., 0] * proj.scale[0] + p[..., 2] * proj.offset[0],
+        p[..., 1] * proj.scale[1] + p[..., 2] * proj.offset[1],
+        torch.abs(proj.near_plane).expand(p[..., 0].shape),
+        p[..., 2] * torch.sign(proj.near_plane),
+    ], dim=-1)
 
 
 def back_project(proj: ProjectionData, ndc_xy):

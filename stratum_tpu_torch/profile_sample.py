@@ -36,6 +36,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import re
 import subprocess
 import time
 
@@ -123,25 +124,42 @@ def layer_split(scene, view, cfg, seed: int) -> dict:
     )
 
 
-def device_profile(scene, view, cfg, seed: int, top: int = 8):
-    """(device busy ms, [(op, device ms)] of the top ops) over one sample."""
+def _kernel_label(name: str) -> str:
+    """A device kernel's name cut to its functor or function
+    (``...BinaryFunctor<..., MulFunctor<float>>...`` -> ``MulFunctor``)."""
+    functors = re.findall(r"(\w+Functor)\b", name)
+    if functors:
+        return functors[-1]
+    name = name.replace("(anonymous namespace)::", "").replace("void ", "")
+    return re.split(r"[<(]", name)[0].strip()[:80]
+
+
+def device_profile(scene, view, cfg, seed: int, top: int = 8, render=None, cpu_ops=True):
+    """(device busy ms, [(op, device ms)] of the top ops) over one sample
+    of ``render(scene, view, cfg, seed)`` (default: the path tracer's).
+    ``cpu_ops=False`` traces the device alone and names the top kernels
+    instead of the torch ops: recording every host op costs the profiler
+    far more than the op on a sample of hundreds of thousands of ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        integrator.render_path_with_counts(scene, view, cfg, seed)
+    render = render or integrator.render_path_with_counts
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu_ops else [])
+    with profile(activities=acts) as prof:
+        render(scene, view, cfg, seed)
         torch.cuda.synchronize()
     device_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in device_events) / 1e3
-    ops = []
+    ops = {}  # kernels of one label (instantiations) summed
     for e in prof.key_averages():
-        if e.device_type != DeviceType.CPU:
+        if e.device_type != (DeviceType.CPU if cpu_ops else DeviceType.CUDA):
             continue
+        key = e.key if cpu_ops else _kernel_label(e.key)
         dev_us = getattr(e, "self_device_time_total", None)
         if dev_us is None:
             dev_us = e.self_cuda_time_total
-        ops.append((e.key, dev_us / 1e3))
-    ops.sort(key=lambda x: -x[1])
+        ops[key] = ops.get(key, 0.0) + dev_us / 1e3
+    ops = sorted(ops.items(), key=lambda x: -x[1])
     return (busy_ms if device_events else None), ops[:top]
 
 

@@ -1,5 +1,6 @@
 """Camera views and primary-ray generation (counterpart of
-stratum_tpu/render/camera.py:21-104)."""
+stratum_tpu/render/camera.py:21-134): views, pixel grids, primary rays
+and the sensor projection of light tracing."""
 
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from stratum_tpu_torch.core import transform as xform
 class ViewData(NamedTuple):
     camera_to_world: torch.Tensor  # f32 [3, 4]
     projection: xform.ProjectionData
+    world_to_camera: torch.Tensor  # f32 [3, 4]
 
 
 def make_view(camera_to_world, fovy: float, width: int, height: int,
@@ -25,7 +27,7 @@ def make_view(camera_to_world, fovy: float, width: int, height: int,
     proj = xform.make_perspective(
         fovy, aspect=height / width, znear=znear, device=c2w.device
     )
-    return ViewData(camera_to_world=c2w, projection=proj)
+    return ViewData(camera_to_world=c2w, projection=proj, world_to_camera=xform.inverse(c2w))
 
 
 def pixel_grid(width: int, height: int, device=None):
@@ -76,3 +78,22 @@ def generate_rays(view: ViewData, px, py, jitter, width: int, height: int):
     origin = view.camera_to_world[..., 3].expand(d_cam.shape)
     direction = xform.transform_vector(view.camera_to_world, d_cam)
     return origin, smath.normalize(direction)
+
+
+def sensor_importance(view: ViewData, world_pos, width: int, height: int):
+    """A world point projected into the view -> (pixel xy f32 [N, 2],
+    inside the frustum bool [N], the importance's measure factor
+    dist^2 / (A_sensor cos^3) x pixels) (camera.py:106-134)."""
+    p_cam = xform.transform_point(view.world_to_camera, world_pos)
+    clip = xform.project_point(view.projection, p_cam)
+    w = clip[..., 3]
+    ndc = clip[..., :2] / torch.clamp(torch.abs(w), min=1e-20)[..., None]
+    inside = ((w > 0) & (ndc[..., 0] >= -1.0) & (ndc[..., 0] <= 1.0)
+              & (ndc[..., 1] >= -1.0) & (ndc[..., 1] <= 1.0))
+    pix_x = (ndc[..., 0] * 0.5 + 0.5) * width
+    pix_y = (-ndc[..., 1] * 0.5 + 0.5) * height
+    dist2 = smath.length_squared(p_cam)
+    cos_theta = torch.abs(p_cam[..., 2]) / torch.clamp(torch.sqrt(dist2), min=1e-20)
+    pdf_w = dist2 / torch.clamp(
+        view.projection.sensor_area * cos_theta * cos_theta * cos_theta, min=1e-20)
+    return torch.stack([pix_x, pix_y], dim=-1), inside, pdf_w * (width * height)

@@ -134,8 +134,6 @@ TEX_FILTERS = ("trilinear", "stochastic")
 _BLOCK_TRACERS = ("pallas", "packet")  # tiled pixels, one deferred shadow wave
 _ITEM = {  # ROADMAP Queue 1 item that ports each refused option
     "debug_path_edges": "item 6 (denoise, tonemap, AOVs and sessions)",
-    "indirect_only": "item 5 (light tracing, BDPT, ReSTIR and adaptive)",
-    "lvc_connections": "item 5 (light tracing, BDPT, ReSTIR and adaptive)",
 }
 
 
@@ -149,8 +147,6 @@ def check_supported(cfg: RenderConfig) -> None:
         raise ValueError(f"unknown tex_filter {cfg.tex_filter!r}")
     refused = {
         "debug_path_edges": cfg.debug_path_edges > 0,
-        "indirect_only": cfg.indirect_only,
-        "lvc_connections": cfg.lvc_connections != 0,
     }
     for name, on in refused.items():
         if on:
@@ -659,6 +655,12 @@ def trace_path(scene, view, cfg: RenderConfig, seed, px=None, py=None, capture=N
         miss = alive & ~hit_mask
         if has_media:
             miss = miss & ~in_medium
+        # indirect_only: escapes and emitter hits at depth 0 (seen by the
+        # camera) and 1 (the BSDF side of direct light), and NEE at depth 0,
+        # belong to the direct pass (reference :938-942, 953-954, 1203-1205)
+        direct_pass = cfg.indirect_only and depth < 2
+        if direct_pass:
+            miss = torch.zeros_like(miss)
         env_le, env_nee_pdf = slights.env_eval_and_pdf_w_mis(scene, direction)
         w_env = mis_weight(prev_pdf_w, env_nee_pdf)
         radiance = radiance + torch.where(
@@ -669,6 +671,8 @@ def trace_path(scene, view, cfg: RenderConfig, seed, px=None, py=None, capture=N
 
         # emissive hits, MIS against NEE
         is_emissive = surface & (sp.light >= 0) & sp.front_face
+        if direct_pass:
+            is_emissive = torch.zeros_like(is_emissive)
         dist2 = smath.length_squared(sp.position - origin)
         cos_light = torch.abs(smath.dot(direction, sp.geom_normal))
         nee_pdf_area = slights.light_pdf_area(scene, hit.tri, sp.light)
@@ -734,6 +738,7 @@ def trace_path(scene, view, cfg: RenderConfig, seed, px=None, py=None, capture=N
             ls = slights.sample_light(scene, u[..., 0], u[..., 1], u[..., 2])
             return ls, torch.zeros_like(ls.is_env)
 
+        nee_allowed = torch.zeros_like(alive) if cfg.indirect_only and depth == 0 else alive
         shadow = None
         if cfg.use_nee and cfg.ris_candidates > 1:
             # RIS: candidates weighed by their unshadowed contribution, and
@@ -760,7 +765,7 @@ def trace_path(scene, view, cfg: RenderConfig, seed, px=None, py=None, capture=N
             if cfg.use_mis:
                 contrib = contrib * mis_power_heuristic(
                     res.sample["pdf_w"], scatter(wi)[1])[..., None]
-            candidate = alive & (res.target_pdf > 0) & (torch.amax(contrib, dim=-1) > 0)
+            candidate = nee_allowed & (res.target_pdf > 0) & (torch.amax(contrib, dim=-1) > 0)
         elif cfg.use_nee:
             u, st = srng.next_floats(st, 3)
             ls, pdf_is_w = nee_light(u)
@@ -770,7 +775,7 @@ def trace_path(scene, view, cfg: RenderConfig, seed, px=None, py=None, capture=N
             w_nee = mis_power_heuristic(pdf_w, pdf_fwd) if cfg.use_mis else 1.0
             contrib = beta * f * ls.radiance * smath.safe_div(w_nee, pdf_w)[..., None]
             candidate = (
-                alive & (pdf_w > 1e-12) & (cos_l > 0.0)
+                nee_allowed & (pdf_w > 1e-12) & (cos_l > 0.0)
                 & (torch.amax(contrib, dim=-1) > 0.0)
             )
         if cfg.use_nee:

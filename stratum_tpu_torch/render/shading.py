@@ -151,6 +151,12 @@ def apply_textures(mat: MaterialSample, materials, textures, material_row, uv,
     return mat
 
 
+def load_material(materials, material_row) -> MaterialSample:
+    """Material constants of rows ``material_row`` (row -1 reads row 0; the
+    caller masks it) through one packed-row gather (shading.py:228-234)."""
+    return material_from_row(materials.packed[torch.clamp(material_row, min=0).long()])
+
+
 def material_from_row(row) -> MaterialSample:
     """MaterialSample from a gathered packed [N, 24] material row."""
     return MaterialSample(
@@ -174,3 +180,12 @@ def shadow_terminator_factor(ng, ns, wi):
     den = torch.abs(smath.dot(ns, wi)) * torch.abs(smath.dot(ng, ns))
     g = torch.clamp(smath.safe_div(num, den), 0.0, 1.0)
     return g * (1.0 + g - g * g)
+
+
+def adjoint_ns_factor(ng, ns, wo, wi):
+    """Shading-normal correction of importance transport (Veach 1997 eq.
+    5.17): |ns.wo| |ng.wi| / (|ng.wo| |ns.wi|), clamped to [0, 4]
+    (shading.py:269-280)."""
+    num = torch.abs(smath.dot(ns, wo)) * torch.abs(smath.dot(ng, wi))
+    den = torch.abs(smath.dot(ng, wo)) * torch.abs(smath.dot(ns, wi))
+    return torch.clamp(smath.safe_div(num, den), 0.0, 4.0)

@@ -24,7 +24,12 @@ textured colonnade render through K1/K2 within test_torch_slice's bounds of
 the CPU render. On the tiny atrium through K1/K2, ``render_path_batched``
 and ``render_path_lanes`` (without the light tile) against the sequential
 samples, and caps of 1.0 (``wave_caps``) against the uncapped render, at
-rtol 1e-5 / atol 1e-7.
+rtol 1e-5 / atol 1e-7. BDPT (paired and light-cache connections) and light
+tracing through K1/K2 against the same renders on the card's brute-force
+tracer (test_torch_slice's bounds: mean 2 %, >= 97 % of pixels within
+1e-3), with 8 K1 and 3 K2 launches a BDPT sample at 3 bounces; two
+same-seed BDPT renders (whole and in chunks) bit for bit, and the
+fixed-order splat against float64 (1e-6) and bit-equal to itself.
 """
 
 import dataclasses
@@ -35,7 +40,7 @@ import torch
 
 from stratum_tpu_torch.ops import binned, block_trace, intersect, mxu
 from stratum_tpu_torch.ops.packet import FatBVH
-from stratum_tpu_torch.render import camera, integrator, texture
+from stratum_tpu_torch.render import bdpt, camera, integrator, lighttrace, texture
 from stratum_tpu_torch.scene import builtin, flatten, sample_assets, schema
 from stratum_tpu_torch.tools import (
     bench_mxu_model,
@@ -521,3 +526,58 @@ def test_non_binding_wave_caps_equal_uncapped_on_the_card(tiny_render):
     ref, n_ref = integrator.render_path_with_counts(scene, view, cfg, 1)
     torch.testing.assert_close(img, ref, rtol=1e-5, atol=1e-7)
     assert int(n) == int(n_ref)
+
+
+def _parity(img, ref):
+    img, ref = img.cpu().numpy(), ref.cpu().numpy()
+    assert np.isfinite(img).all()
+    assert abs(img.mean() - ref.mean()) <= 0.02 * ref.mean()
+    assert np.all(np.abs(img - ref) <= 1e-3 * (1 + np.abs(ref)), axis=-1).mean() >= 0.97
+
+
+@pytest.mark.parametrize("lvc", [0, 4])
+def test_bdpt_on_the_block_kernel_matches_plain_tracers(tiny_render, lvc):
+    """A BDPT sample through K1 (8 subpath waves) and K2 (3 connection
+    batches) against the same sample on the brute-force tracer."""
+    scene, view, cfg = tiny_render
+    cfg = dataclasses.replace(cfg, lvc_connections=lvc)
+    before = dict(block_trace.LAUNCHES)
+    img = bdpt.render_bdpt(scene, view, cfg, 4)
+    assert block_trace.LAUNCHES["closest"] - before["closest"] == 8
+    assert block_trace.LAUNCHES["occluded"] - before["occluded"] == 3
+    _parity(img, bdpt.render_bdpt(scene, view, dataclasses.replace(cfg, tracer="brute"), 4))
+
+
+def test_lt_on_the_block_kernel_matches_plain_tracers(tiny_render):
+    """A light-traced sample through K1/K2 against the brute-force tracer."""
+    scene, view, cfg = tiny_render
+    before = dict(block_trace.LAUNCHES)
+    img = lighttrace.render_lt(scene, view, cfg, 2)
+    assert block_trace.LAUNCHES["closest"] - before["closest"] == 5
+    assert block_trace.LAUNCHES["occluded"] - before["occluded"] == 4
+    _parity(img, lighttrace.render_lt(scene, view, dataclasses.replace(cfg, tracer="brute"), 2))
+
+
+def test_bdpt_same_seed_bit_equal_on_the_card(tiny_render):
+    """The splat is summed in a fixed order, so two renders of one seed are
+    equal bit for bit, whole and in 4 chunks."""
+    scene, view, cfg = tiny_render
+    cfg = dataclasses.replace(cfg, lvc_connections=4)
+    assert torch.equal(bdpt.render_bdpt(scene, view, cfg, 6), bdpt.render_bdpt(scene, view, cfg, 6))
+    assert torch.equal(bdpt.render_bdpt_chunked(scene, view, cfg, 6, 4),
+                       bdpt.render_bdpt_chunked(scene, view, cfg, 6, 4))
+
+
+def test_splat_add_fixed_order_on_the_card(dev):
+    """1M terms on 4,096 pixels: the per-pixel sums against float64, and
+    two calls bit-equal."""
+    rng = np.random.default_rng(5)
+    idx = rng.integers(0, 4096, 1 << 20) ** 2 % 4096
+    val = rng.standard_normal((1 << 20, 3)).astype(np.float32)
+    want = np.zeros((4096, 3))
+    np.add.at(want, idx, val.astype(np.float64))
+    base = torch.zeros((4096, 3), device=dev)
+    ti, tv = torch.from_numpy(idx).to(dev), torch.from_numpy(val).to(dev)
+    a = lighttrace.splat_add(base, ti, tv)
+    assert torch.equal(a, lighttrace.splat_add(base, ti, tv))
+    np.testing.assert_allclose(a.cpu().numpy(), want, rtol=1e-6, atol=1e-3)

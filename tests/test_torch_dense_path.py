@@ -145,18 +145,17 @@ def test_render_config_is_the_references_field_for_field():
     (dict(lvc_connections=2), "item 5"), (dict(tex_filter="stochastic"), "item 2"),
 ])
 def test_unported_fields_name_their_item(cornell, option, item):
-    """The two fields restored to match the reference refuse non-defaults,
-    naming the ROADMAP item that ports them, until it is ported: item 2
-    ported ``tex_filter``, and on an untextured scene the stochastic filter
-    takes no draw, so the render equals the trilinear one bit for bit."""
+    """The two fields restored to match the reference refused non-defaults,
+    naming the ROADMAP item that ports them, until it was ported: item 2
+    ported ``tex_filter`` and item 5 ``lvc_connections``. Neither changes a
+    path-traced render here: on an untextured scene the stochastic filter
+    takes no draw, and ``lvc_connections`` is BDPT's (render/bdpt.py; the
+    path tracer reads it nowhere, as in the reference), so the render
+    equals the default one bit for bit."""
     cfg = integrator.RenderConfig(width=W, height=H, **option)
-    if item == "item 2":
-        default = integrator.RenderConfig(width=W, height=H)
-        assert torch.equal(integrator.render_path(cornell["ps"], cornell["pview"], cfg, 0),
-                           integrator.render_path(cornell["ps"], cornell["pview"], default, 0))
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        integrator.render_path(cornell["ps"], cornell["pview"], cfg, 0)
+    default = integrator.RenderConfig(width=W, height=H)
+    assert torch.equal(integrator.render_path(cornell["ps"], cornell["pview"], cfg, 0),
+                       integrator.render_path(cornell["ps"], cornell["pview"], default, 0))
 
 
 def test_tracer_resolution(cornell, monkeypatch):

@@ -254,6 +254,7 @@ PORTED_OPTIONS = (
     dict(tracer="packet"), dict(tracer="bvh"), dict(tex_filter="stochastic"),
     dict(alpha_test=True), dict(ris_candidates=4), dict(wave_caps=(1.0, 0.5)),
     dict(slim_carry=True), dict(use_nee=False), dict(use_mis=False),
+    dict(indirect_only=True), dict(lvc_connections=4),
 )
 
 
@@ -271,7 +272,9 @@ def test_unported_options_raise(case, option):
     test_torch_tracers.py, test_torch_colonnade.py), and so are the alpha
     test, RIS, ``wave_caps``, ``slim_carry`` and NEE or MIS off (items 3
     and 4; their renders: test_torch_wavefront.py,
-    test_torch_estimators.py)."""
+    test_torch_estimators.py), ``indirect_only`` and ``lvc_connections``
+    (item 5; test_torch_sampling.py, test_torch_bdpt.py). Only
+    ``debug_path_edges`` still raises."""
     cfg = _cfg(**{**BENCH, **option})
     if option in PORTED_OPTIONS:
         integrator.check_supported(cfg)
