@@ -95,10 +95,11 @@ Phases, each printing its results:
    sphere within 4 % of 0.4); ``render_direct`` on the Cornell box at
    1080p with ``auto`` and ``brute``, finite and in agreement;
 12. ``tests/test_torch_cuda.py`` in a subprocess (``--noconftest``): every
-   test must pass, none skip (44: the kernels against their plain versions,
+   test must pass, none skip (46: the kernels against their plain versions,
    three equalities of the wavefront entry points, BDPT and light tracing
    on K1/K2 against the brute-force tracer, same-seed BDPT renders and the
-   splat bit-equal);
+   splat bit-equal, the G-buffer on K1 against brute force and the card's
+   denoiser against the CPU port);
 13. the textured colonnade, bench.py's config 4: ``write_colonnade`` at its
    defaults (110,408 triangles, three 256-texel PNG textures, a 256-wide HDR
    sky) into ``build/colonnade``, loaded through the OBJ + MTL loader and
@@ -155,7 +156,27 @@ Phases, each printing its results:
    ``restir_di`` (4 candidates, 2 spatial taps, three frames with the state
    fed back), ``render_adaptive`` (a 4 spp budget, pilot 2, frac 0.25), one
    sample under ``QMC = "kron"`` (mean within phase 4's parity bound of
-   phase 5's, ``QMC`` restored) and one ``indirect_only`` sample.
+   phase 5's, ``QMC`` restored) and one ``indirect_only`` sample;
+16. the frame pipeline at 1920x1080 on the full atrium with the bench
+   configuration: ``render_gbuffer`` (3 timed calls of one K1 launch each;
+   its wave timed whole against its bound and held to plain on N_CHECK
+   lanes, the G-buffer's instances and depths equal to the plain hits'
+   where the slots agree); ``RenderSession(denoise=True)``: a warm-up frame
+   and 4 timed frames with a ``set_view`` to a moved camera before the
+   third, each split (a synchronise around each part) into the sample, the
+   G-buffer, ``temporal_accumulate``, ``atrous_filter``, the tonemap and
+   the rest, with 5 K1 + 1 K2 launches a frame (+1 K1 after the move),
+   peak memory and the device busy share of one profiled frame; the card's
+   denoiser against the CPU port on the same inputs (the temporal colour,
+   history and the a-trous filter on identical inputs on every pixel within
+   twice test_torch_denoise.py's bound, the whole pass on >= 99 % of the
+   pixels: the variance's cancellation); the session's batched step(4)
+   against sequential, ``spp_lanes=4``, a ReSTIR step, ``step_adaptive``
+   after a pilot, each timed, and a checkpoint round trip bit for bit;
+   every debug view finite and the ``path_length_1..6`` images summing to
+   the full sample; an animated pillar (``flatten(time=, prev_time=)``)
+   whose pixels alone move in ``prev_uv``; and the CLI in a subprocess
+   writing a denoised, ACES-tonemapped 1920x1080 PNG.
 
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 result line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -1086,7 +1107,7 @@ GOLDENS = {  # tests/update_goldens.py:41-52 (48x48, rr_depth=100)
 FURNACE_REL = 0.04  # sphere mean against albedo x radiance (tests/test_torch_dense_path.py)
 DIRECT_MEAN_REL = 1e-3  # render_direct, auto (mxu) against brute
 DIRECT_PIXEL_SHARE = 0.999
-GPU_TESTS = 44  # tests in tests/test_torch_cuda.py
+GPU_TESTS = 46  # tests in tests/test_torch_cuda.py
 
 
 def _modes_equal(fat, o, d, bound, occluded, gs):
@@ -2340,6 +2361,331 @@ def _bdpt_phase(dev, smi, scene, view, main5, img5):
     return out, k1, k2
 
 
+FRAME_LAUNCHES = {"closest": 5, "occluded": 1}  # one denoised frame's sample
+# tests/test_torch_denoise.py's DEN_TOL, doubled; the whole pass on a share of the pixels
+DEN_RTOL, DEN_ATOL = 2 * 1e-5, 2 * 1e-6
+DEN_WHOLE_SHARE = 0.99
+PATH_SUM_RTOL, PATH_SUM_ATOL = 1e-4, 1e-5  # tests/test_torch_session.py's path-length sum
+ANIMATED = "col_1.0_2_2"  # the atrium's pillar piece that phase 16 animates
+ANIMATED_PIXELS = 100  # pixels of it the 1080p view must see
+
+
+class _SplitTimer:
+    """Wraps module functions so each call is timed on the host clock with
+    a synchronise before and after it; ``ms`` sums them by label."""
+
+    def __init__(self, targets):
+        self.targets = targets  # label -> (module, attribute)
+        self.ms = {k: 0.0 for k in targets}
+        self._saved = {}
+
+    def __enter__(self):
+        for label, (mod, attr) in self.targets.items():
+            fn = getattr(mod, attr)
+            self._saved[label] = fn
+
+            def timed(*a, _fn=fn, _label=label, **kw):
+                out, ms = _sync_ms(lambda: _fn(*a, **kw))
+                self.ms[_label] += ms
+                return out
+
+            setattr(mod, attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for label, (mod, attr) in self.targets.items():
+            setattr(mod, attr, self._saved[label])
+
+
+def _frame_phase(dev, smi, scene, view, main5):
+    """Phase 16: the frame pipeline at 1920x1080 on the full atrium with
+    the bench configuration: the G-buffer (its K1 wave against its bound
+    and against plain, instance and depth where the slots agree), denoised
+    session frames with a camera move (a split of each, the launches, peak
+    memory, the device busy share), the card's denoiser against the CPU
+    port, the session's batched / lanes / ReSTIR / adaptive steps and a
+    checkpoint, every debug view and the path-length sum, an animated
+    pillar's motion vectors, and the CLI in a subprocess -> (dict for the
+    JSON line's ``paths``, the G-buffer wave record)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from stratum_tpu_torch import profile_sample
+    from stratum_tpu_torch.io import image as simage
+    from stratum_tpu_torch.ops import block_trace
+    from stratum_tpu_torch.ops.intersect import T_MAX
+    from stratum_tpu_torch.render import aov, camera, debug, denoise, integrator, session
+    from stratum_tpu_torch.render import tonemap
+    from stratum_tpu_torch.scene import builtin, flatten, graph
+
+    W, H = FRAME
+    n = W * H
+    fat = scene.fat_bvh
+    rng = np.random.default_rng(16)
+    cfg = integrator.RenderConfig(width=W, height=H, **BENCH)
+    out = {}
+
+    # -- the G-buffer: one K1 wave of unsorted, unjittered primary rays ------
+    aov.render_gbuffer(scene, view, view, cfg)
+    gb_times = []
+    for _ in range(3):
+        _zero_launches()
+        gb, ms = _sync_ms(lambda: aov.render_gbuffer(scene, view, view, cfg))
+        gb_times.append(ms)
+        gb_launches = dict(block_trace.LAUNCHES)
+        assert gb_launches == {"closest": 1, "occluded": 0}, gb_launches
+    gb_ms = sum(gb_times) / len(gb_times)
+    px, py = camera.pixel_grid(W, H, dev)
+    half = torch.full((n, 2), 0.5, dtype=torch.float32, device=dev)
+    o, d = camera.generate_rays(view, px, py, half, W, H)
+    wave = _whole_wave(fat, False, o, d, torch.full((n,), T_MAX, device=dev), rng,
+                       "G-buffer wave", "16", smi)
+    sel = torch.from_numpy(np.sort(rng.choice(n, N_CHECK, replace=False))).to(dev)
+    hp = block_trace.block_closest_plain(fat, o[sel], d[sel])
+    hk = block_trace.block_closest(fat, o[sel], d[sel])
+    same = hk.slot == hp.slot
+    inst_plain = torch.where(hp.slot >= 0,
+                             scene.slot_payload[hp.slot.clamp(min=0).long(), 26].to(torch.int32),
+                             -1)
+    inst = gb.instance.reshape(-1)[sel]
+    depth = gb.depth.reshape(-1)[sel]
+    hit = same & (hp.slot >= 0)
+    inst_ok = bool((inst[same] == inst_plain[same]).all())
+    depth_err = float((torch.abs(depth[hit] - hp.t[hit]) / hp.t[hit]).max())
+    miss_ok = bool(torch.isinf(depth[same & (hp.slot < 0)]).all())
+    line = dict(ms=gb_ms, ms_calls=gb_times, launches=gb_launches["closest"], wave=wave,
+                slots_agree=float(same.float().mean()), instance_equal=inst_ok,
+                depth_max_rel=depth_err, misses_inf=miss_ok,
+                miss_share=float((gb.instance < 0).float().mean()))
+    print(f"[16 G-buffer] render_gbuffer {W}x{H}: {', '.join(f'{t:.2f}' for t in gb_times)} "
+          f"ms (mean {gb_ms:.2f}), K1 launches a call "
+          f"{gb_launches['closest']}; on {N_CHECK} lanes slots agree "
+          f"{line['slots_agree']:.5f}, instances equal where they do: {inst_ok}, depth max "
+          f"rel err {depth_err:.3g}, misses inf: {miss_ok}, miss share "
+          f"{line['miss_share']:.4f} | {smi}", flush=True)
+    assert line["slots_agree"] >= BATCH_AGREE and inst_ok and miss_ok and depth_err <= T_REL
+    out["gbuffer"] = line
+    del o, d, half, hp, hk
+    torch.cuda.empty_cache()
+
+    # -- denoised session frames with a camera move --------------------------
+    node, cam = flatten.find_camera(builtin.atrium().root)
+    moved = node.to_world().copy()
+    moved[:, 3] += (0.15, 0.05, 0.3)
+    view2 = camera.make_view(moved, cam.fovy, W, H, device=dev)
+    sess = session.RenderSession(scene, view, cfg, denoise=True)
+    sess.frame()  # warm-up: the first frame also traces the G-buffer
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    targets = {"sample": (integrator, "render_path"), "gbuffer": (aov, "render_gbuffer"),
+               "temporal_accumulate": (denoise, "temporal_accumulate"),
+               "atrous_filter": (denoise, "atrous_filter"), "tonemap": (tonemap, "tonemap")}
+    frames = []
+    for i in range(4):
+        if i == 2:
+            sess.set_view(view2)
+        _zero_launches()
+        with _SplitTimer(targets) as split:
+            (shown, ms) = _sync_ms(lambda: tonemap.tonemap(sess.frame(), tonemap.TonemapMode.ACES))
+        launches = dict(block_trace.LAUNCHES)
+        want = dict(FRAME_LAUNCHES, closest=FRAME_LAUNCHES["closest"] + (i == 2))
+        assert launches == want, (i, launches)
+        parts = dict(split.ms)
+        parts["other"] = ms - sum(parts.values())
+        frames.append(dict(ms=ms, split=parts, launches=launches))
+        print(f"[16 frame {i + 1}] denoised frame {ms:.1f} ms: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in parts.items())
+              + f" ms; launches {launches}" + (" (after set_view)" if i == 2 else "")
+              + f" | {smi}", flush=True)
+        assert bool(torch.isfinite(shown).all())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    busy, ops = profile_sample.device_profile(
+        scene, view2, cfg, 0, render=lambda *a: sess.frame())
+    mean_ms = sum(f["ms"] for f in frames) / len(frames)
+    mean_split = {k: sum(f["split"][k] for f in frames) / len(frames) for k in frames[0]["split"]}
+    out["frame"] = dict(frames=frames, ms_mean=mean_ms, split_mean=mean_split, peak_gib=peak,
+                        busy_ms=busy, busy_share=None if busy is None else busy / mean_ms,
+                        top_ops=ops, history_max=float(sess.denoise_state.history.max()))
+    print(f"[16 frames] mean {mean_ms:.1f} ms a denoised frame ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in mean_split.items())
+          + f"), a-trous share {mean_split['atrous_filter'] / mean_ms:.3f}, peak {peak:.2f} GiB, "
+          f"device busy {busy} ms of a profiled frame ({out['frame']['busy_share']}), top ops "
+          f"{ops} | {smi}", flush=True)
+    assert out["frame"]["history_max"] >= 3.0
+
+    # -- the card's denoiser against the CPU port ------------------------------
+    # both stages on identical inputs, then the whole pass. The variance is
+    # ill-conditioned (m2 - m1^2 where they nearly cancel), so an ulp of
+    # luminance apart moves the luminance sigma of such pixels, and the
+    # whole pass is held on a share of pixels; the a-trous filter fed the
+    # same colour and variance, and the temporal colour and history, are
+    # held on every pixel
+    rad = sess.radiance()
+    gbuf = sess.gbuffer()
+    dcfg = dataclasses.replace(sess.denoise_cfg, history_tap=1)
+    cpu = torch.device("cpu")
+    state_h = denoise.DenoiseState(*(x.to(cpu) for x in sess.denoise_state))
+    gbuf_h = aov.GBuffer(*(x.to(cpu) for x in gbuf))
+    (st_c, den_c), den_ms = _sync_ms(lambda: denoise.denoise(sess.denoise_state, rad, gbuf, dcfg))
+    t0 = time.perf_counter()
+    st_h, den_h = denoise.denoise(state_h, rad.to(cpu), gbuf_h, dcfg)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+
+    def within(a, b):
+        """(share of pixels within the bound, max |diff|, max relative diff)."""
+        diff = torch.abs(a.cpu() - b)
+        if diff.dim() == 2:
+            diff, b = diff[..., None], b[..., None]
+        ok = (diff <= DEN_ATOL + DEN_RTOL * torch.abs(b)).all(dim=-1)
+        return (float(ok.float().mean()), float(diff.max()),
+                float((diff / (torch.abs(b) + DEN_ATOL)).max()))
+
+    _, col_c, var_c = denoise.temporal_accumulate(sess.denoise_state, rad, gbuf, dcfg)
+    _, col_h, var_h = denoise.temporal_accumulate(state_h, rad.to(cpu), gbuf_h, dcfg)
+    flt_c, _ = denoise.atrous_filter(col_h.to(dev), var_h.to(dev), gbuf, dcfg)
+    flt_h, _ = denoise.atrous_filter(col_h, var_h, gbuf_h, dcfg)
+    res = dict(whole=within(den_c, den_h), temporal_color=within(col_c, col_h),
+               variance=within(var_c, var_h), filter=within(flt_c, flt_h))
+    flips = int((st_c.history.cpu() != st_h.history).sum())
+    out["denoise_vs_cpu"] = dict({f"{k}_{m}": v[i] for k, v in res.items()
+                                  for i, m in enumerate(("share", "max_abs", "max_rel"))},
+                                 history_differing=flips, card_ms=den_ms, cpu_ms=cpu_ms)
+    print(f"[16 denoiser] card vs CPU port on one frame's radiance and G-buffer (history in, "
+          f"history_tap 1), share of pixels within rtol {DEN_RTOL} / atol {DEN_ATOL} (max "
+          f"|diff|, max rel): " + "; ".join(f"{k} {v[0]:.6f} ({v[1]:.3g}, {v[2]:.3g})"
+                                            for k, v in res.items())
+          + f"; history counts differing at {flips} of {n} pixels; card {den_ms:.1f} ms, "
+          f"CPU {cpu_ms:.0f} ms | {smi}", flush=True)
+    assert res["filter"][0] == 1.0 and res["temporal_color"][0] == 1.0 and flips == 0
+    assert res["whole"][0] >= DEN_WHOLE_SHARE
+    del sess, st_c, den_c, st_h, den_h, rad, gbuf, state_h, gbuf_h, col_h, var_h, flt_c, flt_h
+    del col_c, var_c
+    torch.cuda.empty_cache()
+
+    # -- the session's other paths, and a checkpoint ---------------------------
+    def run(label, make, steps):
+        s = make()
+        _zero_launches()
+        img, ms = _sync_ms(lambda: steps(s))
+        print(f"[16 session] {label}: {ms:.1f} ms, launches {dict(block_trace.LAUNCHES)}, "
+              f"image mean {float(img.mean()):.6f} | {smi}", flush=True)
+        assert bool(torch.isfinite(img).all())
+        return s, img, ms
+
+    def sequential(s):
+        for _ in range(4):
+            img = s.step(1)
+        return img
+
+    paths = {}
+    sb, img_b, paths["batched_4"] = run("step(4) batched", lambda: session.RenderSession(
+        scene, view, cfg), lambda s: s.step(4))
+    _, img_s, paths["sequential_4"] = run("4 x step(1)", lambda: session.RenderSession(
+        scene, view, cfg), sequential)
+    batched_equal = bool(torch.allclose(img_b, img_s, rtol=1e-5, atol=1e-7))
+    _, img_l, paths["lanes_4"] = run("spp_lanes=4, step(4)", lambda: session.RenderSession(
+        scene, view, cfg, spp_lanes=4), lambda s: s.step(4))
+    lanes_rel = abs(float(img_l.mean()) - float(img_s.mean())) / float(img_s.mean())
+    _, _, paths["restir_step"] = run("ReSTIR step(1)", lambda: session.RenderSession(
+        scene, view, cfg, use_restir=True, restir_spatial_taps=1), lambda s: s.step(1))
+    sa = session.RenderSession(scene, view, cfg)
+    sa.step(1)
+    _zero_launches()
+    img_a, paths["adaptive_round"] = _sync_ms(lambda: sa.step_adaptive(1))
+    print(f"[16 session] step_adaptive(1) after a 1-sample pilot: {paths['adaptive_round']:.1f} "
+          f"ms, launches {dict(block_trace.LAUNCHES)}, spp {sa.spp:.4f} | {smi}", flush=True)
+    ck = ROOT / "build" / "session_checkpoint.npz"
+    ck.parent.mkdir(parents=True, exist_ok=True)
+    sa.save_checkpoint(ck)
+    back = session.RenderSession(scene, view, cfg)
+    back.load_checkpoint(ck)
+    ck_equal = (torch.equal(back.accum, sa.accum) and back.spp == sa.spp
+                and torch.equal(back.sample_count, sa.sample_count)
+                and torch.equal(back._accum_sq, sa._accum_sq)
+                and back._seeds_used == sa._seeds_used)
+    out["session"] = dict(ms=paths, batched_equals_sequential=batched_equal, lanes_rel=lanes_rel,
+                          checkpoint_equal=ck_equal)
+    print(f"[16 session] batched = sequential (rtol 1e-5): {batched_equal}; lanes mean rel "
+          f"{lanes_rel:.3e} (bound {PARITY_MEAN_REL}); checkpoint round trip bit for bit: "
+          f"{ck_equal} | {smi}", flush=True)
+    assert batched_equal and lanes_rel <= PARITY_MEAN_REL and ck_equal
+    assert bool(torch.isfinite(img_a).all())
+    del sb, sa, back, img_b, img_s, img_l, img_a
+    torch.cuda.empty_cache()
+
+    # -- debug views, and the path-length sum -----------------------------------
+    views = {}
+    for mode in debug.DEBUG_MODES:
+        m = mode.replace("_N", "_2")
+        img, ms = _sync_ms(lambda: debug.render_debug(scene, view, cfg, m, seed=4, spp=1))
+        assert tuple(img.shape) == (H, W, 3) and bool(torch.isfinite(img).all()), m
+        views[m] = ms
+    print(f"[16 debug views] every mode finite at {W}x{H}: "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in views.items()) + f" | {smi}", flush=True)
+    full, _ = integrator.render_path_with_counts(scene, view, cfg, 4)
+    total = torch.zeros_like(full)
+    for e in range(1, cfg.max_bounces + 3):
+        total = total + debug.render_debug(scene, view, cfg, f"path_length_{e}", seed=4, spp=1)
+    err = torch.abs(total - full)
+    sum_ok = bool((err <= PATH_SUM_ATOL + PATH_SUM_RTOL * torch.abs(full)).all())
+    out["debug"] = dict(ms=views, path_sum_max_abs=float(err.max()), path_sum_within=sum_ok)
+    print(f"[16 debug views] path_length_1..{cfg.max_bounces + 2} at seed 4 sum to the full "
+          f"sample within rtol {PATH_SUM_RTOL} / atol {PATH_SUM_ATOL}: {sum_ok} (max |diff| "
+          f"{float(err.max()):.3g})", flush=True)
+    assert sum_ok
+    del full, total, err
+    torch.cuda.empty_cache()
+
+    # -- an animated pillar: motion vectors on its pixels only -----------------
+    g = builtin.atrium()
+    pillar = next(x for x in g.root.descendants() if x.name == ANIMATED)
+    m0 = pillar.find(graph.TransformComponent).matrix.copy()
+    m1 = m0.copy()
+    m1[:, 3] += (-2.0, 0.0, 0.0)
+    pillar.make_component(graph.AnimationComponent(
+        times=np.asarray([0.0, 1.0], np.float32), matrices=np.stack([m0, m1])))
+    (anim, astats), flat_ms = _sync_ms(lambda: flatten.flatten(g.root, time=0.5, prev_time=0.4,
+                                                              device=dev))
+    agb = aov.render_gbuffer(anim, view, view, cfg)
+    on = agb.instance == astats.instance_names.index(ANIMATED)
+    centre = torch.stack(torch.meshgrid((torch.arange(W, device=dev) + 0.5) / W,
+                                        (torch.arange(H, device=dev) + 0.5) / H,
+                                        indexing="xy"), dim=-1)
+    shift = torch.abs(agb.prev_uv - centre).amax(dim=-1)
+    rest = (agb.instance >= 0) & ~on
+    out["animated"] = dict(flatten_ms=flat_ms, pixels=int(on.sum()),
+                           min_shift=float(shift[on].min()), rest_max_shift=float(shift[rest].max()))
+    print(f"[16 animated] flatten(time=0.5, prev_time=0.4) {flat_ms:.0f} ms; {ANIMATED}: "
+          f"{out['animated']['pixels']} pixels, prev_uv shift min "
+          f"{out['animated']['min_shift']:.3g}; the other hits' max "
+          f"{out['animated']['rest_max_shift']:.3g}", flush=True)
+    assert out["animated"]["pixels"] > ANIMATED_PIXELS and out["animated"]["min_shift"] > 5e-4
+    assert out["animated"]["rest_max_shift"] < 1e-4
+    del anim, agb, g
+    torch.cuda.empty_cache()
+
+    # -- the CLI in a subprocess -----------------------------------------------
+    png = ROOT / "build" / "cli_atrium.png"
+    png.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "stratum_tpu_torch.cli", "--scene=atrium", f"--width={W}",
+         f"--height={H}", "--spp=1", "--denoise", "--tonemap=aces", f"--out={png}"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    timing = [ln for ln in proc.stdout.splitlines() if ln.startswith("render:")]
+    for ln in proc.stdout.strip().splitlines():
+        print(f"[16 CLI] {ln}", flush=True)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    shape = simage.read_png(str(png)).shape
+    out["cli"] = dict(rc=proc.returncode, wall_s=wall, png_shape=list(shape), timing=timing)
+    print(f"[16 CLI] rc {proc.returncode}, {wall:.1f} s with start-up and scene build, PNG "
+          f"{shape} | {smi}", flush=True)
+    assert shape[:2] == (H, W) and len(timing) == 1
+    return out, wave
+
+
 def _gpu_tests():
     """Phase 12: tests/test_torch_cuda.py in a subprocess (no conftest: the
     card has no JAX); every test must pass, none skip."""
@@ -2617,6 +2963,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     more, bd_k1, bd_k2 = _bdpt_phase(dev, smi, scene, view, main5, img5)
 
+    # ---- 16: the frame pipeline ----------------------------------------------
+    torch.cuda.empty_cache()
+    frame, gb_wave = _frame_phase(dev, smi, scene, view, main5)
+
     # ms / plain_ms / wrapper_ms of K1 are means per closest wave over the
     # main path's five waves; K2's are the deferred shadow wave's. K3's are
     # closest wave 1's and the deferred wave's at gs=1, its launches those of
@@ -2661,6 +3011,9 @@ def main() -> int:
              live=[c["live"] for c in closest_waves],
              forced_global_lists=past["atrium_forced"]["closest"],
              bdpt=bdpt_waves("closest", bd_k1),
+             gbuffer=dict(launches_per_frame=frame["gbuffer"]["launches"],
+                          **{k: gb_wave[k] for k in ("lanes", "ms", "bound_ms", "bound_by",
+                                                     "plain_slice_ms", "tests", "agree")}),
              colonnade=dict(launches=col["path"]["launches"]["block closest"],
                             wave_ms=[c["ms"] for c in col["waves"]["closest"]],
                             wave_bound_ms=[c["bound_ms"] for c in col["waves"]["closest"]],
@@ -2741,7 +3094,7 @@ def main() -> int:
     ] + t_kernels
     print(json.dumps({"kernels": kernels,
                       "paths": {"main": main5, "binned": main6, "cornell": cornell,
-                                "colonnade": col["path"], **wave, **more},
+                                "colonnade": col["path"], **wave, **more, **frame},
                       "colonnade": {k: col[k] for k in ("golden", "tracers")},
                       "past_budgets": {k: past[k] for k in ("leaves", "triangles", "list_keys",
                                                            "emit_tile")},

@@ -72,6 +72,32 @@ def luminance(rgb):
     return torch.sum(rgb * w, dim=-1)
 
 
+def saturate(x):
+    return torch.clamp(x, 0.0, 1.0)
+
+
+_VIRIDIS = np.asarray([
+    [0.2777273272234177, 0.005407344544966578, 0.3340998053353061],
+    [0.1050930431085774, 1.404613529898575, 1.384590162594685],
+    [-0.3308618287255563, 0.214847559468213, 0.09509516302823659],
+    [-4.634230498983486, -5.799100973351585, -19.33244095627987],
+    [6.228269936347081, 14.17993336680509, 56.69055260068105],
+    [4.776384997670288, -13.74514537774601, -65.35303263337234],
+    [-5.435455855934631, 4.645852612178535, 26.3124352495832],
+], np.float32)
+
+
+def viridis(t):
+    """Viridis-like colormap (the reference's quintic-style polynomial
+    fit, core/math.py:120-135), t in [0, 1] -> rgb [..., 3]."""
+    t = saturate(t)[..., None]
+    c = torch.tensor(_VIRIDIS, device=t.device)
+    acc = c[6]
+    for k in range(5, -1, -1):
+        acc = c[k] + t * acc
+    return acc
+
+
 def make_orthonormal(n):
     """Tangent/bitangent for unit normal n (Duff et al. 2017 branchless)."""
     nx, ny, nz = n.unbind(-1)

@@ -80,9 +80,9 @@ class RenderConfig:
     accepted and ignored: the CUDA kernel has one schedule. ``slim_carry``,
     the reference's scan-carry layout (its RNG rows rebuilt from the pixel
     grid each bounce; bit-identical results), is accepted and ignored too:
-    the port has no scan carry. Options that would change what is rendered
-    and are not ported raise NotImplementedError at a value other than
-    their default (see :func:`check_supported`)."""
+    the port has no scan carry. Every other option renders as the
+    reference's does (:func:`check_supported` refuses only values that
+    name nothing)."""
 
     width: int = 256
     height: int = 256
@@ -132,25 +132,16 @@ MXU_TRI_THRESHOLD = 16384
 TRACERS = ("mxu", "pallas", "brute", "packet", "bvh", "null")
 TEX_FILTERS = ("trilinear", "stochastic")
 _BLOCK_TRACERS = ("pallas", "packet")  # tiled pixels, one deferred shadow wave
-_ITEM = {  # ROADMAP Queue 1 item that ports each refused option
-    "debug_path_edges": "item 6 (denoise, tonemap, AOVs and sessions)",
-}
 
 
 def check_supported(cfg: RenderConfig) -> None:
-    """Raise NotImplementedError for options the port does not run yet."""
+    """Raise ValueError for option values that name nothing."""
     if cfg.tracer != "auto" and cfg.tracer not in TRACERS:
         raise ValueError(f"unknown tracer {cfg.tracer!r}")
     if cfg.bsdf not in ("lambert", "disney"):
         raise ValueError(f"unknown bsdf {cfg.bsdf!r}")
     if cfg.tex_filter not in TEX_FILTERS:
         raise ValueError(f"unknown tex_filter {cfg.tex_filter!r}")
-    refused = {
-        "debug_path_edges": cfg.debug_path_edges > 0,
-    }
-    for name, on in refused.items():
-        if on:
-            raise NotImplementedError(f"{name}: ROADMAP Queue 1 {_ITEM[name]}")
     if (cfg.binned_secondary or cfg.binned_bounces) and not cfg.sort_rays:
         # the reference silently ignores both without its sorted peel
         raise ValueError("binned_secondary and binned_bounces need sort_rays=True")
@@ -659,7 +650,12 @@ def trace_path(scene, view, cfg: RenderConfig, seed, px=None, py=None, capture=N
         # camera) and 1 (the BSDF side of direct light), and NEE at depth 0,
         # belong to the direct pass (reference :938-942, 953-954, 1203-1205)
         direct_pass = cfg.indirect_only and depth < 2
-        if direct_pass:
+        # debug_path_edges keeps only paths of that many edges: escapes and
+        # emitter hits at depth edges - 1, NEE at depth edges - 2
+        # (reference :943-944, 955-956, 1206-1207); the draws stay the same
+        edges = cfg.debug_path_edges
+        other_length = edges > 0 and depth + 1 != edges
+        if direct_pass or other_length:
             miss = torch.zeros_like(miss)
         env_le, env_nee_pdf = slights.env_eval_and_pdf_w_mis(scene, direction)
         w_env = mis_weight(prev_pdf_w, env_nee_pdf)
@@ -671,7 +667,7 @@ def trace_path(scene, view, cfg: RenderConfig, seed, px=None, py=None, capture=N
 
         # emissive hits, MIS against NEE
         is_emissive = surface & (sp.light >= 0) & sp.front_face
-        if direct_pass:
+        if direct_pass or other_length:
             is_emissive = torch.zeros_like(is_emissive)
         dist2 = smath.length_squared(sp.position - origin)
         cos_light = torch.abs(smath.dot(direction, sp.geom_normal))
@@ -738,7 +734,8 @@ def trace_path(scene, view, cfg: RenderConfig, seed, px=None, py=None, capture=N
             ls = slights.sample_light(scene, u[..., 0], u[..., 1], u[..., 2])
             return ls, torch.zeros_like(ls.is_env)
 
-        nee_allowed = torch.zeros_like(alive) if cfg.indirect_only and depth == 0 else alive
+        nee_off = (cfg.indirect_only and depth == 0) or (edges > 0 and depth + 2 != edges)
+        nee_allowed = torch.zeros_like(alive) if nee_off else alive
         shadow = None
         if cfg.use_nee and cfg.ris_candidates > 1:
             # RIS: candidates weighed by their unshadowed contribution, and

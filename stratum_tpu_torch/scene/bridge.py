@@ -86,5 +86,6 @@ def scene_from_numpy(fields: dict, device) -> schema.SceneData:
         spheres=sub(schema.SphereSoA, "spheres."),
         media=MediumData(**{k: f["media." + k] for k in MediumData._fields if k != "slots_used"},
                          slots_used=_slots_used(f["media.majorant"])),
+        instance_motion=f["instance_motion"],
     )
     return schema.to_device(scene, device)

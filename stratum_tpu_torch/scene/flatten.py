@@ -10,6 +10,10 @@ moves the result onto ``device`` (the card unless the caller names
 another). Analytic spheres become a ``SphereSoA`` with their shading rows
 after the padded triangles' (and sphere lights in the light table);
 ``MediumComponent`` volumes become the density bricks of ``build_media``.
+With ``time``, ``AnimationComponent`` keyframes replace the static
+transforms they sit beside; with ``prev_time`` every instance also gets
+its motion transform (current world -> previous world) for the
+G-buffer's motion vectors.
 """
 
 from __future__ import annotations
@@ -58,6 +62,7 @@ class FlattenStats:
     num_vertices: int = 0
     num_materials: int = 0
     num_lights: int = 0
+    instance_names: list = dataclasses.field(default_factory=list)
 
 
 def tessellate_sphere(radius: float, stacks: int = 32, slices: int = 64):
@@ -121,11 +126,32 @@ def compute_smooth_normals(positions, indices):
     ).astype(np.float32)
 
 
-def flatten(root: Node, env_probability: float = 0.5, device="cuda"):
+def flatten(root: Node, env_probability: float = 0.5, time: float | None = None,
+            prev_time: float | None = None, device="cuda"):
     """Walk the subtree under ``root`` -> (SceneData on ``device``,
-    FlattenStats). Without a CUDA device the default raises; CPU callers
-    pass ``device="cpu"``."""
+    FlattenStats). ``time`` evaluates AnimationComponents; ``prev_time``
+    also records each instance's motion transform (reference
+    flatten.py:184-215). Without a CUDA device the default raises; CPU
+    callers pass ``device="cpu"``."""
     stats = FlattenStats()
+    instance_motion: list = []
+
+    def motion_for(node) -> np.ndarray:
+        """prev_M o inv(M): this instance's current world positions -> its
+        previous frame's."""
+        if prev_time is None:
+            return np.eye(3, 4, dtype=np.float32)
+        m = node.to_world(time)
+        pm = node.to_world(prev_time)
+        inv3 = np.linalg.inv(m[:, :3])
+        inv = np.empty((3, 4), np.float32)
+        inv[:, :3] = inv3
+        inv[:, 3] = -inv3 @ m[:, 3]
+        out = np.empty((3, 4), np.float32)
+        out[:, :3] = pm[:, :3] @ inv[:, :3]
+        out[:, 3] = pm[:, :3] @ inv[:, 3] + pm[:, 3]
+        return out
+
     all_pos, all_nrm, all_uv, all_idx, all_mat, all_inst = [], [], [], [], [], []
     materials: list[Material] = []
     mat_rows: dict = {}
@@ -146,7 +172,8 @@ def flatten(root: Node, env_probability: float = 0.5, device="cuda"):
             normals = compute_smooth_normals(positions, indices)
         if uvs is None:
             uvs = np.zeros((positions.shape[0], 2), np.float32)
-        pw, nw = _transform_mesh(node.to_world(), positions, normals)
+        pw, nw = _transform_mesh(node.to_world(time), positions, normals)
+        instance_motion.append(motion_for(node))
         row = material_row(material)
         all_pos.append(pw)
         all_nrm.append(nw)
@@ -156,6 +183,7 @@ def flatten(root: Node, env_probability: float = 0.5, device="cuda"):
         all_inst.append(np.full(indices.shape[0], stats.num_instances, np.int32))
         vert_base += positions.shape[0]
         stats.num_instances += 1
+        stats.instance_names.append(node.name)
 
     env_component = None
     media_list, sphere_list = [], []
@@ -168,13 +196,15 @@ def flatten(root: Node, env_probability: float = 0.5, device="cuda"):
             if sp.analytic:
                 # exact quadratic hits; a uniform scale is assumed (the
                 # sphere carries a radius, not a general transform)
-                m = node.to_world()
+                m = node.to_world(time)
+                instance_motion.append(motion_for(node))
                 sphere_list.append(dict(
                     center=np.asarray(m[:, 3], np.float32),
                     radius=np.float32(sp.radius * float(np.cbrt(abs(np.linalg.det(m[:, :3]))))),
                     material=material_row(sp.material), instance=stats.num_instances,
                 ))
                 stats.num_instances += 1
+                stats.instance_names.append(node.name)
             else:
                 pos, nrm, uv, idx = tessellate_sphere(sp.radius, sp.stacks, sp.slices)
                 add_mesh(node, pos, idx, nrm, uv, sp.material)
@@ -183,7 +213,7 @@ def flatten(root: Node, env_probability: float = 0.5, device="cuda"):
             env_component = ec
         mc = node.find(MediumComponent)
         if mc is not None:
-            m = node.to_world()
+            m = node.to_world(time)
             lo = m[:, :3] @ np.asarray(mc.box_lo, np.float32) + m[:, 3]
             hi = m[:, :3] @ np.asarray(mc.box_hi, np.float32) + m[:, 3]
             media_list.append(dict(density=mc.density, box_lo=np.minimum(lo, hi),
@@ -199,6 +229,7 @@ def flatten(root: Node, env_probability: float = 0.5, device="cuda"):
         all_idx.append(np.zeros((1, 3), np.int32))
         all_mat.append(np.full((1,), -1, np.int32))
         all_inst.append(np.zeros((1,), np.int32))
+        instance_motion.append(np.eye(3, 4, dtype=np.float32))
 
     tex_images: list = []
     tex_ids: dict = {}
@@ -281,6 +312,7 @@ def flatten(root: Node, env_probability: float = 0.5, device="cuda"):
         textures=textures,
         spheres=spheres,
         media=build_media(media_list),
+        instance_motion=np.stack(instance_motion),
     )
     stats.num_triangles = int(sum(i.shape[0] for i in all_idx))
     stats.num_vertices = int(vert_base)

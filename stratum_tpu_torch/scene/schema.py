@@ -153,6 +153,10 @@ class SceneData(NamedTuple):
     textures: TextureStack  # render/texture.py; base_res 1 = untextured
     spheres: SphereSoA  # analytic spheres (ops/spheres.py)
     media: MediumData  # volumes (render/medium.py); a 1^3 brick = none
+    # per-instance motion transform f32 [I, 3, 4]: current world -> the
+    # previous frame's world (the G-buffer's motion vectors); identity rows
+    # when the scene was flattened without a prev_time
+    instance_motion: torch.Tensor
 
     @property
     def device(self) -> torch.device:

@@ -29,7 +29,15 @@ tracing through K1/K2 against the same renders on the card's brute-force
 tracer (test_torch_slice's bounds: mean 2 %, >= 97 % of pixels within
 1e-3), with 8 K1 and 3 K2 launches a BDPT sample at 3 bounces; two
 same-seed BDPT renders (whole and in chunks) bit for bit, and the
-fixed-order splat against float64 (1e-6) and bit-equal to itself.
+fixed-order splat against float64 (1e-6) and bit-equal to itself. The
+G-buffer through its one K1 wave against the card's brute-force tracer
+(instances equal on >= 99.9 % of pixels, albedo, normal and ``prev_uv``
+within 1e-4 and depth within 1e-5 relative where they are: K1's Plucker
+barycentrics and the brute force's Moller-Trumbore ones differ in their
+last bits, which the interpolated normals of the pillars' small triangles
+magnify), and the
+denoiser on the card against the CPU port on the same inputs over two
+frames, at twice test_torch_denoise.py's bound (rtol 2e-5, atol 2e-6).
 """
 
 import dataclasses
@@ -40,7 +48,7 @@ import torch
 
 from stratum_tpu_torch.ops import binned, block_trace, intersect, mxu
 from stratum_tpu_torch.ops.packet import FatBVH
-from stratum_tpu_torch.render import bdpt, camera, integrator, lighttrace, texture
+from stratum_tpu_torch.render import aov, bdpt, camera, denoise, integrator, lighttrace, texture
 from stratum_tpu_torch.scene import builtin, flatten, sample_assets, schema
 from stratum_tpu_torch.tools import (
     bench_mxu_model,
@@ -581,3 +589,48 @@ def test_splat_add_fixed_order_on_the_card(dev):
     a = lighttrace.splat_add(base, ti, tv)
     assert torch.equal(a, lighttrace.splat_add(base, ti, tv))
     np.testing.assert_allclose(a.cpu().numpy(), want, rtol=1e-6, atol=1e-3)
+
+
+def _gbuffers(tiny_render):
+    """The tiny atrium's G-buffer through K1 and through the card's brute
+    force tracer, a moved camera's against the first view."""
+    scene, view, cfg = tiny_render
+    g = builtin.atrium(columns=1, stacks=6, slices=12)
+    node, cam = flatten.find_camera(g.root)
+    c2w = node.to_world().copy()
+    c2w[:, 3] += (0.3, 0.1, 0.5)
+    view2 = camera.make_view(c2w, cam.fovy, cfg.width, cfg.height, device=view[0].device)
+    before = block_trace.LAUNCHES["closest"]
+    gb = aov.render_gbuffer(scene, view2, view, cfg)
+    launches = block_trace.LAUNCHES["closest"] - before
+    ref = aov.render_gbuffer(scene, view2, view, dataclasses.replace(cfg, tracer="brute"))
+    return gb, ref, launches
+
+
+def test_gbuffer_on_the_block_kernel_matches_brute(tiny_render):
+    gb, ref, launches = _gbuffers(tiny_render)
+    assert launches == 1
+    same = gb.instance == ref.instance
+    assert float(same.float().mean()) >= AGREE
+    hit = same & (ref.instance >= 0)
+    for a, b in ((gb.albedo, ref.albedo), (gb.normal, ref.normal), (gb.prev_uv, ref.prev_uv)):
+        torch.testing.assert_close(a[hit], b[hit], rtol=0, atol=1e-4)
+    torch.testing.assert_close(gb.depth[hit], ref.depth[hit], rtol=1e-5, atol=0)
+    assert bool(torch.isinf(gb.depth[gb.instance < 0]).all())
+
+
+def test_denoiser_on_the_card_matches_cpu(tiny_render):
+    gb, _, _ = _gbuffers(tiny_render)
+    scene, view, cfg = tiny_render
+    rng = np.random.default_rng(8)
+    dcfg = denoise.DenoiseConfig(history_tap=1)
+    states = [denoise.init_state(cfg.height, cfg.width, gb.depth.device),
+              denoise.init_state(cfg.height, cfg.width, "cpu")]
+    gb_cpu = aov.GBuffer(*(x.cpu() for x in gb))
+    for _ in range(2):
+        rad = (rng.exponential(1.0, (cfg.height, cfg.width, 3)) * 0.3).astype(np.float32)
+        states[0], out = denoise.denoise(states[0], torch.from_numpy(rad).to(gb.depth.device),
+                                         gb, dcfg)
+        states[1], ref = denoise.denoise(states[1], torch.from_numpy(rad), gb_cpu, dcfg)
+        torch.testing.assert_close(out.cpu(), ref, rtol=2e-5, atol=2e-6)
+        torch.testing.assert_close(states[0].color.cpu(), states[1].color, rtol=2e-5, atol=2e-6)

@@ -250,14 +250,6 @@ def test_clamp_and_shadow_rr_match_reference(depth):
     np.testing.assert_allclose(pc.numpy(), np.asarray(jc), rtol=1e-6)
 
 
-PORTED_OPTIONS = (
-    dict(tracer="packet"), dict(tracer="bvh"), dict(tex_filter="stochastic"),
-    dict(alpha_test=True), dict(ris_candidates=4), dict(wave_caps=(1.0, 0.5)),
-    dict(slim_carry=True), dict(use_nee=False), dict(use_mis=False),
-    dict(indirect_only=True), dict(lvc_connections=4),
-)
-
-
 @pytest.mark.parametrize("option", [
     dict(tracer="packet"), dict(tracer="bvh"),
     dict(alpha_test=True), dict(ris_candidates=4), dict(wave_caps=(1.0, 0.5)),
@@ -266,21 +258,12 @@ PORTED_OPTIONS = (
     dict(lvc_connections=4), dict(tex_filter="stochastic"),
 ])
 def test_unported_options_raise(case, option):
-    """Each option raises naming its ROADMAP item until the item is ported;
-    the tracers ``packet`` and ``bvh`` and ``tex_filter="stochastic"``
-    (items 1 and 2) are accepted since (their renders:
-    test_torch_tracers.py, test_torch_colonnade.py), and so are the alpha
-    test, RIS, ``wave_caps``, ``slim_carry`` and NEE or MIS off (items 3
-    and 4; their renders: test_torch_wavefront.py,
-    test_torch_estimators.py), ``indirect_only`` and ``lvc_connections``
-    (item 5; test_torch_sampling.py, test_torch_bdpt.py). Only
-    ``debug_path_edges`` still raises."""
-    cfg = _cfg(**{**BENCH, **option})
-    if option in PORTED_OPTIONS:
-        integrator.check_supported(cfg)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        integrator.render_path_with_counts(case["ps"], case["pview"], cfg, 0)
+    """No option raises any more: ``check_supported`` accepts each one
+    that once raised naming its ROADMAP item (their renders:
+    test_torch_tracers.py, test_torch_colonnade.py, test_torch_wavefront.py,
+    test_torch_estimators.py, test_torch_sampling.py, test_torch_bdpt.py,
+    and for ``debug_path_edges``, ported last, test_torch_session.py)."""
+    integrator.check_supported(_cfg(**{**BENCH, **option}))
 
 
 @pytest.mark.parametrize("tracer", ["mxu", "brute"])
