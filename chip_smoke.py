@@ -107,8 +107,8 @@ Phases, each printing its results:
    tables' sizes; at 1920x1080 with the bench configuration ``auto``
    resolves to the block kernel, and one sample's K1/K2 waves (five closest
    waves, the deferred shadow wave) are timed whole against their bounds and
-   held to the plain versions on N_CHECK-lane slices; then 1 warm-up and 4
-   timed samples with the counters zeroed around them (25 K1 and 5 K2
+   held to the plain versions on slices of N_CHECK live lanes; then 1
+   warm-up and 4 timed samples with the counters zeroed around them (25 K1 and 5 K2
    launches), the device busy share of one profiled sample with its top
    ops, and a layer split with the texture terms and the environment timed
    apart; the ``colonnade_textured`` golden on the card within twice the
@@ -123,7 +123,8 @@ Phases, each printing its results:
    mean within the parity bound of the same seeds' sequential mean; without
    the light tile equal to the sequential samples), K1 and K2 timed whole against
    their bounds on the lanes = 4 sample's closest wave 1 (8,294,400 lanes)
-   and deferred wave (41,472,000) and held to plain on N_CHECK-lane slices;
+   and deferred wave (41,472,000) and held to plain on slices of N_CHECK
+   live lanes;
    ``wave_caps=(1, 1, 0.6, 0.082, 0.031)`` (the alive share per bounce of
    phase 5's sample against each cap, 1 warm-up and 4 timed samples, the
    device busy share, K1 on a compacted wave whole and on its live lanes,
@@ -176,7 +177,27 @@ Phases, each printing its results:
    every debug view finite and the ``path_length_1..6`` images summing to
    the full sample; an animated pillar (``flatten(time=, prev_time=)``)
    whose pixels alone move in ``prev_uv``; and the CLI in a subprocess
-   writing a denoised, ACES-tonemapped 1920x1080 PNG.
+   writing a denoised, ACES-tonemapped 1920x1080 PNG;
+17. loaded scenes and the mesh, at 1920x1080: a fractal height field of
+   4,193,408 triangles (SCAN_GRID^2 vertices from SCAN_SEED) written as a
+   binary PLY beside a serialized box and a Mitsuba XML (SCAN_XML), loaded
+   through ``cli.build_scene`` and flattened (each timed), more than 16,384
+   SAH leaves, so K1/K2 sort their lists in global scratch at gs=4: its
+   five closest waves and its deferred wave timed whole against their
+   bounds and held to plain on slices of N_CHECK live lanes, 1 + 4 timed
+   samples (25 K1 + 5 K2 launches), the busy share of a profiled sample; the CLI in
+   a subprocess on the XML and ``tools.compare`` of its PNG against the
+   same render in this process, ``tools.inspect --flatten``; phase 13's
+   colonnade written as one GLB with its PNGs embedded (``_write_glb``)
+   and loaded with PIL blocked: material fields, flattened arrays, texture
+   stack and one sample equal to the OBJ route's; ``smoky_cornell()``'s
+   grid written as .vol and .nvdb, each loaded into the box by
+   ``load_volume``, each sample equal to ``smoky_cornell()``'s bit for bit;
+   ``make_mesh()`` (1 device), the Cornell path sharded 1 and 5 ways
+   against ``render_path`` (tests/test_parallel.py's bounds), the atrium in
+   5 shards against phase 5's sample (shards of whole 2,048-lane granules:
+   the image and the rays equal bit for bit) and a denoised
+   ``RenderSession`` frame on the mesh.
 
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 result line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -348,6 +369,7 @@ def _compare_closest(fat, o, d, hk, hp, live=None):
 
 def _check_closest(name, c, agree=BATCH_AGREE):
     print(f"    {name}: {c}")
+    assert c["live"] > 0, (name, c)
     assert c["agree"] >= agree, (name, c)
     assert c["t_err_ratio"] <= 1.0, (name, c)
 
@@ -361,7 +383,7 @@ def _check_occluded(name, ok, op, live):
     agree = float(((ok == op) & live).sum()) / max(n_live, 1)
     print(f"    {name}: rays {ok.numel()} live {n_live} blocked "
           f"{float(ok.float().mean()):.4f} agree {agree} mismatch {mismatch}")
-    assert agree >= BATCH_AGREE, (name, agree)
+    assert n_live > 0 and agree >= BATCH_AGREE, (name, n_live, agree)
     return dict(rays=int(ok.numel()), live=n_live, agree=agree, mismatch=mismatch)
 
 
@@ -1107,7 +1129,7 @@ GOLDENS = {  # tests/update_goldens.py:41-52 (48x48, rr_depth=100)
 FURNACE_REL = 0.04  # sphere mean against albedo x radiance (tests/test_torch_dense_path.py)
 DIRECT_MEAN_REL = 1e-3  # render_direct, auto (mxu) against brute
 DIRECT_PIXEL_SHARE = 0.999
-GPU_TESTS = 46  # tests in tests/test_torch_cuda.py
+GPU_TESTS = 48  # tests in tests/test_torch_cuda.py
 
 
 def _modes_equal(fat, o, d, bound, occluded, gs):
@@ -1421,20 +1443,22 @@ TRACER_FRAME = 128  # packet and LBVH checks: camera rays of a 128x128 frame
 
 
 def _wave_slice(o, d, tm, rng):
-    """N_CHECK lanes of a wave, in their order (the tracer's blocks keep
-    the wave's coherence)."""
+    """N_CHECK of a wave's live lanes (t_max > 0; all of them where it has
+    fewer), in their order (the tracer's blocks keep the wave's
+    coherence)."""
     import numpy as np
     import torch
 
-    n = o.shape[0]
-    if n <= N_CHECK:
-        return o, d, tm
-    sel = torch.from_numpy(np.sort(rng.choice(n, N_CHECK, replace=False))).to(o.device)
-    return o[sel], d[sel], tm[sel]
+    live = torch.nonzero(tm > 0).squeeze(1)
+    n = live.numel()
+    if n > N_CHECK:
+        live = live[torch.from_numpy(np.sort(rng.choice(n, N_CHECK, replace=False))).to(o.device)]
+    return o[live], d[live], tm[live]
 
 
-def _colonnade_waves(scene, view, cfg, rng):
-    """One 1920x1080 sample's K1/K2 waves on the colonnade: each full wave's
+def _colonnade_waves(scene, view, cfg, rng, label="13 colonnade"):
+    """One 1920x1080 sample's K1/K2 waves on the colonnade (phase 17: the
+    scene ``label`` names): each full wave's
     kernel time (the launch, list phase included) against its bound, its
     mean list length per CTA, and the kernel against its plain version on
     N_CHECK lanes of it -> (closest wave dicts, deferred wave dict)."""
@@ -1461,11 +1485,11 @@ def _colonnade_waves(scene, view, cfg, rng):
         hp, plain_ms = _timed(lambda: block_trace.block_closest_plain(fat, os_, ds_, ts_),
                               warmup=False)
         c = _compare_closest(fat, os_, ds_, hk, hp, ts_ > 0)
-        print(f"[13 colonnade waves] closest wave {i} ({o.shape[0]} lanes, "
+        print(f"[{label} waves] closest wave {i} ({o.shape[0]} lanes, "
               f"{int((tm > 0).sum())} live): kernel {ms:.3f} ms (bound {bound_ms:.3f} ms, "
               f"{bound_by}; {tests} tests), candidate groups per CTA {per_cta:.2f}; "
               f"{c['rays']}-lane slice: plain {plain_ms:.3f} ms, {c}", flush=True)
-        _check_closest(f"colonnade closest wave {i}", c)
+        _check_closest(f"{label} closest wave {i}", c)
         closest.append(dict(c, ms=ms, plain_slice_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=bound_by, tests=tests, lanes=o.shape[0],
                             ncand_cta=per_cta))
@@ -1484,11 +1508,11 @@ def _colonnade_waves(scene, view, cfg, rng):
     ok = block_trace.block_occluded(fat, os_, ws_, ts_)
     op, plain_ms_o = _timed(lambda: block_trace.block_occluded_plain(fat, os_, ws_, ts_),
                             warmup=False)
-    print(f"[13 colonnade waves] deferred shadow wave ({t.numel()} lanes, {int((t > 0).sum())} "
+    print(f"[{label} waves] deferred shadow wave ({t.numel()} lanes, {int((t > 0).sum())} "
           f"live): kernel {ms_o:.3f} ms (bound {bound_o[0]:.3f} ms, {bound_o[1]}; {tests_o} "
           f"tests), candidate groups per CTA {per_cta_o:.2f}; {os_.shape[0]}-lane slice: "
           f"plain {plain_ms_o:.3f} ms", flush=True)
-    occ = _check_occluded("colonnade occluded deferred wave slice", ok, op, ts_ > 0)
+    occ = _check_occluded(f"{label} occluded deferred wave slice", ok, op, ts_ > 0)
     occluded = dict(occ, ms=ms_o, plain_slice_ms=plain_ms_o, bound_ms=bound_o[0],
                     bound_by=bound_o[1], tests=tests_o, lanes=t.numel(), ncand_cta=per_cta_o)
     torch.cuda.empty_cache()
@@ -1701,7 +1725,8 @@ SPHERE_BOX_REL = 0.05  # tests/test_spheres.py:101-120
 
 def _whole_wave(fat, occluded, o, d, t, rng, label, phase="14", smi=""):
     """One wave of K1 (closest) or K2 (occluded) timed whole against its
-    bound, and held to its plain version on an N_CHECK-lane slice -> dict."""
+    bound, and held to its plain version on a slice of N_CHECK live lanes
+    -> dict."""
     import torch
     from stratum_tpu_torch.ops import block_trace
 
@@ -2686,6 +2711,523 @@ def _frame_phase(dev, smi, scene, view, main5):
     return out, wave
 
 
+# ---- phase 17: loaded scenes and the mesh ---------------------------------------------
+
+LOADED = ROOT / "build" / "loaded"
+SCAN_GRID = 1449  # vertices a side of the scan's height field: 2 x 1448^2 = 4,193,408 triangles
+SCAN_SEED = 17
+SCAN_RELIEF = 0.18  # height range of the field over its 2 x 2 extent
+SCAN_LEAVES = 16384  # past this many SAH leaves K1/K2 sort their lists in global scratch at gs=4
+SCAN_XML = """<scene version="0.6.0">
+  <sensor type="perspective">
+    <float name="fov" value="50"/>
+    <transform name="toWorld">
+      <lookat origin="0 0.75 -1.55" target="0 -0.05 0.15" up="0 1 0"/>
+    </transform>
+  </sensor>
+  <shape type="ply">
+    <string name="filename" value="scan.ply"/>
+    <bsdf type="diffuse"><rgb name="reflectance" value="0.6 0.55 0.5"/></bsdf>
+  </shape>
+  <shape type="serialized">
+    <string name="filename" value="marker.serialized"/>
+    <bsdf type="roughconductor"><float name="alpha" value="0.09"/></bsdf>
+    <transform name="toWorld">
+      <scale value="0.08"/><translate x="0.25" y="0.12" z="-0.3"/>
+    </transform>
+  </shape>
+  <shape type="rectangle">
+    <transform name="toWorld">
+      <scale value="0.5"/><rotate x="1" angle="90"/><translate x="0.3" y="1.6" z="-0.2"/>
+    </transform>
+    <emitter type="area"><rgb name="radiance" value="12 12 12"/></emitter>
+  </shape>
+</scene>
+"""
+SCAN_LAUNCHES = {"block closest": 25, "block occluded": 5, "binned emit": 0,
+                 "binned closest": 0, "binned occluded": 0}  # 1 + 4 samples
+GLB_FIELDS = ("base_color", "metallic", "roughness", "emission", "eta", "transmission",
+              "clearcoat", "clearcoat_gloss", "base_color_image")  # what glTF carries
+SMOKE_MEDIUM = dict(albedo=(0.85, 0.85, 0.9), g=0.3)  # smoky_cornell()'s medium
+MESH_SHARDS = 5  # shards on the one card: 414,720 pixels each at 1920x1080
+MESH_RTOL, MESH_ATOL, MESH_EXACT = 1e-4, 1e-6, 0.9  # tests/test_parallel.py:27-32
+
+
+def _write_scan(out: Path) -> dict:
+    """The scan's files: a fractal height field from SCAN_SEED (spectral
+    synthesis, 1/f^2.1 amplitude) as a binary little-endian PLY of
+    SCAN_GRID^2 float x y z vertices and ``uchar int`` triangle lists, a
+    small box written by ``write_serialized``, and SCAN_XML -> paths and
+    counts."""
+    import numpy as np
+    from stratum_tpu_torch.scene.builtin import _box
+    from stratum_tpu_torch.scene.loaders.serialized import write_serialized
+
+    out.mkdir(parents=True, exist_ok=True)
+    n = SCAN_GRID
+    rng = np.random.default_rng(SCAN_SEED)
+    f = np.fft.fftfreq(n)
+    k = np.sqrt(f[:, None] ** 2 + f[None, :] ** 2)
+    k[0, 0] = 1.0
+    spec = np.fft.fft2(rng.normal(size=(n, n))) / k ** 2.1
+    spec[0, 0] = 0.0
+    h = np.real(np.fft.ifft2(spec))
+    h = (SCAN_RELIEF * ((h - h.min()) / np.ptp(h) - 0.5)).astype(np.float32)
+    u = np.linspace(-1.0, 1.0, n, dtype=np.float32)
+    zz, xx = np.meshgrid(u, u, indexing="ij")
+    pos = np.stack([xx, h, zz], axis=-1).reshape(-1, 3)
+    a = (np.arange(n - 1)[:, None] * n + np.arange(n - 1)[None, :]).reshape(-1)
+    tri = np.stack([np.stack([a, a + n + 1, a + 1], -1), np.stack([a, a + n, a + n + 1], -1)],
+                   axis=1).reshape(-1, 3)
+    face = np.empty(len(tri), np.dtype([("n", "u1"), ("i", "<i4", (3,))]))
+    face["n"] = 3
+    face["i"] = tri
+    head = (f"ply\nformat binary_little_endian 1.0\nelement vertex {len(pos)}\n"
+            "property float x\nproperty float y\nproperty float z\n"
+            f"element face {len(tri)}\nproperty list uchar int vertex_indices\nend_header\n")
+    (out / "scan.ply").write_bytes(head.encode() + pos.astype("<f4").tobytes() + face.tobytes())
+    box_pos, box_idx = _box((-1.0, -1.0, -1.0), (1.0, 1.0, 1.0))
+    write_serialized(out / "marker.serialized", box_pos, box_idx)
+    (out / "scan.xml").write_text(SCAN_XML)
+    return dict(xml=out / "scan.xml", ply=out / "scan.ply", faces=len(tri),
+                ply_bytes=(out / "scan.ply").stat().st_size)
+
+
+def _scan(dev, smi):
+    """Phase 17, the scan: written, loaded through Mitsuba XML and PLY,
+    flattened; K1/K2 in their global list mode on its waves, 1 + 4 samples
+    -> (scene, view, dict)."""
+    import numpy as np
+    import torch
+    from stratum_tpu_torch import cli, profile_sample
+    from stratum_tpu_torch.ops import block_trace
+    from stratum_tpu_torch.render import camera, integrator
+    from stratum_tpu_torch.scene import flatten
+    from stratum_tpu_torch.utils.flags import Options
+
+    t0 = time.perf_counter()
+    info = _write_scan(LOADED)
+    t1 = time.perf_counter()
+    g = cli.build_scene(Options([f"--scene={info['xml']}"]))
+    t2 = time.perf_counter()
+    scene, stats = flatten.flatten(g.root, device=dev)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    L, K = scene.fat_bvh.leaf_tri.shape
+    G = -(-L // block_trace.GS)
+    keys = block_trace.list_keys(G)
+    mode = block_trace.resolve_list_mode(G)
+    line = dict(triangles=stats.num_triangles, ply_faces=info["faces"],
+                ply_bytes=info["ply_bytes"], leaves=L, leaf_size=K, groups=G, list_keys=keys,
+                list_mode=mode, write_s=t1 - t0, load_s=t2 - t1, flatten_s=t3 - t2,
+                scratch_ctas=block_trace.list_scratch_ctas(G, 16200))
+    print(f"[17 scan] {stats.num_triangles} triangles ({info['faces']} PLY faces, "
+          f"{info['ply_bytes']} B), {L} SAH leaves of {K}, {G} groups at gs={block_trace.GS}, "
+          f"list_keys {keys} > {block_trace.MAX_LIST_KEYS}: {mode} lists; write "
+          f"{t1 - t0:.2f} s, load (XML, PLY, serialized) {t2 - t1:.2f} s, flatten "
+          f"{t3 - t2:.2f} s", flush=True)
+    assert L > SCAN_LEAVES and mode == "global", line
+    W, H = FRAME
+    node, cam = flatten.find_camera(g.root)
+    view = camera.make_view(node.to_world(), cam.fovy, W, H, device=dev)
+    cfg = integrator.RenderConfig(width=W, height=H, **BENCH)
+    assert integrator.resolved_tracer(scene, cfg) == "pallas"
+    closest, occluded = _colonnade_waves(scene, view, cfg, np.random.default_rng(17), "17 scan")
+    launches, img, main = _timed_samples(scene, view, cfg, "17 scan", "scan", smi)
+    assert launches == SCAN_LAUNCHES, launches
+    busy, ops = profile_sample.device_profile(scene, view, cfg, 1)
+    share = ("not measured: the profiler recorded no device events" if busy is None
+             else f"{busy:.3f} ms of a {main['ms_spp']:.1f} ms sample, "
+                  f"{100 * busy / main['ms_spp']:.1f} %")
+    print(f"[17 scan] device busy {share}; top ops "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in ops[:6]) + f" | {smi}", flush=True)
+    main.update(launches=launches, device_busy_ms=busy, top_ops_ms=ops[:6],
+                busy_share=None if busy is None else busy / main["ms_spp"], scene=line)
+    return scene, view, dict(path=main, waves=dict(closest=closest, occluded=occluded),
+                             xml=str(info["xml"]))
+
+
+def _scan_tools(scene, view, xml, smi):
+    """Phase 17, tools and CLI: the CLI in a subprocess on the scan at
+    1920x1080, 1 spp; ``tools.compare`` of its PNG against the same render
+    in this process; ``tools.inspect --flatten`` on the scan -> dict."""
+    import contextlib
+    import io
+
+    from stratum_tpu_torch.io.image import read_png, save_image
+    from stratum_tpu_torch.render import integrator
+    from stratum_tpu_torch.render import tonemap as stonemap
+    from stratum_tpu_torch.tools import compare as tcompare
+    from stratum_tpu_torch.tools import inspect as tinspect
+
+    W, H = FRAME
+    cli_png, own_png = LOADED / "cli_scan.png", LOADED / "scan_in_process.png"
+    cli_png.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "stratum_tpu_torch.cli", f"--scene={xml}", f"--width={W}",
+         f"--height={H}", "--spp=1", f"--out={cli_png}"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    for ln in proc.stdout.strip().splitlines():
+        print(f"[17 CLI] {ln}", flush=True)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    # the CLI's defaults: its RenderConfig, one batched sample at seed 0, the
+    # raw tonemap, sRGB PNG
+    cfg = integrator.RenderConfig(width=W, height=H, bsdf="disney")
+    img, _ = integrator.render_path_batched(scene, view, cfg, 1, 0)
+    save_image(str(own_png), stonemap.tonemap(img.cpu().numpy(), stonemap.TonemapMode.RAW,
+                                              exposure=0.0).numpy())
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = tcompare.main([str(cli_png), str(own_png)])
+    metrics = dict(ln.split() for ln in buf.getvalue().splitlines())
+    for ln in buf.getvalue().splitlines():
+        print(f"[17 compare] {ln}", flush=True)
+    assert rc == 0 and float(metrics["mse"]) < 1e-4, metrics
+    cli = dict(rc=proc.returncode, wall_s=wall, png_shape=list(read_png(cli_png).shape),
+               timing=[ln for ln in proc.stdout.splitlines() if ln.startswith("render:")],
+               compare={k: float(v) for k, v in metrics.items()})
+    print(f"[17 CLI] rc {proc.returncode}, {wall:.1f} s with start-up, load and flatten | {smi}",
+          flush=True)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = tinspect.main([f"--scene={xml}", "--flatten"])
+    inspect_s = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    for ln in lines:
+        if ln.strip() and not ln.startswith("  ."):
+            print(f"[17 inspect] {ln}", flush=True)
+    assert rc == 0 and any(ln.startswith("instances") for ln in lines)
+    return dict(cli=cli, inspect_s=inspect_s,
+                inspect_stats=[ln for ln in lines if ln.startswith(("instances", "BVH"))])
+
+
+def _write_glb(g, path: Path, tex_dir: Path):
+    """A loaded graph's meshes, materials (the fields glTF carries, the
+    base colour as the asset's PNG, embedded) and camera as one GLB
+    (glTF 2.0 binary). The package has no glTF writer: this one exists for
+    this check. A glTF camera looks down -z, so the node's matrix is the
+    camera's with x and z negated, which the loader's flip restores."""
+    import json
+    import struct
+
+    import numpy as np
+    from stratum_tpu_torch.scene import flatten
+    from stratum_tpu_torch.scene.graph import MeshPrimitive
+
+    blob, views, accessors = bytearray(), [], []
+
+    def view_of(data: bytes) -> int:
+        blob.extend(b"\0" * (-len(blob) % 4))
+        views.append({"buffer": 0, "byteOffset": len(blob), "byteLength": len(data)})
+        blob.extend(data)
+        return len(views) - 1
+
+    def accessor(arr, ctype, kind) -> int:
+        accessors.append({"bufferView": view_of(arr.tobytes()), "componentType": ctype,
+                          "count": int(arr.shape[0]), "type": kind})
+        return len(accessors) - 1
+
+    def f(x):
+        return [float(v) for v in np.asarray(x, np.float32).reshape(-1)]
+
+    nodes, meshes, materials, images, mat_of = [], [], [], [], {}
+    for node in g.root.descendants():
+        mp = node.find(MeshPrimitive)
+        if mp is None:
+            continue
+        m = mp.material
+        if id(m) not in mat_of:
+            images.append({"bufferView": view_of((tex_dir / f"{node.name}.png").read_bytes()),
+                           "mimeType": "image/png"})
+            mat_of[id(m)] = len(materials)
+            materials.append({
+                "name": m.name,
+                "pbrMetallicRoughness": {
+                    "baseColorFactor": f(m.base_color) + [1.0],
+                    "metallicFactor": f(m.metallic)[0], "roughnessFactor": f(m.roughness)[0],
+                    "baseColorTexture": {"index": len(images) - 1}},
+                "emissiveFactor": f(m.emission),
+                "extensions": {
+                    "KHR_materials_ior": {"ior": f(m.eta)[0]},
+                    "KHR_materials_transmission": {"transmissionFactor": f(m.transmission)[0]},
+                    "KHR_materials_clearcoat": {
+                        "clearcoatFactor": f(m.clearcoat)[0],
+                        "clearcoatRoughnessFactor": 1.0 - f(m.clearcoat_gloss)[0]}},
+            })
+        attrs = {"POSITION": accessor(np.ascontiguousarray(mp.positions, np.float32), 5126,
+                                      "VEC3"),
+                 "NORMAL": accessor(np.ascontiguousarray(mp.normals, np.float32), 5126, "VEC3"),
+                 "TEXCOORD_0": accessor(np.ascontiguousarray(mp.uvs, np.float32), 5126, "VEC2")}
+        idx = accessor(np.ascontiguousarray(mp.indices, np.uint32).reshape(-1), 5125, "SCALAR")
+        meshes.append({"primitives": [{"attributes": attrs, "indices": idx,
+                                       "material": mat_of[id(m)]}]})
+        nodes.append({"name": node.name, "mesh": len(meshes) - 1})
+    cam_node, cam = flatten.find_camera(g.root)
+    m = np.eye(4, dtype=np.float32)
+    m[:3] = cam_node.to_world()
+    m[:3, 0] *= -1.0
+    m[:3, 2] *= -1.0
+    nodes.append({"name": "camera", "camera": 0, "matrix": f(m.T)})
+    doc = {"asset": {"version": "2.0"}, "scene": 0,
+           "scenes": [{"nodes": list(range(len(nodes)))}], "nodes": nodes, "meshes": meshes,
+           "materials": materials, "images": images,
+           "textures": [{"source": i} for i in range(len(images))],
+           "cameras": [{"type": "perspective",
+                        "perspective": {"yfov": float(cam.fovy), "znear": 0.01}}],
+           "buffers": [{"byteLength": len(blob)}], "bufferViews": views,
+           "accessors": accessors}
+    payload = json.dumps(doc).encode()
+    payload += b" " * (-len(payload) % 4)
+    blob.extend(b"\0" * (-len(blob) % 4))
+    body = (struct.pack("<II", len(payload), 0x4E4F534A) + payload
+            + struct.pack("<II", len(blob), 0x004E4942) + bytes(blob))
+    path.write_bytes(struct.pack("<4sII", b"glTF", 2, 12 + len(body)) + body)
+    return path
+
+
+def _scene_diff(a, b):
+    """Names of the flattened arrays in which two scenes differ."""
+    import torch
+
+    fields = {"geo.positions": lambda s: s.geo.positions, "geo.normals": lambda s: s.geo.normals,
+              "geo.uvs": lambda s: s.geo.uvs, "geo.indices": lambda s: s.geo.indices,
+              "geo.tri_material": lambda s: s.geo.tri_material,
+              "geo.packed_tri": lambda s: s.geo.packed_tri,
+              "materials.packed": lambda s: s.materials.packed,
+              "textures.flat": lambda s: s.textures.flat,
+              "textures.quad": lambda s: s.textures.quad,
+              "env.emission": lambda s: s.env.emission,
+              "fat_bvh.leaf_tri": lambda s: s.fat_bvh.leaf_tri,
+              "slot_payload": lambda s: s.slot_payload,
+              "media.density": lambda s: s.media.density}
+    return [k for k, get in fields.items()
+            if get(a).shape != get(b).shape or not torch.equal(get(a), get(b))]
+
+
+def _glb_colonnade(dev, smi):
+    """Phase 17, the colonnade as textured glTF: phase 13's asset written
+    as one GLB with its PNGs embedded, loaded with the port's decoder (PIL
+    blocked), against the OBJ route -> dict."""
+    import numpy as np
+    import torch
+    from stratum_tpu_torch import cli
+    from stratum_tpu_torch.io.image import load_image
+    from stratum_tpu_torch.render import camera, integrator
+    from stratum_tpu_torch.scene import flatten, sample_assets
+    from stratum_tpu_torch.scene.graph import EnvironmentComponent, MeshPrimitive
+    from stratum_tpu_torch.utils.flags import Options
+
+    out = LOADED / "colonnade"
+    info = sample_assets.write_colonnade(out)
+    t0 = time.perf_counter()
+    g_obj = sample_assets.colonnade_graph(info)
+    obj_s = time.perf_counter() - t0
+    glb = _write_glb(g_obj, out / "colonnade.glb", out)
+    # PIL blocked while the GLB loads (an import of it raises): its PNGs go
+    # through the port's own decoder
+    pil = {k: sys.modules.pop(k) for k in list(sys.modules) if k.split(".")[0] == "PIL"}
+    sys.modules["PIL"] = None
+    try:
+        t0 = time.perf_counter()
+        g_glb = cli.build_scene(Options([f"--scene={glb}"]))
+        glb_s = time.perf_counter() - t0
+    finally:
+        del sys.modules["PIL"]
+        sys.modules.update(pil)
+    # glTF has no environment: the sky goes in as the CLI's --envmap adds it
+    g_glb.root.add_child("envmap").make_component(EnvironmentComponent(
+        color=np.full(3, 1.0, np.float32), image=load_image(str(info["env"]))[..., :3],
+        source_path=str(info["env"])))
+    mats = [(a.find(MeshPrimitive).material, b.find(MeshPrimitive).material)
+            for a, b in zip([n for n in g_obj.root.descendants() if n.find(MeshPrimitive)],
+                            [n for n in g_glb.root.descendants() if n.find(MeshPrimitive)])]
+    field_diff = [f"{ma.name}.{k}" for ma, mb in mats for k in GLB_FIELDS
+                  if not np.array_equal(np.asarray(getattr(ma, k)), np.asarray(getattr(mb, k)))]
+    s_obj, _ = flatten.flatten(g_obj.root, device=dev)
+    s_glb, stats = flatten.flatten(g_glb.root, device=dev)
+    diff = _scene_diff(s_obj, s_glb)
+    W, H = FRAME
+    views = []
+    for g in (g_obj, g_glb):
+        node, cam = flatten.find_camera(g.root)
+        views.append((node.to_world(), cam.fovy))
+    same_cam = np.array_equal(views[0][0], views[1][0]) and views[0][1] == views[1][1]
+    view = camera.make_view(views[1][0], views[1][1], W, H, device=dev)
+    print(f"[17 glTF] colonnade as {glb.stat().st_size} B of GLB ({len(mats)} meshes, PNGs "
+          f"embedded): load {glb_s:.2f} s with PIL blocked (OBJ route {obj_s:.2f} s); "
+          f"{stats.num_triangles} triangles; material fields differing {field_diff}; flattened "
+          f"arrays differing {diff}; camera equal {same_cam}", flush=True)
+    assert len(mats) == 3 and not field_diff and same_cam
+    assert not {"geo.positions", "geo.normals", "geo.uvs", "geo.indices", "textures.flat",
+                "textures.quad"} & set(diff), diff
+    cfg = integrator.RenderConfig(width=W, height=H, **BENCH)
+    seed = 4  # phase 13's last timed sample
+    img_obj = integrator.render_path(s_obj, view, cfg, seed)
+    img_glb = integrator.render_path(s_glb, view, cfg, seed)
+    same = bool(torch.equal(img_obj, img_glb))
+    mean_o, mean_g = float(img_obj.mean()), float(img_glb.mean())
+    rel = abs(mean_g - mean_o) / mean_o
+    print(f"[17 glTF] sample {seed} at {W}x{H}: GLB route equal to the OBJ route bit for bit: "
+          f"{same}; means {mean_g:.6f} vs {mean_o:.6f} (rel {rel:.2e}) | {smi}", flush=True)
+    assert same if not diff else rel <= PARITY_MEAN_REL
+    return dict(glb_bytes=glb.stat().st_size, glb_load_s=glb_s, obj_load_s=obj_s,
+                triangles=stats.num_triangles, arrays_differing=diff, image_equal=same,
+                mean=mean_g, mean_obj=mean_o)
+
+
+def _volumes(dev, smi):
+    """Phase 17, volumes: ``smoky_cornell()``'s grid written as .vol and
+    .nvdb, each loaded into the box without its boxes, its 1080p sample
+    against ``smoky_cornell()``'s -> dict."""
+    import numpy as np
+    import torch
+    from stratum_tpu_torch.render import camera, integrator
+    from stratum_tpu_torch.scene import builtin, flatten
+    from stratum_tpu_torch.scene.graph import MediumComponent
+    from stratum_tpu_torch.scene.loaders import volumes
+
+    W, H = FRAME
+    ref_g = builtin.smoky_cornell()
+    mc = next(n.find(MediumComponent) for n in ref_g.root.descendants()
+              if n.find(MediumComponent))
+    LOADED.mkdir(parents=True, exist_ok=True)
+    volumes.write_vol_grid(LOADED / "smoke.vol", mc.density, mc.box_lo, mc.box_hi)
+    volumes.write_nvdb_grid(LOADED / "smoke.nvdb", mc.density, mc.box_lo, mc.box_hi)
+    node, cam = flatten.find_camera(ref_g.root)
+    view = camera.make_view(node.to_world(), cam.fovy, W, H, device=dev)
+    cfg = integrator.RenderConfig(width=W, height=H, **CORNELL)
+    seed = 4
+    ref_scene, _ = flatten.flatten(ref_g.root, device=dev)
+    ref = integrator.render_path(ref_scene, view, cfg, seed)
+    del ref_scene
+    out = {}
+    for ext in ("vol", "nvdb"):
+        g = builtin.cornell_box(boxes=False)
+        t0 = time.perf_counter()
+        lm = volumes.load_volume(g.root, LOADED / f"smoke.{ext}", **SMOKE_MEDIUM).find(
+            MediumComponent)
+        load_s = time.perf_counter() - t0
+        grid_equal = (np.array_equal(lm.density, mc.density)
+                      and np.array_equal(lm.box_lo, mc.box_lo)
+                      and np.array_equal(lm.box_hi, mc.box_hi))
+        scene, _ = flatten.flatten(g.root, device=dev)
+        t0 = time.perf_counter()
+        img = integrator.render_path(scene, view, cfg, seed)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        same = bool(torch.equal(img, ref))
+        print(f"[17 volumes] smoke.{ext} ({(LOADED / f'smoke.{ext}').stat().st_size} B, "
+              f"{tuple(lm.density.shape)}): load {load_s * 1e3:.1f} ms, grid and box equal "
+              f"{grid_equal}; sample {seed} ({ms:.1f} ms) equal to smoky_cornell()'s bit for "
+              f"bit: {same} | {smi}", flush=True)
+        assert grid_equal and same
+        out[ext] = dict(load_ms=load_s * 1e3, grid_equal=grid_equal, image_equal=same,
+                        sample_ms=ms)
+        del scene
+    return out
+
+
+def _mesh(dev, smi, atrium, atrium_view, main5, img5):
+    """Phase 17, the mesh on one card: ``make_mesh()``; the Cornell path
+    sharded against ``render_path``; the atrium in 5 shards of whole
+    granules, bit for bit against phase 5's sample; one denoised
+    ``RenderSession`` frame on the mesh -> dict."""
+    import numpy as np
+    import torch
+    from stratum_tpu_torch.parallel import mesh as pmesh
+    from stratum_tpu_torch.render import camera, integrator, session
+    from stratum_tpu_torch.scene import builtin, flatten
+
+    W, H = FRAME
+    one = pmesh.make_mesh()
+    assert one.size == 1, one
+    five = pmesh.make_mesh([DEVICE] * MESH_SHARDS)
+    out = {}
+    g = builtin.cornell_box()
+    scene, _ = flatten.flatten(g.root, device=dev)
+    node, cam = flatten.find_camera(g.root)
+    view = camera.make_view(node.to_world(), cam.fovy, W, H, device=dev)
+    cfg = integrator.RenderConfig(width=W, height=H, **CORNELL)
+    seed = 4
+    ref = integrator.render_path(scene, view, cfg, seed).cpu().numpy().reshape(-1, 3)
+    for name, m in (("one", one), ("five", five)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = pmesh.render_path_sharded(scene, view, cfg, seed, m)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = img.cpu().numpy().reshape(-1, 3)
+        close = bool(np.allclose(got, ref, rtol=MESH_RTOL, atol=MESH_ATOL))
+        exact = float((got == ref).all(axis=-1).mean())
+        print(f"[17 mesh] Cornell ({integrator.resolved_tracer(scene, cfg)}), {m.size} "
+              f"shard(s): {ms:.1f} ms, allclose(rtol {MESH_RTOL}, atol {MESH_ATOL}) {close}, "
+              f"pixels bit-equal {exact:.6f}", flush=True)
+        assert close and exact > MESH_EXACT
+        out[f"cornell_{name}"] = dict(ms=ms, allclose=close, exact_share=exact)
+    del scene
+    cfg = integrator.RenderConfig(width=W, height=H, **BENCH)
+    seed = 4  # phase 5's last sample
+    granule = pmesh._granule(cfg)
+    cuts = [sl.start for _, sl in pmesh._shards(W * H, five, granule=granule)]
+    whole = all(c % granule == 0 for c in cuts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, rays = pmesh.render_path_sharded_with_counts(atrium, atrium_view, cfg, seed, five)
+    rays = int(rays)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    img_np, ref5 = img.cpu().numpy(), img5.cpu().numpy()
+    mean_rel = abs(img_np.mean() - ref5.mean()) / ref5.mean()
+    pix = float(np.all(np.abs(img_np - ref5) <= 1e-3 * (1 + np.abs(ref5)), axis=-1).mean())
+    _, rays5 = integrator.render_path_with_counts(atrium, atrium_view, cfg, seed)
+    rays5 = int(rays5)  # phase 5's sample 4 traced these
+    rays_rel = abs(rays - rays5) / rays5
+    same = bool(torch.equal(img, img5))
+    print(f"[17 mesh] atrium, {MESH_SHARDS} shards (first lanes {cuts}; whole {granule}-lane "
+          f"granules: {whole}): {ms:.1f} ms vs {main5['ms_spp']:.1f} ms/spp (phase 5); against "
+          f"phase 5's sample {seed}: mean rel {mean_rel:.2e}, pixels agreeing {pix:.6f}, rays {rays} "
+          f"(unsharded {rays5}, rel {rays_rel:.2e}), bit for bit: "
+          f"{same} | {smi}", flush=True)
+    assert mean_rel <= PARITY_MEAN_REL and pix >= PARITY_PIXEL_SHARE
+    assert rays_rel <= PARITY_RAYS_REL
+    # shards of whole granules draw the unsharded render's light-tile groups
+    assert whole and same and rays == rays5, (cuts, same, rays, rays5)
+    out["atrium_five"] = dict(ms=ms, mean_rel=float(mean_rel), pixels=pix, rays=rays,
+                              rays_rel=rays_rel, image_equal=same, shard_starts=cuts,
+                              whole_granules=whole)
+    sess = session.RenderSession(atrium, atrium_view, cfg, denoise=True, mesh=one)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frame = sess.frame()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    finite = bool(torch.isfinite(frame).all())
+    print(f"[17 mesh] RenderSession(denoise=True, mesh=make_mesh()) frame: {ms:.1f} ms, "
+          f"finite {finite}, mean {float(frame.mean()):.6f} | {smi}", flush=True)
+    assert finite
+    out["session_frame"] = dict(ms=ms, mean=float(frame.mean()))
+    return out
+
+
+def _loaded_phase(dev, smi, atrium, atrium_view, main5, img5):
+    """Phase 17: loaded scenes and the mesh -> (dict, scan waves)."""
+    import torch
+
+    scan_scene, scan_view, scan = _scan(dev, smi)
+    tools = _scan_tools(scan_scene, scan_view, scan["xml"], smi)
+    del scan_scene
+    torch.cuda.empty_cache()
+    glb = _glb_colonnade(dev, smi)
+    torch.cuda.empty_cache()
+    vols = _volumes(dev, smi)
+    mesh = _mesh(dev, smi, atrium, atrium_view, main5, img5)
+    torch.cuda.empty_cache()
+    return dict(scan=scan["path"], tools=tools, gltf=glb, volumes=vols, mesh=mesh), scan["waves"]
+
+
 def _gpu_tests():
     """Phase 12: tests/test_torch_cuda.py in a subprocess (no conftest: the
     card has no JAX); every test must pass, none skip."""
@@ -2967,6 +3509,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     frame, gb_wave = _frame_phase(dev, smi, scene, view, main5)
 
+    # ---- 17: loaded scenes and the mesh ----------------------------------------
+    torch.cuda.empty_cache()
+    loaded, scan_waves = _loaded_phase(dev, smi, scene, view, main5, img5)
+    scan_k1, scan_k2 = scan_waves["closest"], scan_waves["occluded"]
+
     # ms / plain_ms / wrapper_ms of K1 are means per closest wave over the
     # main path's five waves; K2's are the deferred shadow wave's. K3's are
     # closest wave 1's and the deferred wave's at gs=1, its launches those of
@@ -3022,7 +3569,18 @@ def main() -> int:
                             agree=min(c["agree"] for c in col["waves"]["closest"]),
                             max_abs_err=max(c["max_abs_err"] for c in col["waves"]["closest"]),
                             tri_tests=[c["tests"] for c in col["waves"]["closest"]],
-                            wave_ncand_cta=[c["ncand_cta"] for c in col["waves"]["closest"]])),
+                            wave_ncand_cta=[c["ncand_cta"] for c in col["waves"]["closest"]]),
+             scan=dict(launches=loaded["scan"]["launches"]["block closest"],
+                       list_mode=loaded["scan"]["scene"]["list_mode"],
+                       leaves=loaded["scan"]["scene"]["leaves"],
+                       wave_ms=[c["ms"] for c in scan_k1],
+                       wave_bound_ms=[c["bound_ms"] for c in scan_k1],
+                       wave_bound_by=[c["bound_by"] for c in scan_k1],
+                       wave_plain_slice_ms=[c["plain_slice_ms"] for c in scan_k1],
+                       agree=min(c["agree"] for c in scan_k1),
+                       max_abs_err=max(c["max_abs_err"] for c in scan_k1),
+                       tri_tests=[c["tests"] for c in scan_k1],
+                       wave_ncand_cta=[c["ncand_cta"] for c in scan_k1])),
         dict(bt, name="block_trace occluded (K2)",
              replaces="stratum_tpu/ops/pallas_trace.py:1242",
              launches=launches["block occluded"], max_abs_err=float(occ["mismatch"] > 0),
@@ -3037,7 +3595,11 @@ def main() -> int:
                             plain_slice_ms=col["waves"]["occluded"]["plain_slice_ms"],
                             agree=col["waves"]["occluded"]["agree"],
                             tri_tests=col["waves"]["occluded"]["tests"],
-                            ncand_cta=col["waves"]["occluded"]["ncand_cta"])),
+                            ncand_cta=col["waves"]["occluded"]["ncand_cta"]),
+             scan=dict(launches=loaded["scan"]["launches"]["block occluded"],
+                       **{k: scan_k2[k] for k in ("ms", "bound_ms", "bound_by",
+                                                  "plain_slice_ms", "agree", "tests",
+                                                  "ncand_cta", "lanes")})),
         dict(bt, name="block_trace closest at gs=1 (K3)",
              replaces="stratum_tpu/ops/pallas_trace.py:532",
              launches=k3_launches["closest"], max_abs_err=k3c["max_abs_err"],
@@ -3094,7 +3656,9 @@ def main() -> int:
     ] + t_kernels
     print(json.dumps({"kernels": kernels,
                       "paths": {"main": main5, "binned": main6, "cornell": cornell,
-                                "colonnade": col["path"], **wave, **more, **frame},
+                                "colonnade": col["path"], **wave, **more, **frame,
+                                "scan": loaded["scan"]},
+                      "loaded": {k: loaded[k] for k in ("tools", "gltf", "volumes", "mesh")},
                       "colonnade": {k: col[k] for k in ("golden", "tracers")},
                       "past_budgets": {k: past[k] for k in ("leaves", "triangles", "list_keys",
                                                            "emit_tile")},

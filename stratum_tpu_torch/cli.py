@@ -9,8 +9,10 @@ Usage:
 Flags are the reference's (``--key=value``). The render runs on the card;
 ``--cpu`` runs it on the CPU, and without ``--cpu`` a machine with no card
 raises. ``--scene`` takes ``cornell``, ``furnace``, ``spheres``, ``atrium``
-or an ``.obj`` file; the other loaders (glTF, Mitsuba, PLY, STL, FBX) and
-``--volume`` are ROADMAP Queue 1 item 7 and raise. ``--compileCache`` (the
+or a file: ``.obj``, ``.gltf`` / ``.glb``, Mitsuba ``.xml``, ``.ply``,
+``.stl`` or binary ``.fbx`` (``.blend`` is refused with the export to use).
+``--volume=file`` (repeatable; ``.vol``, ``.nvdb`` or ``.npy``) adds a
+medium, its density scaled by ``--densityScale``. ``--compileCache`` (the
 reference's JAX compile cache) is accepted and has nothing to do here.
 """
 
@@ -21,8 +23,6 @@ import time
 from pathlib import Path
 
 import numpy as np
-
-_LOADERS_ITEM = "ROADMAP Queue 1 item 7 (loaders)"
 
 
 def build_scene(opts):
@@ -46,8 +46,30 @@ def build_scene(opts):
     ext = path.suffix.lower()
     if ext == ".obj":
         load_obj(g.root, path)
-    elif ext in (".gltf", ".glb", ".xml", ".ply", ".stl", ".fbx"):
-        raise NotImplementedError(f"{path}: the {ext} loader is {_LOADERS_ITEM}")
+    elif ext in (".gltf", ".glb"):
+        from stratum_tpu_torch.scene.loaders.gltf import load_gltf
+
+        load_gltf(g.root, path)
+    elif ext == ".xml":
+        from stratum_tpu_torch.scene.loaders.mitsuba import load_mitsuba
+
+        load_mitsuba(g.root, path)
+    elif ext == ".ply":
+        from stratum_tpu_torch.scene.graph import MeshPrimitive
+        from stratum_tpu_torch.scene.loaders.ply import load_ply_mesh
+
+        pos, nrm, uvs, idx = load_ply_mesh(path)
+        g.root.add_child(path.stem).make_component(
+            MeshPrimitive(positions=pos, indices=idx, normals=nrm, uvs=uvs)
+        )
+    elif ext == ".stl":
+        from stratum_tpu_torch.scene.loaders.stl import load_stl
+
+        load_stl(g.root, path)
+    elif ext == ".fbx":
+        from stratum_tpu_torch.scene.loaders.fbx import load_fbx
+
+        load_fbx(g.root, path)
     elif ext == ".blend":
         raise ValueError(
             f"{path}: .blend is unsupported — export from Blender as "
@@ -111,8 +133,10 @@ def main(argv=None) -> int:
 
     t0 = time.time()
     g = build_scene(opts)
-    if opts.find_all("volume"):
-        raise NotImplementedError(f"--volume: the volume loader is {_LOADERS_ITEM}")
+    for vol in opts.find_all("volume"):
+        from stratum_tpu_torch.scene.loaders.volumes import load_volume
+
+        load_volume(g.root, vol, density_scale=opts.get_float("densityScale", 1.0))
     if opts.has("envmap"):
         # an equirect HDR environment light
         from stratum_tpu_torch.io.image import load_image

@@ -165,3 +165,78 @@ def sample_uniform_triangle(u1, u2):
     """Two uniforms -> barycentric (b1, b2) uniform over a triangle."""
     su1 = torch.sqrt(u1)
     return (1.0 - su1), (u2 * su1)
+
+
+# ---------------------------------------------------------------------------
+# CIE 1931 analytic fits (Wyman et al., JCGT 2013): spectra -> RGB for the
+# Mitsuba loader, on the host in numpy float32
+# ---------------------------------------------------------------------------
+
+_F = np.float32
+
+
+def _fma(a, b, c):
+    """a * b + c with one float32 rounding (the f32 product is exact in
+    float64)."""
+    return (np.asarray(a, np.float64) * np.asarray(b, np.float64)
+            + np.asarray(c, np.float64)).astype(np.float32)
+
+
+def _expf(x):
+    """float32 exp as the reference's CPU backend computes it (the Cephes
+    polynomial with fused multiply-adds), so the fits below agree with the
+    reference's bit for bit; on [-87, 88.7] it is ``np.exp`` within 1 ulp."""
+    x = np.minimum(np.maximum(np.asarray(x, np.float32), _F(-87.8)), _F(88.8))
+    fx = np.floor(_fma(x, _F(1.4426950216293335), _F(0.5)))
+    fx = np.minimum(np.maximum(fx, _F(-127.0)), _F(127.0))
+    r = _fma(-fx, _F(0.693359375), x)
+    r = _fma(-fx, _F(-0.00021219444170128554), r)
+    y = _fma(r, _F(0.00019875691214110702), _F(0.001398199936375022))
+    for c in (0.008333452045917511, 0.04166579619050026, 0.1666666567325592, 0.5):
+        y = _fma(y, r, _F(c))
+    y = _F(1.0) + _fma(y, r * r, r)
+    return (y * ((fx.astype(np.int32) + 127) << 23).view(np.float32)).astype(np.float32)
+
+
+def _lobe(w, center, lo, hi):
+    t = (w - _F(center)) * np.where(w < center, _F(lo), _F(hi))
+    return _expf(_F(-0.5) * t * t)
+
+
+def cie_x_fit(wavelength):
+    w = np.asarray(wavelength, np.float32)
+    return (_F(0.362) * _lobe(w, 442.0, 0.0624, 0.0374)
+            + _F(1.056) * _lobe(w, 599.8, 0.0264, 0.0323)
+            - _F(0.065) * _lobe(w, 501.1, 0.0490, 0.0382))
+
+
+def cie_y_fit(wavelength):
+    w = np.asarray(wavelength, np.float32)
+    return _F(0.821) * _lobe(w, 568.8, 0.0213, 0.0247) + _F(0.286) * _lobe(w, 530.9, 0.0613, 0.0322)
+
+
+def cie_z_fit(wavelength):
+    w = np.asarray(wavelength, np.float32)
+    return _F(1.217) * _lobe(w, 437.0, 0.0845, 0.0278) + _F(0.681) * _lobe(w, 459.0, 0.0385, 0.0725)
+
+
+_XYZ_TO_RGB = np.array(
+    [
+        [3.2404542, -1.5371385, -0.4985314],
+        [-0.9692660, 1.8760108, 0.0415560],
+        [0.0556434, -0.2040259, 1.0572252],
+    ],
+    dtype=np.float32,
+)
+
+
+def integrate_spectrum_to_rgb(wavelengths: np.ndarray, values: np.ndarray) -> np.ndarray:
+    """A sampled spectrum integrated against the CIE fits on 400-700 nm ->
+    linear sRGB (the reference's integration for Mitsuba spectra,
+    common.h:210-268)."""
+    CIE_Y_INTEGRAL = 106.856895
+    grid = np.arange(400.0, 701.0, 1.0, dtype=np.float32)
+    vals = np.interp(grid, wavelengths, values, left=values[0], right=values[-1])
+    xyz = np.stack([cie_x_fit(grid), cie_y_fit(grid), cie_z_fit(grid)], axis=0)
+    XYZ = (xyz * vals[None, :]).sum(axis=1) / CIE_Y_INTEGRAL
+    return np.maximum(_XYZ_TO_RGB @ XYZ, 0.0).astype(np.float32)

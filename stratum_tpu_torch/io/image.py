@@ -10,7 +10,8 @@ not in what, they compute:
   assets (tests/test_torch_colonnade.py);
 - :func:`load_image` decodes PNG with :func:`read_png` and widens it to
   RGBA as the reference's PIL path (``convert("RGBA")``) does, without
-  PIL.
+  PIL; other 8-bit formats need PIL and raise without it
+  (:func:`decode_ldr`, also the glTF loader's decoder of embedded images).
 """
 
 from __future__ import annotations
@@ -63,10 +64,18 @@ def write_png(path, image: np.ndarray):
     Path(path).write_bytes(payload)
 
 
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
 def read_png(path) -> np.ndarray:
     """Minimal PNG reader (8-bit, non-interlaced, filters 0-4) -> uint8 array."""
-    data = Path(path).read_bytes()
-    assert data[:8] == b"\x89PNG\r\n\x1a\n", "not a png"
+    return decode_png(Path(path).read_bytes())
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """:func:`read_png` on the bytes of a PNG file -> uint8 [H, W, C]."""
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError("not a png")
     pos = 8
     idat = b""
     w = h = c = 0
@@ -79,7 +88,8 @@ def read_png(path) -> np.ndarray:
             w, h, depth, color_type, _, _, interlace = struct.unpack(
                 ">IIBBBBB", body
             )
-            assert depth == 8 and interlace == 0, "unsupported png"
+            if depth != 8 or interlace != 0:
+                raise ValueError("unsupported png (8-bit, non-interlaced only)")
             c = {0: 1, 2: 3, 4: 2, 6: 4}[color_type]
         elif tag == b"IDAT":
             idat += body
@@ -359,9 +369,27 @@ def load_image(path, srgb: bool | None = None) -> np.ndarray:
         return np.load(p).astype(np.float32)
     if low.endswith(".exr"):
         return read_exr(p)
-    if not low.endswith(".png"):
-        raise ValueError(f"unsupported image format: {p}")
-    img = _rgba(read_png(p)).astype(np.float32) / 255.0
+    return decode_ldr(Path(p).read_bytes(), p, srgb)
+
+
+def decode_ldr(data: bytes, name: str, srgb: bool | None = None) -> np.ndarray:
+    """The bytes of an 8-bit image file -> float32 RGBA [H, W, 4], sRGB
+    decoded to linear unless ``srgb=False``. PNG goes through
+    :func:`decode_png`; another format through PIL where it imports, and
+    without PIL it raises, naming the image (``name``) and the decoder it
+    lacks."""
+    if data[:8] == PNG_SIGNATURE:
+        img = _rgba(decode_png(data)).astype(np.float32) / 255.0
+    else:
+        try:
+            from PIL import Image as PILImage
+        except ImportError:
+            raise RuntimeError(
+                f"{name}: not a PNG, and decoding it needs PIL, which is not "
+                "installed") from None
+        from io import BytesIO
+
+        img = np.asarray(PILImage.open(BytesIO(data)).convert("RGBA"), np.float32) / 255.0
     if srgb is None:
         srgb = True
     if srgb:

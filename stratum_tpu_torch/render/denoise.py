@@ -85,8 +85,10 @@ def temporal_accumulate(state: DenoiseState, radiance, gbuf: GBuffer, cfg: Denoi
                         with_aux: bool = False):
     """Reproject the history and blend -> (new state, integrated colour,
     variance); with ``with_aux`` also a dict of the reprojection weight sum
-    and the history length."""
-    h, w = radiance.shape[:2]
+    and the history length. ``radiance`` and ``gbuf`` may be a band of
+    rows of the image whose history ``state`` holds: ``prev_uv`` maps
+    into the whole history."""
+    h, w = state.color.shape[:2]
     color_in = radiance
     if cfg.demodulate_albedo:
         color_in = radiance / torch.clamp(gbuf.albedo, min=1e-3)
@@ -110,8 +112,8 @@ def temporal_accumulate(state: DenoiseState, radiance, gbuf: GBuffer, cfg: Denoi
                       state.normal, state.depth[..., None]], dim=-1)
     acc_c = torch.zeros_like(color_in)
     acc_m = torch.zeros_like(moments_in)
-    acc_h = torch.zeros((h, w), dtype=torch.float32, device=radiance.device)
-    acc_w = torch.zeros((h, w), dtype=torch.float32, device=radiance.device)
+    acc_h = torch.zeros(radiance.shape[:2], dtype=torch.float32, device=radiance.device)
+    acc_w = torch.zeros(radiance.shape[:2], dtype=torch.float32, device=radiance.device)
     for (dy, dx), wgt in zip(offsets, weights):
         yi = y0 + dy
         xi = x0 + dx

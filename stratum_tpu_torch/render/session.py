@@ -8,8 +8,10 @@ for reprojection. A checkpoint holds the accumulation and the RNG seed
 counter under the reference's ``.npz`` keys, so either package resumes the
 other's.
 
-The session's tensors live on the scene's device. The reference's device
-mesh (``mesh``) is ROADMAP Queue 1 item 8: a mesh other than None raises.
+The session's tensors live on the scene's device. With a device mesh
+(``mesh``, ``parallel.mesh.make_mesh``) each uniform sample, the G-buffer
+and the denoiser run sharded over it (``parallel/mesh.py``), one sample a
+call; ``step_adaptive`` refuses a mesh, as the reference's does.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ class RenderSession:
     denoise_cfg: sdenoise.DenoiseConfig = dataclasses.field(
         default_factory=sdenoise.DenoiseConfig
     )
-    mesh: object = None  # the reference's device mesh: not ported (item 8)
+    mesh: object = None  # a parallel.mesh.Mesh: samples, G-buffer and denoiser sharded
     use_restir: bool = False  # ReSTIR DI + an indirect-only path sample
     restir_candidates: int = 4
     restir_spatial_taps: int = 0
@@ -59,10 +61,6 @@ class RenderSession:
     _restir_prev_view: object = None  # the view the reservoirs were shaded with
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "RenderSession(mesh=...): the tile split over devices is "
-                "ROADMAP Queue 1 item 8")
         h, w = self.cfg.height, self.cfg.width
         dev = self.scene.device
         if self.accum is None:
@@ -106,7 +104,15 @@ class RenderSession:
     def gbuffer(self) -> saov.GBuffer:
         """The current view's G-buffer, traced once per view."""
         if self._gbuffer is None:
-            self._gbuffer = saov.render_gbuffer(self.scene, self.view, self.prev_view, self.cfg)
+            if self.mesh is not None:
+                from stratum_tpu_torch.parallel import mesh as pmesh
+
+                gbuf = pmesh.render_gbuffer_sharded(self.scene, self.view, self.prev_view,
+                                                    self.cfg, self.mesh)
+                self._gbuffer = saov.GBuffer(*(x.to(self.scene.device) for x in gbuf))
+            else:
+                self._gbuffer = saov.render_gbuffer(self.scene, self.view, self.prev_view,
+                                                    self.cfg)
         return self._gbuffer
 
     def step(self, samples: int = 1):
@@ -115,7 +121,7 @@ class RenderSession:
         ``render_path_batched`` (or lane groups of ``spp_lanes`` through
         ``render_path_lanes``); with ``use_restir`` each sample is a ReSTIR
         DI frame plus an indirect-only path sample."""
-        if samples > 1 and not self.use_restir:
+        if samples > 1 and not self.use_restir and self.mesh is None:
             done = 0
             while done < samples:
                 seed = self.seed0 + self._seeds_used + done
@@ -147,6 +153,11 @@ class RenderSession:
                 self._restir_prev_view = None  # consumed: the state is current
                 icfg = dataclasses.replace(self.cfg, indirect_only=True)
                 img = direct + sintegrator.render_path(self.scene, self.view, icfg, seed)
+            elif self.mesh is not None:
+                from stratum_tpu_torch.parallel import mesh as pmesh
+
+                img = pmesh.render_path_sharded(self.scene, self.view, self.cfg, seed,
+                                                self.mesh).to(self.scene.device)
             else:
                 img = sintegrator.render_path(self.scene, self.view, self.cfg, seed)
             self.accum = self.accum + img
@@ -163,8 +174,8 @@ class RenderSession:
         per-pixel counts weight the estimate."""
         if self.spp < 1:
             raise RuntimeError("step_adaptive needs a uniform pilot: call step(n) first")
-        if self.use_restir:
-            raise RuntimeError("step_adaptive: unsupported with ReSTIR")
+        if self.use_restir or self.mesh is not None:
+            raise RuntimeError("step_adaptive: unsupported with ReSTIR or a device mesh")
         from stratum_tpu_torch.render import adaptive as sadaptive
 
         h, w = self.cfg.height, self.cfg.width
@@ -206,8 +217,17 @@ class RenderSession:
         ``denoise``) the SVGF pass -> the displayable radiance."""
         img = self.step(1)
         if self.denoise:
-            self.denoise_state, img = sdenoise.denoise(
-                self.denoise_state, self.radiance(), self.gbuffer(), self.denoise_cfg)
+            if self.mesh is not None:
+                from stratum_tpu_torch.parallel import mesh as pmesh
+
+                state, img = pmesh.denoise_sharded(self.denoise_state, self.radiance(),
+                                                   self.gbuffer(), self.denoise_cfg, self.mesh)
+                dev = self.scene.device
+                self.denoise_state = sdenoise.DenoiseState(*(x.to(dev) for x in state))
+                img = img.to(dev)
+            else:
+                self.denoise_state, img = sdenoise.denoise(
+                    self.denoise_state, self.radiance(), self.gbuffer(), self.denoise_cfg)
         return img
 
     def tonemapped(self, mode=stonemap.TonemapMode.ACES, exposure=0.0):

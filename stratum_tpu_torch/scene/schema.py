@@ -164,8 +164,10 @@ class SceneData(NamedTuple):
 
 
 def to_device(tree, device):
-    """numpy leaves of a (nested) NamedTuple -> torch tensors on ``device``;
-    Python scalars stay as they are."""
+    """numpy and tensor leaves of a (nested) NamedTuple -> torch tensors on
+    ``device``; Python scalars stay as they are."""
+    if torch.is_tensor(tree):
+        return tree.to(device)
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(to_device(x, device) for x in tree))
     if isinstance(tree, np.ndarray):

@@ -1,8 +1,8 @@
 """The port's CLI (``python -m stratum_tpu_torch.cli``), driven in-process
 with ``--cpu`` on a 32x32 Cornell box: every integrator and post flag of
-the reference's tests/test_cli.py that needs no loader beyond OBJ, the
-loaders and ``--volume`` that are still ROADMAP Queue 1 item 7 raising
-``NotImplementedError``, ``--envmap`` through the port's HDR reader, the
+the reference's tests/test_cli.py that needs no loader beyond OBJ, a PLY
+scene and ``--volume`` rendering (the other loaders are
+tests/test_torch_loaders.py's), ``--envmap`` through the port's HDR reader, the
 process-global samplers restored after a run, ``--sppBatch`` leaving the
 image alone (rtol 1e-5), no card without ``--cpu`` raising, and one PFM
 render against the JAX CLI at the same flags (``--tracer=brute``, mean
@@ -84,12 +84,31 @@ def test_cli_plugin_hook(tmp_path, monkeypatch):
 
 
 def test_cli_unported_loaders_raise(tmp_path):
+    """The loaders and ``--volume`` render (they raised before the port
+    had them); a file that is no glTF object and a missing scene still
+    raise."""
+    from stratum_tpu_torch.scene.loaders import volumes
+
+    ply = tmp_path / "quad.ply"
+    ply.write_text("ply\nformat ascii 1.0\nelement vertex 4\nproperty float x\n"
+                   "property float y\nproperty float z\nelement face 1\n"
+                   "property list uchar int vertex_indices\nend_header\n"
+                   "-1 -1 0\n1 -1 0\n1 1 0\n-1 1 0\n4 0 1 2 3\n")
+    out = tmp_path / "ply.pfm"
+    assert cli.main(["--cpu", f"--scene={ply}", "--width=16", "--height=16", "--spp=1",
+                     "--envScale=1", f"--out={out}"]) == 0
+    assert np.isfinite(pimage.load_image(str(out))).all()
+    vol = tmp_path / "smoke.vol"
+    volumes.write_vol_grid(vol, np.full((4, 4, 4), 0.002, np.float32), (100, 100, 100),
+                           (450, 450, 450))
+    base = _run(tmp_path, "--tracer=brute", "--spp=1", out_name="base.pfm")
+    smoky = _run(tmp_path, f"--volume={vol}", "--densityScale=2", "--tracer=brute", "--spp=1",
+                 out_name="smoky.pfm")
+    assert not np.array_equal(base, smoky)
     gltf = tmp_path / "scene.gltf"
     gltf.write_text("{}")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(KeyError):
         cli.main(["--cpu", f"--scene={gltf}", f"--out={tmp_path / 'x.png'}"])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        _run(tmp_path, f"--volume={tmp_path / 'smoke.vol'}")
     with pytest.raises(FileNotFoundError):
         cli.main(["--cpu", f"--scene={tmp_path / 'missing.obj'}"])
 

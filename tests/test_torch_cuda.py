@@ -634,3 +634,74 @@ def test_denoiser_on_the_card_matches_cpu(tiny_render):
         states[1], ref = denoise.denoise(states[1], torch.from_numpy(rad), gb_cpu, dcfg)
         torch.testing.assert_close(out.cpu(), ref, rtol=2e-5, atol=2e-6)
         torch.testing.assert_close(states[0].color.cpu(), states[1].color, rtol=2e-5, atol=2e-6)
+
+
+def test_sharded_cornell_on_the_card(dev):
+    """``render_path_sharded`` with two shards on the one card against
+    ``render_path`` (the dense tracer): tests/test_parallel.py's bounds,
+    allclose rtol 1e-4 / atol 1e-6 and > 90 % of pixels bit-equal."""
+    from stratum_tpu_torch.parallel import mesh as pmesh
+
+    g = builtin.cornell_box()
+    scene, _ = flatten.flatten(g.root, device=dev)
+    node, cam = flatten.find_camera(g.root)
+    view = camera.make_view(node.to_world(), cam.fovy, 64, 32, device=dev)
+    cfg = integrator.RenderConfig(width=64, height=32, max_bounces=3)
+    single = integrator.render_path(scene, view, cfg, 5).cpu().numpy().reshape(-1, 3)
+    sharded = pmesh.render_path_sharded(scene, view, cfg, 5, pmesh.make_mesh([dev, dev]))
+    assert sharded.device == dev
+    sharded = sharded.cpu().numpy().reshape(-1, 3)
+    np.testing.assert_allclose(sharded, single, rtol=1e-4, atol=1e-6)
+    assert (sharded == single).all(axis=-1).mean() > 0.9
+
+
+def test_glb_texture_stack_on_the_card(dev, tmp_path):
+    """A GLB with an embedded PNG, loaded by the port's glTF loader and
+    flattened on the card and on the CPU: the texture stacks equal bit for
+    bit and hold the image."""
+    import json
+    import struct
+
+    from stratum_tpu_torch.io import image as pimage
+    from stratum_tpu_torch.scene.graph import NodeGraph
+    from stratum_tpu_torch.scene.loaders.gltf import load_gltf
+
+    rng = np.random.default_rng(14)
+    pimage.write_png(tmp_path / "t.png", (rng.random((32, 32, 4)) * 255).astype(np.uint8))
+    png = (tmp_path / "t.png").read_bytes()
+    pos = np.asarray([[0, 0, 0], [1, 0, 0], [0, 1, 0], [1, 1, 0]], np.float32)
+    uv = np.asarray([[0, 0], [1, 0], [0, 1], [1, 1]], np.float32)
+    idx = np.asarray([0, 1, 2, 2, 1, 3], np.uint16)
+    raw = pos.tobytes() + uv.tobytes() + idx.tobytes() + b"\0" * 4
+    doc = {
+        "asset": {"version": "2.0"}, "scene": 0, "scenes": [{"nodes": [0]}],
+        "nodes": [{"mesh": 0}],
+        "meshes": [{"primitives": [{"attributes": {"POSITION": 0, "TEXCOORD_0": 1},
+                                    "indices": 2, "material": 0}]}],
+        "materials": [{"pbrMetallicRoughness": {"baseColorTexture": {"index": 0}}}],
+        "textures": [{"source": 0}], "images": [{"bufferView": 3, "mimeType": "image/png"}],
+        "buffers": [{"byteLength": len(raw) + len(png)}],
+        "bufferViews": [{"buffer": 0, "byteOffset": 0, "byteLength": 48},
+                        {"buffer": 0, "byteOffset": 48, "byteLength": 32},
+                        {"buffer": 0, "byteOffset": 80, "byteLength": 12},
+                        {"buffer": 0, "byteOffset": len(raw), "byteLength": len(png)}],
+        "accessors": [{"bufferView": 0, "componentType": 5126, "count": 4, "type": "VEC3"},
+                      {"bufferView": 1, "componentType": 5126, "count": 4, "type": "VEC2"},
+                      {"bufferView": 2, "componentType": 5123, "count": 6, "type": "SCALAR"}],
+    }
+    payload = json.dumps(doc).encode()
+    payload += b" " * (-len(payload) % 4)
+    binc = raw + png + b"\0" * (-(len(raw) + len(png)) % 4)
+    body = (struct.pack("<II", len(payload), 0x4E4F534A) + payload
+            + struct.pack("<II", len(binc), 0x004E4942) + binc)
+    (tmp_path / "t.glb").write_bytes(struct.pack("<4sII", b"glTF", 2, 12 + len(body)) + body)
+    g = NodeGraph()
+    load_gltf(g.root, tmp_path / "t.glb")
+    on_card, _ = flatten.flatten(g.root, device=dev)
+    on_cpu, _ = flatten.flatten(g.root, device="cpu")
+    assert on_card.textures.flat.device == dev and on_card.textures.resolution == 64
+    for a, b in zip(on_card.textures, on_cpu.textures):
+        if torch.is_tensor(a):
+            assert torch.equal(a.cpu(), b)
+        else:
+            assert a == b

@@ -21,7 +21,8 @@ On the port alone: the ``path_length_N`` images for N = 1..max_bounces+2
 sum to the full render (rtol 1e-4, as the reference's
 test_path_length_views_sum_to_full); batched ``step(4)`` equals four
 ``step(1)`` (rtol 1e-5); ``set_view`` restarts the accumulation and keeps
-the denoiser's history; a device mesh raises naming ROADMAP item 8.
+the denoiser's history; a device mesh renders the sequential session's
+samples (rtol 1e-5) and ``step_adaptive`` refuses it.
 """
 
 import numpy as np
@@ -280,9 +281,21 @@ def test_checkpoint_crosses_packages(cornell, tmp_path, adaptive):
 
 
 def test_session_mesh_raises(cornell):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        session.RenderSession(cornell["ps"], cornell["pv"], integrator.RenderConfig(**CFG),
-                              mesh=object())
+    """A device mesh is accepted and renders (it raised before the port
+    had one); ``step_adaptive`` refuses it, as the reference's session
+    does, and refuses a session without a pilot."""
+    from stratum_tpu_torch.parallel import mesh as pmesh
+
+    cfg = integrator.RenderConfig(**CFG)
+    m = session.RenderSession(cornell["ps"], cornell["pv"], cfg,
+                              mesh=pmesh.make_mesh(["cpu"] * 4))
+    img = m.step(2)
+    ref = session.RenderSession(cornell["ps"], cornell["pv"], cfg)
+    for _ in range(2):
+        want = ref.step(1)
+    np.testing.assert_allclose(img.numpy(), want.numpy(), rtol=1e-5, atol=1e-7)
+    with pytest.raises(RuntimeError, match="device mesh"):
+        m.step_adaptive(1)
     s = session.RenderSession(cornell["ps"], cornell["pv"], integrator.RenderConfig(**CFG))
     with pytest.raises(RuntimeError, match="pilot"):
         s.step_adaptive(1)
