@@ -16,13 +16,15 @@ Phases, each printing its results:
    path hands the wrappers (five closest waves of 2,073,600 lanes, the
    deferred shadow wave of 10,368,000 lanes), with both times (the kernel's
    launch includes its list phase: each CTA builds its own front-to-back
-   list). The per-CTA list lengths the kernel reports (``stats``) are held
-   bit for bit to ``candidate_lists(..., block=128, live_only=True)`` on
-   closest wave 1 (with each CTA's sorted entries and groups) and on the
-   deferred wave, and their mean is printed beside the reference's
-   per-2048-block figure on every wave. Then K3 (the same kernel at group
-   size 1) on closest wave 1 and the deferred wave, against the same plain
-   results, timed beside K1/K2;
+   list). On every wave each CTA's list (count, sorted entries and groups)
+   the kernel reports (``stats="lists"``) is held bit for bit to
+   ``candidate_lists(..., block=128, live_only=True)``, its mean is printed
+   beside the reference's per-2048-block figure, and ``stats="phases"``
+   gives the list phase and the walk apart (each CTA's clock64 cycles; the
+   wave's time shared out by their sums) and the overflowing CTAs (none:
+   the atrium's lists fit the shared mode). Then K3 (the same kernel at
+   group size 1) on closest wave 1 and the deferred wave, against the same
+   plain results, timed beside K1/K2, lists and split as above;
 4. parity: the tiny atrium at 64x32, seeds 0-3, on the block kernel
    (``tracer="pallas"``), against the JAX reference's golden images
    (tests/golden/torch_atrium_tiny.npz);
@@ -75,12 +77,15 @@ Phases, each printing its results:
 9. past the shared-memory budgets: a synthetic atrium (``BIG_ATRIUM``,
    ~10,400 SAH leaves) whose gs=1 lists need 16,384 keys and whose emission
    boxes need more than 227 KB. On its camera wave and a shadow wave from
-   its hits: K3 in the global list mode against the plain walk, its per-CTA
+   its hits: K3 in the culled list mode against the plain walk, its per-CTA
    lists bit for bit against ``candidate_lists(..., block=128,
-   live_only=True)``, the tiled emission against ``_emit`` bit for bit,
-   with times, scratch and shared bytes. Then on the full atrium's primary
-   and shadow waves the forced global list mode (gs 4 and 1) and the forced
-   tiled emission against the default modes, bit for bit, both timed;
+   live_only=True)``, its list / walk split and overflowing CTAs (held to
+   the plain lists' prediction) beside the forced overflow path's (every
+   CTA: the design before the culling), the tiled emission against
+   ``_emit`` bit for bit, with times, scratch and shared bytes. Then on the
+   full atrium's primary and shadow waves the forced culled mode and its
+   forced overflow path (gs 4 and 1) and the forced tiled emission against
+   the default modes, bit for bit, each timed;
 10. the Cornell path: ``render_path_with_counts`` on the Cornell box at
    1920x1080 with bench.py's cornell_e2e configuration (Lambert, 4 bounces,
    presample 4096, ``tracer="auto"``), which must resolve to the dense
@@ -95,7 +100,7 @@ Phases, each printing its results:
    sphere within 4 % of 0.4); ``render_direct`` on the Cornell box at
    1080p with ``auto`` and ``brute``, finite and in agreement;
 12. ``tests/test_torch_cuda.py`` in a subprocess (``--noconftest``): every
-   test must pass, none skip (46: the kernels against their plain versions,
+   test must pass, none skip (50: the kernels against their plain versions,
    three equalities of the wavefront entry points, BDPT and light tracing
    on K1/K2 against the brute-force tracer, same-seed BDPT renders and the
    splat bit-equal, the G-buffer on K1 against brute force and the card's
@@ -182,9 +187,13 @@ Phases, each printing its results:
    4,193,408 triangles (SCAN_GRID^2 vertices from SCAN_SEED) written as a
    binary PLY beside a serialized box and a Mitsuba XML (SCAN_XML), loaded
    through ``cli.build_scene`` and flattened (each timed), more than 16,384
-   SAH leaves, so K1/K2 sort their lists in global scratch at gs=4: its
-   five closest waves and its deferred wave timed whole against their
-   bounds and held to plain on slices of N_CHECK live lanes, 1 + 4 timed
+   SAH leaves, so K1/K2 take the culled list mode at gs=4: its five
+   closest waves and its deferred wave timed whole against their bounds
+   and held to plain on slices of N_CHECK live lanes, each wave's lists
+   bit for bit against the plain list phase, its list / walk split and
+   overflowing CTAs (printed, and held to the plain lists' prediction)
+   beside the forced overflow path's (every CTA: the design before the
+   culling, timed), 1 + 4 timed
    samples (25 K1 + 5 K2 launches), the busy share of a profiled sample; the CLI in
    a subprocess on the XML and ``tools.compare`` of its PNG against the
    same render in this process, ``tools.inspect --flatten``; phase 13's
@@ -311,15 +320,17 @@ def _block_bytes(fat, prep, occluded: bool) -> int:
     return ins + np_ * (1 if occluded else 8)
 
 
-def _check_lists(fat, o, d, bound, lists, gs):
+def _check_lists(fat, o, d, bound, lists, gs, plain=None):
     """The kernel's per-CTA lists (``launch(..., stats=...)``) against the
-    plain list phase at block 128 over live rays, bit for bit: the counts,
-    and where the kernel wrote them each CTA's sorted entries and groups.
-    -> mean list length per CTA."""
+    plain list phase at block 128 over live rays (``plain``, computed here
+    when None), bit for bit: the counts, and where the kernel wrote them
+    each CTA's sorted entries and groups. -> mean list length per CTA."""
     import torch
     from stratum_tpu_torch.ops import block_trace
 
-    plain = block_trace.candidate_lists(fat, o, d, bound, gs, block_trace.CTA, live_only=True)
+    if plain is None:
+        plain = block_trace.candidate_lists(fat, o, d, bound, gs, block_trace.CTA,
+                                            live_only=True)
     n_cta = lists.ncand.numel()
     assert torch.equal(lists.ncand, plain.ncand[:n_cta]), int(
         (lists.ncand != plain.ncand[:n_cta]).sum())
@@ -328,6 +339,68 @@ def _check_lists(fat, o, d, bound, lists, gs):
         assert torch.equal(lists.centry, plain.centry[:n_cta])
         assert torch.equal(lists.cand, plain.cand[:n_cta])
     return float(lists.ncand.float().mean())
+
+
+def _list_split(fat, o, d, bound, prep, occluded, ms):
+    """One wave's list phase and walk apart, in its default list mode and,
+    where that is the culled one, with every CTA forced down the overflow
+    path (``list_mode="global"``: the design before the culling, timed
+    here): ``launch(..., stats="phases")`` gives each CTA's clock64 cycles
+    of both, and the wave's time (``ms``, the default mode's) is shared out
+    by their sums over the CTAs with a live ray (CTAs run side by side, so
+    this is a share of the work, not of the wall time: a sparse wave's time
+    is its slowest CTA's). In each mode each CTA's whole list is held bit for bit
+    to the plain list phase, and the CTAs that overflow to those the plain
+    lists predict (more than CULL_LIST_KEYS groups; every CTA with a live
+    ray when forced; none in the shared mode); the two modes' results are
+    equal bit for bit -> dict."""
+    import torch
+    from stratum_tpu_torch.ops import block_trace
+
+    mode = block_trace.resolve_list_mode(prep.group_lo.shape[0])
+    n_cta = prep.rays.shape[0] // block_trace.CTA
+    plain = block_trace.candidate_lists(fat, o, d, bound, prep.gs, block_trace.CTA,
+                                        live_only=True)
+    live = (prep.t_max.view(n_cta, block_trace.CTA) > 0).any(dim=1)
+    out, results = dict(mode=mode, ctas=n_cta, ctas_live=int(live.sum())), {}
+    for m in (mode, "global") if mode == "culled" else (mode,):
+        forced = "auto" if m == mode else m
+        ms_m = ms if m == mode else _timed(
+            lambda: block_trace.launch(fat, prep, occluded, list_mode=forced), reps=3)[1]
+        *res, lists = block_trace.launch(fat, prep, occluded, stats="lists", list_mode=forced)
+        out["ncand_cta"] = _check_lists(fat, o, d, bound, lists, prep.gs, plain)
+        del lists
+        *_, ph = block_trace.launch(fat, prep, occluded, stats="phases", list_mode=forced)
+        want = {"shared": torch.zeros_like(live), "global": live,
+                "culled": plain.ncand[:n_cta] > block_trace.CULL_LIST_KEYS}[m]
+        assert torch.equal(ph.ncand, plain.ncand[:n_cta]) and torch.equal(ph.overflow, want), m
+        lc, wc = float(ph.list_cycles.sum()), float(ph.walk_cycles.sum())
+        out[m] = dict(ms=ms_m, list_ms=ms_m * lc / (lc + wc), walk_ms=ms_m * wc / (lc + wc),
+                      list_share=lc / (lc + wc), overflow=int(ph.overflow.sum()),
+                      list_cycles=lc, walk_cycles=wc)
+        results[m] = res
+    if "global" in results:
+        for a, b in zip(results[mode], results["global"]):
+            assert torch.equal(a, b)
+    out["ncand_max"] = int(plain.ncand.max())
+    return out
+
+
+def _split_text(split) -> str:
+    """A line's account of ``_list_split``."""
+    m = split["mode"]
+    x = split[m]
+    text = (f"{m} lists: list phase {x['list_ms']:.3f} ms + walk {x['walk_ms']:.3f} ms "
+            f"({100 * x['list_share']:.1f} % of the cycles), {x['overflow']} of "
+            f"{split['ctas_live']} live CTAs overflow (longest list {split['ncand_max']}); "
+            f"lists equal to the plain list phase")
+    if "global" in split:
+        g = split["global"]
+        text += (f"; forced overflow path (every CTA, the design before the culling) "
+                 f"{g['ms']:.3f} ms = list phase {g['list_ms']:.3f} + walk {g['walk_ms']:.3f} "
+                 f"({100 * g['list_share']:.1f} %), {g['overflow']} CTAs overflow, results "
+                 f"and lists equal")
+    return text
 
 
 def _compare_closest(fat, o, d, hk, hp, live=None):
@@ -1112,7 +1185,7 @@ def _microbench():
 
 # a synthetic atrium past both shared-memory budgets: 1,836,000 triangles in
 # ~10,400 SAH leaves (the atrium's ~176 triangles a leaf), so at gs = 1 a
-# CTA's list needs 16,384 keys (> MAX_LIST_KEYS) and the emission's boxes at
+# CTA's list needs 16,384 keys (> MAX_LIST_KEYS: no shared mode) and the emission's boxes at
 # g = 8, pcap = 16 more than 227 KB
 BIG_ATRIUM = dict(columns=6, stacks=88, slices=176)
 BIG_LEAVES = (10000, 12000)  # the leaf count asked of it
@@ -1129,25 +1202,29 @@ GOLDENS = {  # tests/update_goldens.py:41-52 (48x48, rr_depth=100)
 FURNACE_REL = 0.04  # sphere mean against albedo x radiance (tests/test_torch_dense_path.py)
 DIRECT_MEAN_REL = 1e-3  # render_direct, auto (mxu) against brute
 DIRECT_PIXEL_SHARE = 0.999
-GPU_TESTS = 48  # tests in tests/test_torch_cuda.py
+GPU_TESTS = 50  # tests in tests/test_torch_cuda.py
 
 
 def _modes_equal(fat, o, d, bound, occluded, gs):
-    """The forced global list mode against the default (shared) mode on one
-    wave: outputs and per-CTA lists bit for bit, both timed -> dict."""
+    """The three list modes forced on one wave (``list_mode="shared"``,
+    ``"culled"`` and its overflow path ``"global"``): outputs and per-CTA
+    lists bit for bit, each timed, and which one ``auto`` takes -> dict."""
     import torch
     from stratum_tpu_torch.ops import block_trace
 
     prep = block_trace._prepare(fat, o, d, bound, gs)
-    _, ms = _timed(lambda: block_trace.launch(fat, prep, occluded), reps=3)
-    _, ms_g = _timed(lambda: block_trace.launch(fat, prep, occluded, list_mode="global"), reps=3)
-    want = block_trace.launch(fat, prep, occluded, stats="lists")
-    got = block_trace.launch(fat, prep, occluded, stats="lists", list_mode="global")
-    for a, b in zip(got[:-1] + tuple(got[-1]), want[:-1] + tuple(want[-1])):
-        assert torch.equal(a, b), (occluded, gs)
+    want = block_trace.launch(fat, prep, occluded, stats="lists", list_mode="shared")
+    ms = {}
+    for mode in ("shared", "culled", "global"):
+        _, ms[mode] = _timed(lambda: block_trace.launch(fat, prep, occluded, list_mode=mode),
+                             reps=3)
+        got = block_trace.launch(fat, prep, occluded, stats="lists", list_mode=mode)
+        for a, b in zip(got[:-1] + tuple(got[-1]), want[:-1] + tuple(want[-1])):
+            assert torch.equal(a, b), (occluded, gs, mode)
     G = prep.group_lo.shape[0]
     n_cta = prep.rays.shape[0] // block_trace.CTA
-    return dict(gs=gs, ms_shared=ms, ms_global=ms_g, groups=G,
+    return dict(gs=gs, auto=block_trace.resolve_list_mode(G), ms_shared=ms["shared"],
+                ms_culled=ms["culled"], ms_global=ms["global"], groups=G,
                 shared_bytes=8 * block_trace.list_keys(G),
                 scratch_bytes=8 * block_trace.list_keys(G)
                 * block_trace.list_scratch_ctas(G, n_cta))
@@ -1197,15 +1274,16 @@ def _past_budgets(dev, atrium, atrium_waves, rng):
     keys, tile = block_trace.list_keys(L), binned.emit_tile_leaves(L, 8, 16)
     print(f"[9 past the budgets] atrium {BIG_ATRIUM}: {stats.num_triangles} triangles, "
           f"{L} leaves, built in {time.perf_counter() - t0:.2f} s; gs=1 lists of {keys} keys "
-          f"({block_trace.resolve_list_mode(L)} mode; shared memory holds "
-          f"{block_trace.MAX_LIST_KEYS}); emission boxes of all leaves "
+          f"({block_trace.resolve_list_mode(L)} mode: super-groups of "
+          f"{block_trace.SUPER_SIZE}, up to {block_trace.CULL_LIST_KEYS} reached keys in shared "
+          f"memory; the shared mode holds at most {block_trace.MAX_LIST_KEYS}); emission boxes of all leaves "
           f"{binned.emit_smem(L, 8, 16)} B > {binned.EMIT_SMEM_BUDGET} B: tiles of {tile} "
           f"leaves ({binned.emit_smem(tile, 8, 16)} B)", flush=True)
     assert BIG_LEAVES[0] <= L <= BIG_LEAVES[1], L
-    assert block_trace.resolve_list_mode(L) == "global" and tile < L
+    assert block_trace.resolve_list_mode(L) == "culled" and tile < L
     for occluded in (False, True):
-        print(f"[9 kernel] block_trace_kernel<{str(occluded).lower()}, global lists> at "
-              f"gs=1 (G={L}): {block_trace.kernel_info(occluded, L, 'global')}", flush=True)
+        print(f"[9 kernel] block_trace_kernel<{str(occluded).lower()}, culled lists> at "
+              f"gs=1 (G={L}): {block_trace.kernel_info(occluded, L, 'culled')}", flush=True)
     print(f"[9 kernel] binned_emit_kernel (g=8, pcap=16) at {L} leaves: "
           f"{binned.kernel_info('emit', L)}", flush=True)
     W, H = BIG_FRAME
@@ -1227,40 +1305,45 @@ def _past_budgets(dev, atrium, atrium_waves, rng):
         kind = "occluded" if occluded else "closest"
         prep = block_trace._prepare(fat, o, d, bound, gs=1)
         _, ms = _timed(lambda: block_trace.launch(fat, prep, occluded), reps=3)
-        *_, lists = block_trace.launch(fat, prep, occluded, stats="lists")
-        per_cta = _check_lists(fat, o, d, bound, lists, 1)
+        split = _list_split(fat, o, d, bound, prep, occluded, ms)
+        per_cta = split["ncand_cta"]
         prep4 = block_trace._prepare(fat, o, d, bound)
+        G4 = prep4.group_lo.shape[0]
         _, ms4 = _timed(lambda: block_trace.launch(fat, prep4, occluded), reps=3)
+        _, ms4s = _timed(lambda: block_trace.launch(fat, prep4, occluded, list_mode="shared"),
+                         reps=3)
         if occluded:
             ok = block_trace.block_occluded(fat, o, d, tm, gs=1)
             op, plain_ms = _timed(lambda: block_trace.block_occluded_plain(fat, o, d, tm),
                                   warmup=False)
-            agree = _check_occluded("K3 occluded (global lists) vs plain", ok, op, tm > 0)
+            agree = _check_occluded("K3 occluded (culled lists) vs plain", ok, op, tm > 0)
         else:
             hk = block_trace.block_closest(fat, o, d, tm, gs=1)
             hp, plain_ms = _timed(lambda: block_trace.block_closest_plain(fat, o, d, tm),
                                   warmup=False)
             agree = _compare_closest(fat, o, d, hk, hp, tm > 0)
-            _check_closest("K3 closest (global lists) vs plain", agree)
+            _check_closest("K3 closest (culled lists) vs plain", agree)
         em = _emission(fat, o, d, bound, 8, 16)
         G = prep.group_lo.shape[0]
         n_cta = prep.rays.shape[0] // block_trace.CTA
         scratch = 8 * keys * block_trace.list_scratch_ctas(G, n_cta)
         print(f"[9 past the budgets] {kind} wave ({o.shape[0]} lanes, {int((tm > 0).sum())} "
-              f"live): K3 with global lists {ms:.3f} ms ({n_cta} CTAs, scratch {scratch} B, "
-              f"lists equal to the plain list phase, {per_cta:.2f} groups per CTA), K1/K2 at "
-              f"gs=4 with shared lists {ms4:.3f} ms ({8 * block_trace.list_keys(prep4.group_lo.shape[0])} "
-              f"B of keys a CTA), plain {plain_ms:.3f} ms; tiled emission {em['ms']:.3f} ms "
+              f"live): K3 with culled lists {ms:.3f} ms ({n_cta} CTAs, scratch {scratch} B, "
+              f"{per_cta:.2f} groups per CTA; {_split_text(split)}), K1/K2 at "
+              f"gs=4 ({G4} groups) with {block_trace.resolve_list_mode(G4)} lists {ms4:.3f} ms, "
+              f"forced shared lists {ms4s:.3f} ms ({8 * block_trace.list_keys(G4)} B of keys a "
+              f"CTA), plain {plain_ms:.3f} ms; tiled emission {em['ms']:.3f} ms "
               f"(bound {em['bound_ms']:.3f} ms, {em['bound_by']}), torch emission "
               f"{em['plain_ms']:.3f} ms, count and slots equal", flush=True)
-        res[kind] = dict(agree, ms_global=ms, ms_gs4_shared=ms4, plain_ms=plain_ms,
+        res[kind] = dict(agree, ms_culled=ms, ms_global=split["global"]["ms"], split=split,
+                         ms_gs4=ms4, ms_gs4_shared=ms4s, plain_ms=plain_ms,
                          ncand_cta=per_cta, scratch_bytes=scratch, ctas=n_cta,
                          emit=dict(ms=em["ms"], plain_ms=em["plain_ms"],
                                    bound_ms=em["bound_ms"], bound_by=em["bound_by"]))
     res.update(leaves=L, triangles=stats.num_triangles, list_keys=keys, emit_tile=tile,
                emit_smem_all=binned.emit_smem(L, 8, 16),
                emit_smem_tiled=binned.emit_smem(tile, 8, 16))
-    del big, fat, prep, prep4, lists
+    del big, fat, prep, prep4
     torch.cuda.empty_cache()
 
     # the full atrium: forced modes against the defaults
@@ -1271,10 +1354,11 @@ def _past_budgets(dev, atrium, atrium_waves, rng):
         forced[kind] = [_modes_equal(fat, o, d, bound, occluded, gs) for gs in (4, 1)]
         forced[kind + " emission"] = _tiles_equal(fat, o, d, bound)
         for m in forced[kind]:
-            print(f"[9 forced modes] atrium {kind} wave ({o.shape[0]} lanes) gs={m['gs']}: "
-                  f"shared lists {m['ms_shared']:.3f} ms ({m['shared_bytes']} B), forced "
-                  f"global {m['ms_global']:.3f} ms (scratch {m['scratch_bytes']} B), results "
-                  f"and lists equal", flush=True)
+            print(f"[9 forced modes] atrium {kind} wave ({o.shape[0]} lanes) gs={m['gs']} "
+                  f"({m['groups']} groups, auto takes {m['auto']}): shared lists "
+                  f"{m['ms_shared']:.3f} ms ({m['shared_bytes']} B), culled {m['ms_culled']:.3f} "
+                  f"ms, overflow path {m['ms_global']:.3f} ms (scratch {m['scratch_bytes']} B), "
+                  f"results and lists equal", flush=True)
         e = forced[kind + " emission"]
         print(f"[9 forced modes] atrium {kind} wave emission (g=8, pcap=16): "
               + ", ".join(f"em={em} one tile {e[em]['ms']:.3f} ms, {e['tiles']} tiles of "
@@ -1456,12 +1540,14 @@ def _wave_slice(o, d, tm, rng):
     return o[live], d[live], tm[live]
 
 
-def _colonnade_waves(scene, view, cfg, rng, label="13 colonnade"):
+def _colonnade_waves(scene, view, cfg, rng, label="13 colonnade", split=False):
     """One 1920x1080 sample's K1/K2 waves on the colonnade (phase 17: the
     scene ``label`` names): each full wave's
     kernel time (the launch, list phase included) against its bound, its
     mean list length per CTA, and the kernel against its plain version on
-    N_CHECK lanes of it -> (closest wave dicts, deferred wave dict)."""
+    N_CHECK lanes of it; with ``split``, each wave's lists held to the plain
+    list phase and its list / walk split in both modes (``_list_split``)
+    -> (closest wave dicts, deferred wave dict)."""
     import torch
     from stratum_tpu_torch.ops import block_trace
     from stratum_tpu_torch.render import integrator
@@ -1479,6 +1565,7 @@ def _colonnade_waves(scene, view, cfg, rng, label="13 colonnade"):
         hk = block_trace.block_closest(fat, o, d, tm)
         tests = _needed_tri_tests(fat, o, d, torch.where(hk.slot >= 0, hk.t, tm))
         bound_ms, bound_by = _bound(tests, _block_bytes(fat, prep, False))
+        sp = _list_split(fat, o, d, tm, prep, False, ms) if split else None
         del prep, hk, lists
         os_, ds_, ts_ = _wave_slice(o, d, tm, rng)
         hk, _ = _timed(lambda: block_trace.block_closest(fat, os_, ds_, ts_), warmup=False)
@@ -1488,11 +1575,12 @@ def _colonnade_waves(scene, view, cfg, rng, label="13 colonnade"):
         print(f"[{label} waves] closest wave {i} ({o.shape[0]} lanes, "
               f"{int((tm > 0).sum())} live): kernel {ms:.3f} ms (bound {bound_ms:.3f} ms, "
               f"{bound_by}; {tests} tests), candidate groups per CTA {per_cta:.2f}; "
-              f"{c['rays']}-lane slice: plain {plain_ms:.3f} ms, {c}", flush=True)
+              f"{c['rays']}-lane slice: plain {plain_ms:.3f} ms, {c}"
+              + (f"; {_split_text(sp)}" if split else ""), flush=True)
         _check_closest(f"{label} closest wave {i}", c)
         closest.append(dict(c, ms=ms, plain_slice_ms=plain_ms, bound_ms=bound_ms,
                             bound_by=bound_by, tests=tests, lanes=o.shape[0],
-                            ncand_cta=per_cta))
+                            ncand_cta=per_cta, split=sp))
     ((o, w, t),) = waves["occluded"]
     del waves
     limit = t * block_trace.SHADOW_EPS
@@ -1503,6 +1591,7 @@ def _colonnade_waves(scene, view, cfg, rng, label="13 colonnade"):
     ok_full = block_trace.block_occluded(fat, o, w, t)
     tests_o = _needed_tri_tests(fat, o, w, limit, blocked=ok_full)
     bound_o = _bound(tests_o, _block_bytes(fat, prep, True))
+    sp = _list_split(fat, o, w, limit, prep, True, ms_o) if split else None
     del prep, ok_full, lists
     os_, ws_, ts_ = _wave_slice(o, w, t, rng)
     ok = block_trace.block_occluded(fat, os_, ws_, ts_)
@@ -1511,10 +1600,11 @@ def _colonnade_waves(scene, view, cfg, rng, label="13 colonnade"):
     print(f"[{label} waves] deferred shadow wave ({t.numel()} lanes, {int((t > 0).sum())} "
           f"live): kernel {ms_o:.3f} ms (bound {bound_o[0]:.3f} ms, {bound_o[1]}; {tests_o} "
           f"tests), candidate groups per CTA {per_cta_o:.2f}; {os_.shape[0]}-lane slice: "
-          f"plain {plain_ms_o:.3f} ms", flush=True)
+          f"plain {plain_ms_o:.3f} ms" + (f"; {_split_text(sp)}" if split else ""), flush=True)
     occ = _check_occluded(f"{label} occluded deferred wave slice", ok, op, ts_ > 0)
     occluded = dict(occ, ms=ms_o, plain_slice_ms=plain_ms_o, bound_ms=bound_o[0],
-                    bound_by=bound_o[1], tests=tests_o, lanes=t.numel(), ncand_cta=per_cta_o)
+                    bound_by=bound_o[1], tests=tests_o, lanes=t.numel(), ncand_cta=per_cta_o,
+                    split=sp)
     torch.cuda.empty_cache()
     return closest, occluded
 
@@ -2717,7 +2807,7 @@ LOADED = ROOT / "build" / "loaded"
 SCAN_GRID = 1449  # vertices a side of the scan's height field: 2 x 1448^2 = 4,193,408 triangles
 SCAN_SEED = 17
 SCAN_RELIEF = 0.18  # height range of the field over its 2 x 2 extent
-SCAN_LEAVES = 16384  # past this many SAH leaves K1/K2 sort their lists in global scratch at gs=4
+SCAN_LEAVES = 16384  # past this many SAH leaves K1/K2 take the culled list mode at gs=4
 SCAN_XML = """<scene version="0.6.0">
   <sensor type="perspective">
     <float name="fov" value="50"/>
@@ -2795,8 +2885,9 @@ def _write_scan(out: Path) -> dict:
 
 def _scan(dev, smi):
     """Phase 17, the scan: written, loaded through Mitsuba XML and PLY,
-    flattened; K1/K2 in their global list mode on its waves, 1 + 4 samples
-    -> (scene, view, dict)."""
+    flattened; K1/K2 in their culled list mode on its waves (lists held to
+    the plain list phase, the list / walk split against the forced overflow
+    path), 1 + 4 samples -> (scene, view, dict)."""
     import numpy as np
     import torch
     from stratum_tpu_torch import cli, profile_sample
@@ -2823,16 +2914,18 @@ def _scan(dev, smi):
                 scratch_ctas=block_trace.list_scratch_ctas(G, 16200))
     print(f"[17 scan] {stats.num_triangles} triangles ({info['faces']} PLY faces, "
           f"{info['ply_bytes']} B), {L} SAH leaves of {K}, {G} groups at gs={block_trace.GS}, "
-          f"list_keys {keys} > {block_trace.MAX_LIST_KEYS}: {mode} lists; write "
+          f"list_keys {keys} > {block_trace.MAX_LIST_KEYS}: {mode} lists (super-groups of "
+          f"{block_trace.SUPER_SIZE}, {block_trace.CULL_LIST_KEYS} keys in shared memory); write "
           f"{t1 - t0:.2f} s, load (XML, PLY, serialized) {t2 - t1:.2f} s, flatten "
           f"{t3 - t2:.2f} s", flush=True)
-    assert L > SCAN_LEAVES and mode == "global", line
+    assert L > SCAN_LEAVES and mode == "culled", line
     W, H = FRAME
     node, cam = flatten.find_camera(g.root)
     view = camera.make_view(node.to_world(), cam.fovy, W, H, device=dev)
     cfg = integrator.RenderConfig(width=W, height=H, **BENCH)
     assert integrator.resolved_tracer(scene, cfg) == "pallas"
-    closest, occluded = _colonnade_waves(scene, view, cfg, np.random.default_rng(17), "17 scan")
+    closest, occluded = _colonnade_waves(scene, view, cfg, np.random.default_rng(17), "17 scan",
+                                         split=True)
     launches, img, main = _timed_samples(scene, view, cfg, "17 scan", "scan", smi)
     assert launches == SCAN_LAUNCHES, launches
     busy, ops = profile_sample.device_profile(scene, view, cfg, 1)
@@ -3318,21 +3411,21 @@ def main() -> int:
     waves = {}
     integrator.render_path_with_counts(scene, view, cfg, 0, capture=waves)
 
-    def list_lengths(o, d, bound, prep, occluded, check=None):
-        """Mean list length per CTA the kernel reports (held to the plain
-        list phase when ``check`` names the stats to compare), beside the
-        reference's mean per 2048-ray block."""
-        *_, lists = block_trace.launch(fat, prep, occluded, stats=check or "ncand")
-        per_cta = (_check_lists(fat, o, d, bound, lists, prep.gs) if check
-                   else float(lists.ncand.float().mean()))
+    def list_lengths(o, d, bound, prep, occluded, ms):
+        """The wave's lists held to the plain list phase and its list / walk
+        split (``_list_split``), beside the reference's mean list length per
+        2048-ray block."""
+        split = _list_split(fat, o, d, bound, prep, occluded, ms)
         old = block_trace.candidate_lists(fat, o, d, bound, prep.gs)
-        return per_cta, float(old.ncand.float().mean())
+        return split, float(old.ncand.float().mean())
 
     for occl in (False, True):
         for gs_ in (block_trace.GS, 1):
-            info = block_trace.kernel_info(occl, -(-L // gs_))
-            print(f"[3 kernel] block_trace_kernel<{str(occl).lower()}> at gs={gs_} "
-                  f"(G={-(-L // gs_)}): {info}", flush=True)
+            G_ = -(-L // gs_)
+            mode_ = block_trace.resolve_list_mode(G_)
+            info = block_trace.kernel_info(occl, G_, mode_)
+            print(f"[3 kernel] block_trace_kernel<{str(occl).lower()}, {mode_} lists> at "
+                  f"gs={gs_} (G={G_}): {info}", flush=True)
     closest_waves = []
     for i, (o, d, tm) in enumerate(waves["closest"]):
         prep = block_trace._prepare(fat, o, d, tm)
@@ -3343,17 +3436,17 @@ def main() -> int:
         c = _compare_closest(fat, o, d, hk, hp, tm > 0)
         tests = _needed_tri_tests(fat, o, d, torch.where(hk.slot >= 0, hk.t, tm))
         bound_ms, bound_by = _bound(tests, _block_bytes(fat, prep, False))
-        per_cta, per_block = list_lengths(o, d, tm, prep, False, "lists" if i == 1 else None)
+        split, per_block = list_lengths(o, d, tm, prep, False, ms)
+        per_cta = split["ncand_cta"]
         print(f"[3 main-path waves] closest wave {i} ({c['rays']} lanes, {c['live']} live): "
               f"kernel {ms:.3f} ms (bound {bound_ms:.3f} ms, {bound_by}; {tests} tests), "
               f"wrapper (prep + kernel) {wrap_ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"candidate groups per CTA {per_cta:.2f} (per 2048-ray block {per_block:.2f})"
-              + ("; per-CTA counts, entries and groups equal to the plain list phase"
-                 if i == 1 else ""), flush=True)
+              f"candidate groups per CTA {per_cta:.2f} (per 2048-ray block {per_block:.2f}); "
+              f"{_split_text(split)}", flush=True)
         _check_closest(f"closest wave {i}", c)
         closest_waves.append(dict(c, ms=ms, wrapper_ms=wrap_ms, plain_ms=plain_ms,
                                   bound_ms=bound_ms, bound_by=bound_by, tests=tests,
-                                  ncand_cta=per_cta, ncand_block=per_block))
+                                  ncand_cta=per_cta, ncand_block=per_block, split=split))
         if i == 1:  # the heaviest sorted bounce: kept for K3
             wave1 = (o, d, tm, hp)
         del prep, hk, hp
@@ -3366,13 +3459,14 @@ def main() -> int:
         lambda: block_trace.block_occluded_plain(fat, o, w, t), warmup=False)
     tests_o = _needed_tri_tests(fat, o, w, limit, blocked=ok)
     bound_o = _bound(tests_o, _block_bytes(fat, prep, True))
-    per_cta_o, per_block_o = list_lengths(o, w, limit, prep, True, "ncand")
+    split_o, per_block_o = list_lengths(o, w, limit, prep, True, ms_o)
+    per_cta_o = split_o["ncand_cta"]
     print(f"[3 main-path waves] deferred shadow wave ({t.numel()} lanes, "
           f"{int((t > 0).sum())} live): kernel {ms_o:.3f} ms (bound {bound_o[0]:.3f} ms, "
           f"{bound_o[1]}; {tests_o} tests), wrapper (prep + kernel) "
           f"{wrap_ms_o:.3f} ms, plain {plain_ms_o:.3f} ms, candidate groups per CTA "
-          f"{per_cta_o:.2f} (per 2048-ray block {per_block_o:.2f}); per-CTA counts equal "
-          f"to the plain list phase", flush=True)
+          f"{per_cta_o:.2f} (per 2048-ray block {per_block_o:.2f}); {_split_text(split_o)}",
+          flush=True)
     occ = _check_occluded("occluded deferred wave", ok, op, t > 0)
     del prep, ok
 
@@ -3383,18 +3477,18 @@ def main() -> int:
     hk3 = block_trace.block_closest(fat, o1w, d1w, tm1w, gs=1)
     k3c = _compare_closest(fat, o1w, d1w, hk3, hp1w, tm1w > 0)
     bound_k3 = _bound(closest_waves[1]["tests"], _block_bytes(fat, prep, False))
-    per_cta, per_block = list_lengths(o1w, d1w, tm1w, prep, False)
+    split_k3, per_block = list_lengths(o1w, d1w, tm1w, prep, False, ms_k3)
     print(f"[3 K3] closest wave 1 at gs=1: kernel {ms_k3:.3f} ms vs gs=4 "
-          f"{closest_waves[1]['ms']:.3f} ms, candidates per CTA {per_cta:.2f} "
-          f"(per 2048-ray block {per_block:.2f})", flush=True)
+          f"{closest_waves[1]['ms']:.3f} ms, candidates per CTA {split_k3['ncand_cta']:.2f} "
+          f"(per 2048-ray block {per_block:.2f}); {_split_text(split_k3)}", flush=True)
     _check_closest("K3 closest wave 1", k3c)
     prep = block_trace._prepare(fat, o, w, limit, gs=1)
     _, ms_k3o = _timed(lambda: block_trace.launch(fat, prep, True), reps=3)
     ok3 = block_trace.block_occluded(fat, o, w, t, gs=1)
-    per_cta, per_block = list_lengths(o, w, limit, prep, True)
+    split_k3o, per_block = list_lengths(o, w, limit, prep, True, ms_k3o)
     print(f"[3 K3] deferred shadow wave at gs=1: kernel {ms_k3o:.3f} ms vs gs=4 "
-          f"{ms_o:.3f} ms, candidates per CTA {per_cta:.2f} (per 2048-ray block "
-          f"{per_block:.2f})", flush=True)
+          f"{ms_o:.3f} ms, candidates per CTA {split_k3o['ncand_cta']:.2f} (per 2048-ray block "
+          f"{per_block:.2f}); {_split_text(split_k3o)}", flush=True)
     k3o = _check_occluded("K3 occluded deferred wave", ok3, op, t > 0)
     bound_k3o = _bound(tests_o, _block_bytes(fat, prep, True))
     del waves, wave1, prep, ok3, op, o, w, t, limit, hp1w
@@ -3556,7 +3650,8 @@ def main() -> int:
              tri_tests=[c["tests"] for c in closest_waves],
              rays=[c["rays"] for c in closest_waves],
              live=[c["live"] for c in closest_waves],
-             forced_global_lists=past["atrium_forced"]["closest"],
+             wave_split=[c["split"] for c in closest_waves],
+             forced_list_modes=past["atrium_forced"]["closest"],
              bdpt=bdpt_waves("closest", bd_k1),
              gbuffer=dict(launches_per_frame=frame["gbuffer"]["launches"],
                           **{k: gb_wave[k] for k in ("lanes", "ms", "bound_ms", "bound_by",
@@ -3580,14 +3675,17 @@ def main() -> int:
                        agree=min(c["agree"] for c in scan_k1),
                        max_abs_err=max(c["max_abs_err"] for c in scan_k1),
                        tri_tests=[c["tests"] for c in scan_k1],
-                       wave_ncand_cta=[c["ncand_cta"] for c in scan_k1])),
+                       wave_ncand_cta=[c["ncand_cta"] for c in scan_k1],
+                       wave_split=[c["split"] for c in scan_k1],
+                       wave_ms_forced_overflow=[c["split"]["global"]["ms"] for c in scan_k1],
+                       wave_overflow=[c["split"]["culled"]["overflow"] for c in scan_k1])),
         dict(bt, name="block_trace occluded (K2)",
              replaces="stratum_tpu/ops/pallas_trace.py:1242",
              launches=launches["block occluded"], max_abs_err=float(occ["mismatch"] > 0),
              ms=ms_o, plain_ms=plain_ms_o, bound_ms=bound_o[0], bound_by=bound_o[1],
              wrapper_ms=wrap_ms_o, agree=occ["agree"], mismatch=occ["mismatch"],
              ncand_cta=per_cta_o, ncand_block=per_block_o, tri_tests=tests_o, rays=occ["rays"],
-             live=occ["live"], forced_global_lists=past["atrium_forced"]["occluded"],
+             live=occ["live"], split=split_o, forced_list_modes=past["atrium_forced"]["occluded"],
              bdpt=bdpt_waves("occluded", bd_k2),
              colonnade=dict(launches=col["path"]["launches"]["block occluded"],
                             ms=col["waves"]["occluded"]["ms"],
@@ -3597,20 +3695,23 @@ def main() -> int:
                             tri_tests=col["waves"]["occluded"]["tests"],
                             ncand_cta=col["waves"]["occluded"]["ncand_cta"]),
              scan=dict(launches=loaded["scan"]["launches"]["block occluded"],
+                       ms_forced_overflow=scan_k2["split"]["global"]["ms"],
+                       overflow=scan_k2["split"]["culled"]["overflow"],
                        **{k: scan_k2[k] for k in ("ms", "bound_ms", "bound_by",
                                                   "plain_slice_ms", "agree", "tests",
-                                                  "ncand_cta", "lanes")})),
+                                                  "ncand_cta", "lanes", "split")})),
         dict(bt, name="block_trace closest at gs=1 (K3)",
              replaces="stratum_tpu/ops/pallas_trace.py:532",
              launches=k3_launches["closest"], max_abs_err=k3c["max_abs_err"],
              ms=ms_k3, plain_ms=closest_waves[1]["plain_ms"], bound_ms=bound_k3[0],
              bound_by=bound_k3[1], gs4_ms=closest_waves[1]["ms"], agree=k3c["agree"],
+             split=split_k3,
              past_budget={k: v for k, v in past["closest"].items() if k != "emit"}),
         dict(bt, name="block_trace occluded at gs=1 (K3)",
              replaces="stratum_tpu/ops/pallas_trace.py:958",
              launches=k3_launches["occluded"], max_abs_err=float(k3o["mismatch"] > 0),
              ms=ms_k3o, plain_ms=plain_ms_o, bound_ms=bound_k3o[0], bound_by=bound_k3o[1],
-             gs4_ms=ms_o, agree=k3o["agree"], mismatch=k3o["mismatch"],
+             gs4_ms=ms_o, agree=k3o["agree"], mismatch=k3o["mismatch"], split=split_k3o,
              past_budget={k: v for k, v in past["occluded"].items() if k != "emit"}),
         dict(common, name="binned closest (K5)", source="stratum_tpu_torch/csrc/binned.cu",
              replaces="stratum_tpu/ops/binned.py:68",

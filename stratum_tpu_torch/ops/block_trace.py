@@ -26,13 +26,28 @@ of the kernel builds.
 The group size ``gs`` is an argument of the prep and the wrappers (``GS`` =
 4 is the reference's default); the plain versions do not depend on it.
 
-A CTA sorts its list keys (G groups padded to a power of two) in shared
-memory up to ``MAX_LIST_KEYS``; past that the kernel takes its global list
-mode (:func:`resolve_list_mode`), which sorts the same keys with the same
-network in a scratch buffer of ``LIST_SCRATCH_BYTES`` and launches the wave
-in chunks of CTAs that reuse it, so no scene size is refused.
-``list_mode="global"`` forces that mode on any scene; it is for checks, and
-the render path never sets it.
+Two list modes (:func:`resolve_list_mode`). Up to ``AUTO_SHARED_KEYS`` keys
+(G groups padded to a power of two) a CTA computes every group's entry and
+sorts all of them in shared memory ("shared"; the kernel takes up to
+``MAX_LIST_KEYS``). Past that it culls ("culled"): a coarse level of super-groups of ``SUPER_SIZE`` consecutive
+groups (:func:`super_boxes`, the exact min / max of their members) is
+tested first, only the members of the super-groups some live ray reaches
+get an entry, and only the finite keys are kept and sorted, in shared memory
+(``CULL_LIST_KEYS`` at most). The culling is conservative in f32: a
+member's box lies inside its super-group's and both roundings of the slab
+formula are monotone, so a group a ray reaches never sits in a super-group
+it misses (the argument is written out in ``csrc/block_trace.cu``).
+:func:`culled_lists` is the plain version of this two-level phase. A CTA
+whose reached keys exceed ``CULL_LIST_KEYS`` overflows: it computes every
+entry and sorts all keys in its own row of a scratch buffer of
+``LIST_SCRATCH_BYTES`` (the wave launches in chunks of CTAs that reuse it),
+so no scene size is refused and no host synchronisation decides anything.
+``list_mode="shared"`` forces the shared mode where the keys fit,
+``list_mode="culled"`` the culled mode on any scene, and
+``list_mode="global"`` sends every CTA down the overflow path (the design
+before the culling); these are for checks, and the render path never sets
+them. ``stats="phases"`` reports each CTA's overflow flag and the clock
+cycles of its list phase and its walk.
 
 ``block_closest`` / ``block_occluded`` launch the kernel when the rays lie
 on a CUDA device and use ``block_closest_plain`` / ``block_occluded_plain``
@@ -65,8 +80,14 @@ CTA = 128  # rays per CTA of the kernel, each CTA with its own list
 GS = 4  # default leaves per candidate group (the reference's GS)
 T_MIN = 1e-4  # block entries ignore boxes the ray leaves before this
 SHADOW_EPS = float(np.float32(1.0 - 1e-3))
-MAX_LIST_KEYS = 4096  # list keys a CTA sorts in shared memory (csrc kMaxKeys)
-LIST_SCRATCH_BYTES = 1 << 29  # the global list mode's scratch: 512 MB of keys
+MAX_LIST_KEYS = 4096  # shared mode: list keys a CTA sorts in shared memory (csrc kMaxKeys)
+# "auto" takes the shared mode up to this many keys and culls past it: on the
+# atrium at gs = 1 (1,024 keys) the culled mode is the faster (chip_smoke.py
+# phase 9's forced modes), at gs = 4 (256 keys) the shared one
+AUTO_SHARED_KEYS = 512
+SUPER_SIZE = 64  # culled mode: groups per super-group
+CULL_LIST_KEYS = 2048  # culled mode: reached keys a CTA sorts in shared memory (a power of two)
+LIST_SCRATCH_BYTES = 1 << 29  # the culled mode's overflow rows: 512 MB of keys
 # elements per _block_entries pass: bounds the [blocks, block, G] temporaries
 # to 100 MB of f32 each
 ENTRY_CHUNK_ELEMS = 64 * 2048 * 190
@@ -99,17 +120,38 @@ class Lists(NamedTuple):
     ncand: torch.Tensor  # i32 [nb] groups the block reaches
 
 
+class Phases(NamedTuple):
+    """Per-CTA statistics of a launch (``stats="phases"``)."""
+
+    ncand: torch.Tensor  # i32 [n_cta] groups the CTA reaches
+    overflow: torch.Tensor  # bool [n_cta] the CTA sorted its list in its scratch row
+    list_cycles: torch.Tensor  # i64 [n_cta] clock64 cycles of its list phase (staging included)
+    walk_cycles: torch.Tensor  # i64 [n_cta] and of its walk (both 0 without a live ray)
+
+
+def _merge_boxes(lo, hi, size: int):
+    """AABBs of runs of ``size`` consecutive boxes; the last run is padded
+    with inverted boxes."""
+    n = -(-lo.shape[0] // size)
+    big = 3.0e37
+    pad = n * size - lo.shape[0]
+    lo = torch.nn.functional.pad(lo, (0, 0, 0, pad), value=big)
+    hi = torch.nn.functional.pad(hi, (0, 0, 0, pad), value=-big)
+    return lo.reshape(n, size, 3).amin(dim=1), hi.reshape(n, size, 3).amax(dim=1)
+
+
 def group_boxes(fat: FatBVH, gs: int = GS):
     """AABBs of the G = ceil(L / gs) groups of consecutive leaves; members
     past L are padded with inverted boxes. At gs = 1 these are the leaf
     boxes."""
-    L = fat.num_leaves
-    G = -(-L // gs)
-    big = 3.0e37
-    pad = G * gs - L
-    lo = torch.nn.functional.pad(fat.leaf_lo, (0, 0, 0, pad), value=big)
-    hi = torch.nn.functional.pad(fat.leaf_hi, (0, 0, 0, pad), value=-big)
-    return lo.reshape(G, gs, 3).amin(dim=1), hi.reshape(G, gs, 3).amax(dim=1)
+    return _merge_boxes(fat.leaf_lo, fat.leaf_hi, gs)
+
+
+def super_boxes(group_lo, group_hi, size: Optional[int] = None):
+    """AABBs of the culled mode's super-groups: ceil(G / size) runs of
+    ``size`` consecutive groups (``SUPER_SIZE`` by default), padded like
+    :func:`group_boxes`."""
+    return _merge_boxes(group_lo, group_hi, SUPER_SIZE if size is None else size)
 
 
 def _pad_rays(origin, direction, t_max, multiple: int):
@@ -141,6 +183,39 @@ def _prepare(fat: FatBVH, origin, direction, t_max, gs: int = GS) -> Prepared:
     )
 
 
+def _blocks(origin, direction, t_max, block: int, live_only: bool):
+    """The rays as [nb, block] blocks (padded to whole blocks, and the
+    blocks to a multiple of 8, as the reference pads); with ``live_only``
+    every lane with t_max <= 0 gets t_clip -inf, so it reaches nothing."""
+    nb = -(-origin.shape[0] // block)
+    nb = -(-nb // 8) * 8
+    o, d, tm = _pad_rays(origin, direction, t_max, nb * block)
+    if live_only:
+        tm = torch.where(tm > 0, tm, float("-inf"))
+    return o.view(nb, block, 3), d.view(nb, block, 3), tm.view(nb, block)
+
+
+def _entries(lo, hi, ob, db, tb):
+    """``_block_entries`` of every box for every block, in passes that bound
+    the [blocks, block, boxes] temporaries -> [nb, boxes]."""
+    nb, block = tb.shape
+    step = max(1, ENTRY_CHUNK_ELEMS // (block * lo.shape[0]))
+    return torch.cat([
+        _block_entries(lo, hi, ob[s:s + step], db[s:s + step], T_MIN, tb[s:s + step])
+        for s in range(0, nb, step)
+    ])
+
+
+def _sorted_lists(entries) -> Lists:
+    sorted_entry, order = torch.sort(entries, dim=1, stable=True)
+    finite = torch.isfinite(sorted_entry)
+    return Lists(
+        cand=order.to(torch.int32),
+        centry=torch.where(finite, sorted_entry, 3.0e38),
+        ncand=finite.sum(dim=1).to(torch.int32),
+    )
+
+
 def candidate_lists(fat: FatBVH, origin, direction, t_max, gs: int = GS,
                     block: int = BLOCK, live_only: bool = False) -> Lists:
     """Plain version of the kernel's list phase (pallas_trace.py:1685-1767):
@@ -154,26 +229,39 @@ def candidate_lists(fat: FatBVH, origin, direction, t_max, gs: int = GS,
     sits inside (its entry tn < 0 is below t_clip 0), though such a lane
     can never commit. ``live_only`` drops those: every lane with t_max <= 0
     reaches nothing, which is what the kernel's CTAs do."""
-    n = origin.shape[0]
-    nb = -(-n // block)
-    nb = -(-nb // 8) * 8
-    o, d, tm = _pad_rays(origin, direction, t_max, nb * block)
-    if live_only:
-        tm = torch.where(tm > 0, tm, float("-inf"))
+    ob, db, tb = _blocks(origin, direction, t_max, block, live_only)
     glo, ghi = group_boxes(fat, gs)
-    ob, db, tb = o.view(nb, block, 3), d.view(nb, block, 3), tm.view(nb, block)
-    step = max(1, ENTRY_CHUNK_ELEMS // (block * glo.shape[0]))
-    entries = torch.cat([
-        _block_entries(glo, ghi, ob[s:s + step], db[s:s + step], T_MIN, tb[s:s + step])
-        for s in range(0, nb, step)
-    ])
-    sorted_entry, order = torch.sort(entries, dim=1, stable=True)
-    finite = torch.isfinite(sorted_entry)
-    return Lists(
-        cand=order.to(torch.int32),
-        centry=torch.where(finite, sorted_entry, 3.0e38),
-        ncand=finite.sum(dim=1).to(torch.int32),
-    )
+    return _sorted_lists(_entries(glo, ghi, ob, db, tb))
+
+
+def culled_lists(fat: FatBVH, origin, direction, t_max, gs: int = GS,
+                 block: int = CTA, live_only: bool = True,
+                 super_size: Optional[int] = None, cap: Optional[int] = None):
+    """Plain version of the culled list phase, the two levels apart: per
+    block, the entry of every super-group of ``super_size`` groups
+    (:func:`super_boxes`), then the entries of the members of the reached
+    super-groups only (every other group's entry stays +inf), then a
+    stable sort -> (``Lists`` equal to :func:`candidate_lists`' bit for
+    bit, the culling being conservative; bool [nb] the blocks that reach
+    more than ``cap`` groups (``CULL_LIST_KEYS`` by default) and so
+    overflow to a scratch row in the kernel). ``super_size`` defaults to
+    ``SUPER_SIZE``. Blocks are padded as :func:`candidate_lists` pads
+    them."""
+    cap = CULL_LIST_KEYS if cap is None else cap
+    super_size = SUPER_SIZE if super_size is None else super_size
+    ob, db, tb = _blocks(origin, direction, t_max, block, live_only)
+    glo, ghi = group_boxes(fat, gs)
+    slo, shi = super_boxes(glo, ghi, super_size)
+    G = glo.shape[0]
+    reached = torch.isfinite(_entries(slo, shi, ob, db, tb))  # [nb, S]
+    member = reached.repeat_interleave(super_size, dim=1)[:, :G]
+    entries = torch.full(member.shape, float("inf"), device=glo.device)
+    for b in torch.nonzero(member.any(dim=1)).squeeze(1).tolist():
+        idx = torch.nonzero(member[b]).squeeze(1)
+        entries[b, idx] = _entries(glo[idx], ghi[idx], ob[b:b + 1], db[b:b + 1],
+                                   tb[b:b + 1])[0]
+    lists = _sorted_lists(entries)
+    return lists, lists.ncand > cap
 
 
 def list_keys(num_groups: int) -> int:
@@ -182,19 +270,25 @@ def list_keys(num_groups: int) -> int:
 
 
 def resolve_list_mode(num_groups: int, mode: str = "auto") -> str:
-    """Where the kernel sorts a CTA's list: "shared" when its keys fit the
-    shared-memory budget (``MAX_LIST_KEYS``), else "global"; ``mode=
-    "global"`` forces the global mode."""
-    if mode not in ("auto", "global"):
-        raise ValueError(f"list_mode must be 'auto' or 'global', not {mode!r}")
-    if mode == "global" or list_keys(num_groups) > MAX_LIST_KEYS:
-        return "global"
-    return "shared"
+    """How the kernel builds a CTA's list: "shared" up to
+    ``AUTO_SHARED_KEYS`` keys, else "culled"; ``mode`` "shared" (where the
+    keys fit ``MAX_LIST_KEYS``) and "culled" force a mode, "global" the
+    culled mode's overflow path for every CTA."""
+    if mode not in ("auto", "shared", "culled", "global"):
+        raise ValueError(
+            f"list_mode must be 'auto', 'shared', 'culled' or 'global', not {mode!r}")
+    if mode == "shared" and list_keys(num_groups) > MAX_LIST_KEYS:
+        raise ValueError(f"{list_keys(num_groups)} list keys do not fit the shared mode's "
+                         f"{MAX_LIST_KEYS}")
+    if mode != "auto":
+        return mode
+    return "culled" if list_keys(num_groups) > AUTO_SHARED_KEYS else "shared"
 
 
 def list_scratch_ctas(num_groups: int, n_cta: int) -> int:
-    """CTAs per chunk of a global-mode launch: as many lists as
-    ``LIST_SCRATCH_BYTES`` holds, at most the wave's CTAs."""
+    """CTAs per chunk of a culled-mode launch: as many overflow rows of
+    ``list_keys(num_groups)`` keys as ``LIST_SCRATCH_BYTES`` holds, at most
+    the wave's CTAs."""
     return max(1, min(n_cta, LIST_SCRATCH_BYTES // (8 * list_keys(num_groups))))
 
 
@@ -203,15 +297,15 @@ def _lib():
 
     lib = cuda_build.load("block_trace")
     if not getattr(lib, "_stratum_bound", False):
-        ptrs = [ctypes.c_void_p] * 10
-        ints = [ctypes.c_int] * 5
-        stats = [ctypes.c_void_p] * 3
+        ptrs = [ctypes.c_void_p] * 12
+        ints = [ctypes.c_int] * 9
+        stats = [ctypes.c_void_p] * 4
         scratch = [ctypes.c_void_p, ctypes.c_int]
         lib.block_trace_closest.argtypes = ptrs + ints + [ctypes.c_void_p] * 2 + stats + (
             scratch + [ctypes.c_void_p])
         lib.block_trace_occluded.argtypes = ptrs + ints + [ctypes.c_void_p] + stats + (
             scratch + [ctypes.c_void_p])
-        lib.block_trace_info.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        lib.block_trace_info.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
         for fn in (lib.block_trace_closest, lib.block_trace_occluded, lib.block_trace_info):
             fn.restype = ctypes.c_int
         lib._stratum_bound = True
@@ -233,12 +327,12 @@ def launch(fat: FatBVH, prep: Prepared, occluded: bool, stats: Optional[str] = N
            list_mode: str = "auto"):
     """The kernel over every CTA of a prepared wave -> (t, slot) or
     (blocked,): one launch in the shared list mode, one per chunk of
-    :func:`list_scratch_ctas` CTAs in the global mode (see
-    :func:`resolve_list_mode`; ``list_mode="global"`` forces it). ``stats="ncand"``
-    appends the per-CTA list lengths as ``Lists(None, None, ncand)``,
+    :func:`list_scratch_ctas` CTAs in the culled mode (see
+    :func:`resolve_list_mode` for ``list_mode``). ``stats="ncand"`` appends
+    the per-CTA list lengths as ``Lists(None, None, ncand)``,
     ``stats="lists"`` each CTA's whole sorted list as well (``Lists`` at
     block 128: what ``candidate_lists(..., block=CTA, live_only=True)``
-    gives for its blocks)."""
+    gives for its blocks), ``stats="phases"`` a :class:`Phases`."""
     L, K = fat.leaf_tri.shape
     G = prep.group_lo.shape[0]
     if G != -(-L // prep.gs):
@@ -247,8 +341,10 @@ def launch(fat: FatBVH, prep: Prepared, occluded: bool, stats: Optional[str] = N
     dev = prep.rays.device
     if dev.type != "cuda":
         raise ValueError("the block-trace kernel runs on CUDA tensors only")
-    if stats not in (None, "ncand", "lists"):
-        raise ValueError(f"stats must be None, 'ncand' or 'lists', not {stats!r}")
+    if stats not in (None, "ncand", "lists", "phases"):
+        raise ValueError(f"stats must be None, 'ncand', 'lists' or 'phases', not {stats!r}")
+    if CULL_LIST_KEYS < 1 or CULL_LIST_KEYS & (CULL_LIST_KEYS - 1):
+        raise ValueError(f"CULL_LIST_KEYS must be a power of two, not {CULL_LIST_KEYS}")
     np_ = prep.rays.shape[0]
     if np_ % CTA:
         raise ValueError(f"{np_} rays are not whole CTAs of {CTA}")
@@ -269,27 +365,29 @@ def launch(fat: FatBVH, prep: Prepared, occluded: bool, stats: Optional[str] = N
         _check(x, name, dt, shape, dev)
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    slo = shi = scratch = None
+    n_super, chunk = 0, 0
+    if mode != "shared":
+        slo, shi = (x.contiguous() for x in super_boxes(prep.group_lo, prep.group_hi,
+                                                         SUPER_SIZE))
+        n_super = slo.shape[0]
+        chunk = list_scratch_ctas(G, n_cta)
+        scratch = torch.empty(chunk * list_keys(G), dtype=torch.int64, device=dev)
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
     args = [
         prep.rays.data_ptr(), prep.t_max.data_ptr(), prep.origin.data_ptr(),
         prep.inv_dir.data_ptr(), prep.group_lo.data_ptr(), prep.group_hi.data_ptr(),
-        fat.leaf_lo.data_ptr(), fat.leaf_hi.data_ptr(), prep.leaf_count.data_ptr(),
-        fat.leaf_feat.data_ptr(), n_cta, G, L, K, prep.gs,
+        ptr(slo), ptr(shi), fat.leaf_lo.data_ptr(), fat.leaf_hi.data_ptr(),
+        prep.leaf_count.data_ptr(), fat.leaf_feat.data_ptr(), n_cta, G, n_super,
+        SUPER_SIZE, CULL_LIST_KEYS, int(mode == "global"), L, K, prep.gs,
     ]
-    lists, stat_ptrs = None, [None, None, None]
-    if stats is not None:
-        whole = stats == "lists"
-        lists = Lists(
-            cand=torch.empty((n_cta, G), dtype=i32, device=dev) if whole else None,
-            centry=torch.empty((n_cta, G), dtype=f32, device=dev) if whole else None,
-            ncand=torch.empty(n_cta, dtype=i32, device=dev),
-        )
-        stat_ptrs = [None if x is None else x.data_ptr()
-                     for x in (lists.ncand, lists.centry, lists.cand)]
-    scratch, chunk = None, 0
-    if mode == "global":
-        chunk = list_scratch_ctas(G, n_cta)
-        scratch = torch.empty(chunk * list_keys(G), dtype=torch.int64, device=dev)
-    scratch_args = (None if scratch is None else scratch.data_ptr(), chunk)
+    whole = stats == "lists"
+    ncand = None if stats is None else torch.empty(n_cta, dtype=i32, device=dev)
+    cand = torch.empty((n_cta, G), dtype=i32, device=dev) if whole else None
+    centry = torch.empty((n_cta, G), dtype=f32, device=dev) if whole else None
+    cta = torch.empty((n_cta, 3), dtype=torch.int64, device=dev) if stats == "phases" else None
+    stat_ptrs = [ptr(ncand), ptr(centry), ptr(cand), ptr(cta)]
+    scratch_args = (ptr(scratch), chunk)
     if occluded:
         blocked = torch.empty(np_, dtype=torch.uint8, device=dev)
         rc = lib.block_trace_occluded(*args, blocked.data_ptr(), *stat_ptrs, *scratch_args,
@@ -304,7 +402,11 @@ def launch(fat: FatBVH, prep: Prepared, occluded: bool, stats: Optional[str] = N
     if rc != 0:
         raise RuntimeError(f"block_trace kernel launch failed: cudaError {rc}")
     LAUNCHES["occluded" if occluded else "closest"] += 1
-    return outs if lists is None else outs + (lists,)
+    if stats is None:
+        return outs
+    if stats == "phases":
+        return outs + (Phases(ncand, cta[:, 0] != 0, cta[:, 1], cta[:, 2]),)
+    return outs + (Lists(cand=cand, centry=centry, ncand=ncand),)
 
 
 def kernel_info(occluded: bool, num_groups: int, mode: str = "shared") -> dict:
@@ -312,9 +414,11 @@ def kernel_info(occluded: bool, num_groups: int, mode: str = "shared") -> dict:
     shared memory (bytes), resident CTAs per SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and local (spill)
     bytes per thread, at a list of ``num_groups`` groups, in the list mode
-    ``mode`` ("shared" or "global")."""
+    ``mode`` ("shared", or "culled" and "global", one instantiation with
+    ``CULL_LIST_KEYS`` keys in shared memory)."""
     out = (ctypes.c_int * 5)()
-    rc = _lib().block_trace_info(int(occluded), int(mode == "global"), num_groups, out)
+    rc = _lib().block_trace_info(int(occluded), int(mode != "shared"), num_groups,
+                                 CULL_LIST_KEYS, out)
     if rc != 0:
         raise RuntimeError(f"block_trace_info failed: cudaError {rc}")
     return dict(zip(("registers", "static_smem", "dynamic_smem", "ctas_per_sm",

@@ -160,22 +160,29 @@ def test_launch_refuses_cpu_tensors(case):
 
 
 def test_lists_past_the_shared_budget_take_the_global_mode(monkeypatch):
-    """A CTA sorts its list in shared memory up to MAX_LIST_KEYS keys and in
-    its global scratch row past that: no group count is refused, the choice
-    follows the keys (checked here with the budget made small), the global
-    mode can be forced, and the scratch holds LIST_SCRATCH_BYTES of lists
-    (the wave's CTAs at most)."""
+    """A CTA sorts all its list keys in shared memory up to AUTO_SHARED_KEYS
+    keys and culls past that ("culled": only the reached keys, sorted in
+    shared memory, or in the CTA's global scratch row when they exceed
+    CULL_LIST_KEYS): no group count is refused, the choice follows the keys
+    (checked here with the budget made small), the shared mode (where its
+    MAX_LIST_KEYS hold the keys), the culled mode and its overflow path
+    ("global") can be forced, and the scratch holds LIST_SCRATCH_BYTES of
+    overflow rows (the wave's CTAs at most)."""
     assert block_trace.list_keys(4097) == 8192 and block_trace.list_keys(1) == 1
-    assert block_trace.resolve_list_mode(4096) == "shared"
-    assert block_trace.resolve_list_mode(4097) == "global"
+    assert block_trace.resolve_list_mode(512) == "shared"
+    assert block_trace.resolve_list_mode(513) == "culled"
+    assert block_trace.resolve_list_mode(4096, "shared") == "shared"
     assert block_trace.resolve_list_mode(16, "global") == "global"
-    monkeypatch.setattr(block_trace, "MAX_LIST_KEYS", 16)
+    assert block_trace.resolve_list_mode(16, "culled") == "culled"
+    with pytest.raises(ValueError, match="shared mode"):
+        block_trace.resolve_list_mode(4097, "shared")
+    monkeypatch.setattr(block_trace, "AUTO_SHARED_KEYS", 16)
     assert [block_trace.resolve_list_mode(g) for g in (9, 16, 17, 100)] == [
-        "shared", "shared", "global", "global"]
+        "shared", "shared", "culled", "culled"]
     assert block_trace.list_scratch_ctas(16384, 10**6) == (1 << 29) // (8 * 16384)
     assert block_trace.list_scratch_ctas(16384, 7) == 7
     with pytest.raises(ValueError, match="list_mode"):
-        block_trace.resolve_list_mode(16, "shared")
+        block_trace.resolve_list_mode(16, "sorted")
     L = 40  # 40 single-leaf groups: past the patched budget
     fat = FatBVH(
         leaf_lo=torch.zeros((L, 3)), leaf_hi=torch.ones((L, 3)),
@@ -186,6 +193,173 @@ def test_lists_past_the_shared_budget_take_the_global_mode(monkeypatch):
                                 torch.ones(128), gs=1)
     with pytest.raises(ValueError, match="CUDA"):  # only the device stops it
         block_trace.launch(fat, prep, occluded=False)
+    glo, ghi = block_trace.group_boxes(fat, 1)
+    slo, shi = block_trace.super_boxes(glo, ghi, 32)
+    assert slo.shape == (2, 3) and torch.equal(slo[1], torch.zeros(3))  # 8 real, 24 padded
+
+
+def _assert_lists_equal(got, want):
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _culled_somewhere(fat, o, d, tm, gs, block, super_size, live_only=True):
+    """Blocks with a live ray, and how many of them miss some super-group."""
+    ob, db, tb = block_trace._blocks(o, d, tm, block, live_only)
+    glo, ghi = block_trace.group_boxes(fat, gs)
+    slo, shi = block_trace.super_boxes(glo, ghi, super_size)
+    reach = torch.isfinite(block_trace._entries(slo, shi, ob, db, tb))
+    live = (tb > 0).any(dim=1) if live_only else torch.ones(tb.shape[0], dtype=torch.bool)
+    return int(live.sum()), int((live & ~reach.all(dim=1)).sum())
+
+
+@pytest.mark.parametrize("super_size", [2, 3])
+@pytest.mark.parametrize("gs", [1, 4])
+@pytest.mark.parametrize("occluded", [False, True])
+def test_culled_lists_equal_candidate_lists(case, occluded, gs, super_size):
+    """The plain two-level list phase (super-groups, then the members of the
+    reached ones, then a stable sort) gives each CTA's list bit for bit as
+    the one-level ``candidate_lists`` at block 128 over live rays, with
+    super-groups small enough that some CTAs cull some (13 leaves: 4 groups
+    at gs = 4, the last with 3 padded leaves; 13 at gs = 1, the last
+    super-group padded)."""
+    fat = case["ps"].fat_bvh
+    tm = case["t_max"] * (block_trace.SHADOW_EPS if occluded else 1.0)
+    o, d, tm = _t(case["o"]), _t(case["d"]), _t(tm.astype(np.float32))
+    got, overflow = block_trace.culled_lists(fat, o, d, tm, gs, block_trace.CTA,
+                                             super_size=super_size)
+    _assert_lists_equal(got, block_trace.candidate_lists(fat, o, d, tm, gs, block_trace.CTA,
+                                                         live_only=True))
+    live, culled = _culled_somewhere(fat, o, d, tm, gs, block_trace.CTA, super_size)
+    assert 0 < culled < live, (culled, live)
+    assert not overflow.any()  # CULL_LIST_KEYS is far past 13 groups
+
+
+def _grid_fat(n=24, leaf_size=4, seed=3):
+    """A rippled n x n height field (2 n^2 triangles) in SAH leaves of
+    ``leaf_size``: many small leaves in tree order."""
+    from stratum_tpu_torch.ops.packet import build_fat_bvh_sah
+
+    u = np.linspace(-1.0, 1.0, n + 1, dtype=np.float32)
+    zz, xx = np.meshgrid(u, u, indexing="ij")
+    h = 0.1 * np.sin(4 * xx) * np.cos(3 * zz) + 0.02 * np.random.default_rng(seed).random(xx.shape)
+    pos = np.stack([xx, h.astype(np.float32), zz], -1).reshape(-1, 3)
+    a = (np.arange(n)[:, None] * (n + 1) + np.arange(n)[None, :]).reshape(-1)
+    idx = np.stack([np.stack([a, a + n + 2, a + 1], -1), np.stack([a, a + n + 1, a + n + 2], -1)],
+                   axis=1).reshape(-1, 3).astype(np.int32)
+    fat = build_fat_bvh_sah(pos, idx, leaf_size=leaf_size)
+    return FatBVH(*(torch.from_numpy(np.asarray(x)) for x in fat))
+
+
+def _grid_rays(n_rays=1024, seed=5):
+    """Rays from above the field looking down (coherent in 128-ray runs),
+    every 9th dead, some with short bounds."""
+    rng = np.random.default_rng(seed)
+    o = np.concatenate([rng.uniform(-0.3, 0.3, (n_rays, 1)), np.full((n_rays, 1), 1.5),
+                        rng.uniform(-1.2, 1.2, (n_rays, 1))], 1)
+    o = o[np.argsort(o[:, 2])]
+    tgt = np.concatenate([rng.uniform(-1, 1, (n_rays, 1)), np.zeros((n_rays, 1)),
+                          o[:, 2:] + rng.uniform(-0.1, 0.1, (n_rays, 1))], 1)
+    d = tgt - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tm = np.full(n_rays, T_MAX, np.float32)
+    tm[::9] = 0.0
+    tm[4::9] = rng.uniform(0.2, 1.4, tm[4::9].shape)
+    return (torch.from_numpy(o.astype(np.float32)), torch.from_numpy(d.astype(np.float32)),
+            torch.from_numpy(tm))
+
+
+@pytest.mark.parametrize("gs,cap", [(1, 32), (4, 16)])
+def test_culled_lists_past_a_patched_budget(monkeypatch, gs, cap):
+    """A scene past the shared budget (made small here) takes the culled
+    mode; its plain two-level lists equal ``candidate_lists`` bit for bit,
+    with the keys budget made small too, so some CTAs overflow (reach more
+    groups than CULL_LIST_KEYS) and others do not."""
+    fat = _grid_fat()
+    o, d, tm = _grid_rays()
+    G = -(-fat.num_leaves // gs)
+    monkeypatch.setattr(block_trace, "AUTO_SHARED_KEYS", 64)
+    monkeypatch.setattr(block_trace, "CULL_LIST_KEYS", cap)
+    assert G > 64 and block_trace.resolve_list_mode(G) == "culled"
+    got, overflow = block_trace.culled_lists(fat, o, d, tm, gs, block_trace.CTA, super_size=8)
+    want = block_trace.candidate_lists(fat, o, d, tm, gs, block_trace.CTA, live_only=True)
+    _assert_lists_equal(got, want)
+    assert torch.equal(overflow, want.ncand > cap)
+    n_cta = o.shape[0] // block_trace.CTA
+    assert 0 < int(overflow.sum()) < n_cta, want.ncand[:n_cta]
+    live, culled = _culled_somewhere(fat, o, d, tm, gs, block_trace.CTA, 8)
+    assert culled == live  # every CTA skips some super-group
+
+
+def _degenerate_rays(case, kind, n=512, seed=13):
+    """Half the case's own rays, half degenerate ones, interleaved: starting
+    at a leaf box's centre ("inside"), or on one face of it with the
+    direction component across that face exactly 0 ("zero", safe inverse
+    1e20: the ray runs in the face's plane), tiny and negative ("tiny
+    negative", safe inverse exactly 0: the ray reaches no box) or tiny and
+    positive ("tiny positive", 2e20). Where the face is its super-group's
+    too, a super-group box one ulp too small would miss the ray."""
+    rng = np.random.default_rng(seed)
+    fat = case["ps"].fat_bvh
+    o, d = case["o"][2048:2048 + n].copy(), case["d"][2048:2048 + n].copy()
+    bad = np.arange(1, n, 2)
+    axis = rng.integers(0, 3, bad.size)
+    lo, hi = fat.leaf_lo.numpy(), fat.leaf_hi.numpy()
+    leaf = rng.integers(0, fat.num_leaves, bad.size)
+    o[bad] = 0.5 * (lo[leaf] + hi[leaf])
+    if kind != "inside":
+        o[bad, axis] = lo[leaf, axis]
+        d[bad, axis] = {"zero": 0.0, "tiny negative": -1e-25, "tiny positive": 1e-25}[kind]
+    tm = case["t_max"][2048:2048 + n].copy()
+    return o, d, tm
+
+
+@pytest.mark.parametrize("kind", ["inside", "zero", "tiny negative", "tiny positive"])
+def test_culled_lists_on_degenerate_rays(case, kind):
+    """The culling stays conservative where the slab formula is weakest:
+    rays starting inside boxes, a zero direction component, and tiny ones
+    whose safe inverse is exactly 0 or 2e20. The two-level lists equal
+    ``candidate_lists`` (live lanes, block 128) and, over every lane, the
+    reference's ``pallas_trace._prepare`` lists, bit for bit, at gs 4 and 1
+    with super-groups of 2."""
+    js, fat = case["js"], case["ps"].fat_bvh
+    o, d, tm = _degenerate_rays(case, kind)
+    if kind != "inside":
+        assert (d == {"zero": 0.0, "tiny negative": np.float32(-1e-25),
+                      "tiny positive": np.float32(1e-25)}[kind]).any()
+    for gs in (4, 1):
+        got, _ = block_trace.culled_lists(fat, _t(o), _t(d), _t(tm), gs, block_trace.CTA,
+                                          super_size=2)
+        _assert_lists_equal(got, block_trace.candidate_lists(
+            fat, _t(o), _t(d), _t(tm), gs, block_trace.CTA, live_only=True))
+        got, _ = block_trace.culled_lists(fat, _t(o), _t(d), _t(tm), gs, block_trace.CTA,
+                                          live_only=False, super_size=2)
+        _, _, order, entry, ncand, _ = pallas_trace._prepare(
+            js.fat_bvh, jnp.asarray(o), jnp.asarray(d), 1e-4, jnp.asarray(tm),
+            block_trace.CTA, gs, expand=gs == 1)
+        np.testing.assert_array_equal(got.ncand.numpy(), np.asarray(ncand)[:, 0])
+        np.testing.assert_array_equal(got.centry.numpy(), np.asarray(entry))
+        np.testing.assert_array_equal(got.cand.numpy(), np.asarray(order))
+        assert int(got.ncand.sum()) > 0
+
+
+@pytest.mark.parametrize("gs", [1, 4])
+@pytest.mark.parametrize("occluded", [False, True])
+def test_culled_lists_match_reference(case, occluded, gs):
+    """The plain two-level lists at the reference's 2048-ray blocks over
+    every lane (``live_only=False``) against ``pallas_trace._prepare``'s,
+    bit for bit, as ``test_prepare_matches_reference`` runs it."""
+    js, ps = case["js"], case["ps"]
+    tm = (case["t_max"] * (block_trace.SHADOW_EPS if occluded else 1.0)).astype(np.float32)
+    _, _, order, entry, ncand, _ = pallas_trace._prepare(
+        js.fat_bvh, jnp.asarray(case["o"]), jnp.asarray(case["d"]), 1e-4,
+        jnp.asarray(tm), 2048, gs, expand=gs == 1,
+    )
+    got, _ = block_trace.culled_lists(ps.fat_bvh, _t(case["o"]), _t(case["d"]), _t(tm), gs,
+                                      2048, live_only=False, super_size=2)
+    np.testing.assert_array_equal(got.ncand.numpy(), np.asarray(ncand)[:, 0])
+    np.testing.assert_array_equal(got.centry.numpy(), np.asarray(entry))
+    np.testing.assert_array_equal(got.cand.numpy(), np.asarray(order))
 
 
 def test_plain_mt_does_not_depend_on_the_batch(case):

@@ -47,7 +47,7 @@ import pytest
 import torch
 
 from stratum_tpu_torch.ops import binned, block_trace, intersect, mxu
-from stratum_tpu_torch.ops.packet import FatBVH
+from stratum_tpu_torch.ops.packet import FatBVH, build_fat_bvh_sah
 from stratum_tpu_torch.render import aov, bdpt, camera, denoise, integrator, lighttrace, texture
 from stratum_tpu_torch.scene import builtin, flatten, sample_assets, schema
 from stratum_tpu_torch.tools import (
@@ -130,22 +130,121 @@ def test_kernel_lists_equal_the_plain_list_phase(atrium, occluded):
             assert torch.equal(a, b[:n]), gs
 
 
+def _live_ctas(bound, n_cta):
+    """The CTAs with a live ray (bound > 0)."""
+    live = torch.nn.functional.pad(bound > 0, (0, n_cta * block_trace.CTA - bound.numel()))
+    return live.view(n_cta, block_trace.CTA).any(dim=1)
+
+
+def _expected_overflow(lists, bound, mode):
+    """The CTAs that must take the overflow path: those with a live ray
+    whose list is longer than CULL_LIST_KEYS, or all of them when forced."""
+    live = _live_ctas(bound, lists.ncand.numel())
+    return live & (lists.ncand > block_trace.CULL_LIST_KEYS if mode == "culled" else True)
+
+
 def test_global_list_mode_equals_shared(atrium, monkeypatch):
-    """The global list mode (forced here; the default past MAX_LIST_KEYS),
-    with the scratch cut to 3 CTAs' lists so the wave runs in chunks, gives
-    the shared mode's results and lists bit for bit."""
+    """The culled list phase (forced here; the default past AUTO_SHARED_KEYS),
+    with super-groups of 2 so that CTAs cull, without overflow, with some
+    CTAs overflowing (CULL_LIST_KEYS cut to 2) and with every CTA forced
+    down the overflow path (``list_mode="global"``), the scratch cut to 3
+    CTAs' rows so the wave runs in chunks: results and lists equal the
+    shared mode's and the plain list phase's bit for bit at gs 4 and 1, and
+    the CTAs that overflow are the ones whose lists predict it."""
     fat, o, d, tm = atrium["fat"], atrium["o"], atrium["d"], atrium["t_max"]
+    monkeypatch.setattr(block_trace, "SUPER_SIZE", 2)
     for gs in (4, 1):
         keys = block_trace.list_keys(-(-fat.num_leaves // gs))
         monkeypatch.setattr(block_trace, "LIST_SCRATCH_BYTES", 3 * 8 * keys)
         for occluded in (False, True):
-            prep = block_trace._prepare(fat, o, d, tm, gs)
-            want = block_trace.launch(fat, prep, occluded, stats="lists")
-            got = block_trace.launch(fat, prep, occluded, stats="lists", list_mode="global")
-            for a, b in zip(got[:-1], want[:-1]):
-                assert torch.equal(a, b), (gs, occluded)
-            for a, b in zip(got[-1], want[-1]):
-                assert torch.equal(a, b), (gs, occluded)
+            bound = tm * block_trace.SHADOW_EPS if occluded else tm
+            prep = block_trace._prepare(fat, o, d, bound, gs)
+            want = block_trace.launch(fat, prep, occluded, stats="lists", list_mode="shared")
+            plain = block_trace.candidate_lists(fat, o, d, bound, gs, block_trace.CTA,
+                                                live_only=True)
+            overflows = []
+            for mode, cap in (("culled", 1024), ("culled", 2), ("global", 1024)):
+                monkeypatch.setattr(block_trace, "CULL_LIST_KEYS", cap)
+                got = block_trace.launch(fat, prep, occluded, stats="lists", list_mode=mode)
+                for a, b in zip(got[:-1], want[:-1]):
+                    assert torch.equal(a, b), (gs, occluded, mode, cap)
+                for a, b, c in zip(got[-1], want[-1], plain):
+                    assert torch.equal(a, b) and torch.equal(a, c[:a.shape[0]]), (
+                        gs, occluded, mode, cap)
+                *_, ph = block_trace.launch(fat, prep, occluded, stats="phases", list_mode=mode)
+                assert torch.equal(ph.ncand, want[-1].ncand)
+                assert torch.equal(ph.overflow, _expected_overflow(want[-1], bound, mode))
+                live = _live_ctas(bound, ph.ncand.numel())
+                assert not bool(live.all())  # lanes 256-511 are dead: CTAs 2 and 3
+                assert torch.equal(ph.list_cycles > 0, live) and torch.equal(ph.walk_cycles > 0, live)
+                overflows.append(int(ph.overflow.sum()))
+            assert overflows[0] == 0 and 0 < overflows[1] <= overflows[2], overflows
+
+
+def _grid_fat(dev, n=90, leaf_size=4, seed=3):
+    """A rippled n x n height field (2 n^2 triangles) in SAH leaves of
+    ``leaf_size``: 4,000+ small leaves in tree order."""
+    u = np.linspace(-1.0, 1.0, n + 1, dtype=np.float32)
+    zz, xx = np.meshgrid(u, u, indexing="ij")
+    h = 0.1 * np.sin(4 * xx) * np.cos(3 * zz) + 0.02 * np.random.default_rng(seed).random(xx.shape)
+    pos = np.stack([xx, h.astype(np.float32), zz], -1).reshape(-1, 3)
+    a = (np.arange(n)[:, None] * (n + 1) + np.arange(n)[None, :]).reshape(-1)
+    idx = np.stack([np.stack([a, a + n + 2, a + 1], -1), np.stack([a, a + n + 1, a + n + 2], -1)],
+                   axis=1).reshape(-1, 3).astype(np.int32)
+    fat = build_fat_bvh_sah(pos, idx, leaf_size=leaf_size)
+    return FatBVH(*(torch.from_numpy(np.asarray(x)).to(dev) for x in fat))
+
+
+@pytest.mark.parametrize("gs", [1, 4])
+def test_culled_lists_past_the_budget(dev, monkeypatch, gs):
+    """A grid of 16,200 triangles in 4,000+ leaves of 4: past 4,096 groups
+    at gs = 1, where no shared mode could hold the keys, and 1,160 at
+    gs = 4, both past AUTO_SHARED_KEYS, so ``auto`` culls. 8,192 rays
+    from above, coherent in CTAs, some dead or short: hits against the plain
+    walk, each CTA's list and count bit for bit against the plain list
+    phase and the plain two-level phase, no CTA overflowing at the default
+    budget; with CULL_LIST_KEYS cut below the longest lists, exactly the
+    CTAs the plain phase predicts overflow, with the same results."""
+    fat = _grid_fat(dev)
+    G = -(-fat.num_leaves // gs)
+    assert fat.num_leaves > 4096
+    rng = np.random.default_rng(9)
+    n = 8192
+    o = np.concatenate([rng.uniform(-0.3, 0.3, (n, 1)), np.full((n, 1), 1.5),
+                        rng.uniform(-1.2, 1.2, (n, 1))], 1)
+    o = o[np.argsort(o[:, 2])]
+    tgt = np.concatenate([rng.uniform(-1, 1, (n, 1)), np.zeros((n, 1)),
+                          o[:, 2:] + rng.uniform(-0.1, 0.1, (n, 1))], 1)
+    d = (tgt - o) / np.linalg.norm(tgt - o, axis=1, keepdims=True)
+    tm = np.full(n, intersect.T_MAX, np.float32)
+    tm[::9] = 0.0
+    tm[4::9] = rng.uniform(0.2, 1.4, tm[4::9].shape)
+    o, d, tm = (torch.from_numpy(x.astype(np.float32)).to(dev) for x in (o, d, tm))
+    mode = "auto"
+    assert block_trace.resolve_list_mode(G) == "culled"
+    plain = block_trace.candidate_lists(fat, o, d, tm, gs, block_trace.CTA, live_only=True)
+    two, _ = block_trace.culled_lists(fat, o, d, tm, gs, block_trace.CTA)
+    for a, b in zip(two, plain):
+        assert torch.equal(a, b)
+    hp = block_trace.block_closest_plain(fat, o, d, tm)
+    op = block_trace.block_occluded_plain(fat, o, d, tm)
+    n_cta = n // block_trace.CTA
+    longest = int(plain.ncand.max())
+    overflowed = []
+    for cap in (block_trace.CULL_LIST_KEYS, 1 << ((longest - 1).bit_length() - 1)):
+        monkeypatch.setattr(block_trace, "CULL_LIST_KEYS", cap)
+        hk = block_trace.block_closest(fat, o, d, tm, gs=gs, list_mode=mode)
+        _close_slots(hk.t, hk.slot, hp.t, hp.slot)
+        ok = block_trace.block_occluded(fat, o, d, tm, gs=gs, list_mode=mode)
+        assert (ok == op).float().mean().item() >= AGREE
+        prep = block_trace._prepare(fat, o, d, tm, gs)
+        *_, lists = block_trace.launch(fat, prep, False, stats="lists", list_mode=mode)
+        for a, b in zip(lists, plain):
+            assert torch.equal(a, b[:n_cta])
+        *_, ph = block_trace.launch(fat, prep, False, stats="phases", list_mode=mode)
+        assert torch.equal(ph.overflow, _expected_overflow(lists, tm, "culled"))
+        overflowed.append(int(ph.overflow.sum()))
+    assert overflowed[0] == 0 and 0 < overflowed[1] < n_cta, (overflowed, longest)
 
 
 def _padded(atrium, g):
