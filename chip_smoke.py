@@ -48,7 +48,9 @@ Phases, each printing its results:
    within phase 4's bound of phase 5's) and one with ``gs=1``, whose
    launches are K3's and whose image must equal phase 5's sample at the
    same seed bit for bit (K1 and K3 both compute exact f32 and keep the
-   lower slot on equal t);
+   lower slot on equal t); each sample's kernel count (every chunk of the
+   culled mode one) equal to the ``block_trace_kernel`` launches a
+   ``torch.profiler`` trace of it records;
 8. the microbenchmark tools (``stratum_tpu_torch/tools``, kernels T1-T4 in
    ``csrc/microbench.cu``): their four ``main`` entry points at the
    reference defaults and at k=256, with the T launch counters zeroed just
@@ -194,7 +196,9 @@ Phases, each printing its results:
    overflowing CTAs (printed, and held to the plain lists' prediction)
    beside the forced overflow path's (every CTA: the design before the
    culling, timed), 1 + 4 timed
-   samples (25 K1 + 5 K2 launches), the busy share of a profiled sample; the CLI in
+   samples (5 times the kernels of one more sample, counted and equal to
+   its trace's: K1 a multiple of its 5 waves, K2 one or more chunks of
+   its deferred wave), the busy share of a profiled sample; the CLI in
    a subprocess on the XML and ``tools.compare`` of its PNG against the
    same render in this process, ``tools.inspect --flatten``; phase 13's
    colonnade written as one GLB with its PNGs embedded (``_write_glb``)
@@ -494,6 +498,33 @@ def _bounce_rays(scene, tile, lo, hi, o, d, h, rng):
     wi, dist, cos_l, _ = integrator.light_segment(ls, sp.position, o2, lo, hi)
     tm3 = torch.where(hf.hit & (cos_l > 0), dist, 0.0)
     return (o2, d2, tm2), (o2, wi, tm3)
+
+
+_KERNEL_NAME = re.compile(r"block_trace_kernel(?:<\s*(true|false)\b|ILb([01])E)")
+
+
+def _traced_launches(fn) -> tuple:
+    """``block_trace.LAUNCHES`` over one call of ``fn`` (zeroed before it)
+    beside the ``block_trace_kernel`` launches a ``torch.profiler`` trace of
+    that call records, each as {"closest": n, "occluded": n}: the program's
+    count against the device's."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from stratum_tpu_torch.ops import block_trace
+
+    torch.cuda.synchronize()
+    _zero_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    traced = {"closest": 0, "occluded": 0}
+    for e in prof.events():
+        m = _KERNEL_NAME.search(e.name) if e.device_type == DeviceType.CUDA else None
+        if m:
+            traced["occluded" if m.group(1) == "true" or m.group(2) == "1" else "closest"] += 1
+    return dict(block_trace.LAUNCHES), traced
 
 
 def _zero_launches():
@@ -2834,8 +2865,8 @@ SCAN_XML = """<scene version="0.6.0">
   </shape>
 </scene>
 """
-SCAN_LAUNCHES = {"block closest": 25, "block occluded": 5, "binned emit": 0,
-                 "binned closest": 0, "binned occluded": 0}  # 1 + 4 samples
+SCAN_SAMPLES = 5  # 1 + 4 samples
+SCAN_WAVES = {"closest": 5, "occluded": 1}  # waves a sample
 GLB_FIELDS = ("base_color", "metallic", "roughness", "emission", "eta", "transmission",
               "clearcoat", "clearcoat_gloss", "base_color_image")  # what glTF carries
 SMOKE_MEDIUM = dict(albedo=(0.85, 0.85, 0.9), g=0.3)  # smoky_cornell()'s medium
@@ -2927,7 +2958,17 @@ def _scan(dev, smi):
     closest, occluded = _colonnade_waves(scene, view, cfg, np.random.default_rng(17), "17 scan",
                                          split=True)
     launches, img, main = _timed_samples(scene, view, cfg, "17 scan", "scan", smi)
-    assert launches == SCAN_LAUNCHES, launches
+    # the culled mode enqueues a wave's CTAs in chunks, each chunk a kernel:
+    # the count of one more sample against its trace's kernels, and every
+    # sample enqueues as many
+    one, traced = _traced_launches(lambda: integrator.render_path_with_counts(
+        scene, view, cfg, SCAN_SAMPLES))
+    print(f"[17 scan] kernels a sample: counted {one}, traced {traced}", flush=True)
+    assert one == traced and one["closest"] % SCAN_WAVES["closest"] == 0, (one, traced)
+    assert one["closest"] >= SCAN_WAVES["closest"] and one["occluded"] >= 1, one
+    want = {f"block {k}": SCAN_SAMPLES * v for k, v in one.items()}
+    want.update({"binned emit": 0, "binned closest": 0, "binned occluded": 0})
+    assert launches == want, (launches, want)
     busy, ops = profile_sample.device_profile(scene, view, cfg, 1)
     share = ("not measured: the profiler recorded no device events" if busy is None
              else f"{busy:.3f} ms of a {main['ms_spp']:.1f} ms sample, "
@@ -3554,9 +3595,11 @@ def main() -> int:
     # ---- 7: other configurations -------------------------------------------
     seed = 4  # phase 5's last sample
     for label, extra in (("binned_bounces=1", dict(binned_bounces=1)), ("gs=1", dict(gs=1))):
-        _zero_launches()
-        img, _ = integrator.render_path_with_counts(
-            scene, view, integrator.RenderConfig(width=W, height=H, **BENCH, **extra), seed)
+        cfg7 = integrator.RenderConfig(width=W, height=H, **BENCH, **extra)
+        out = []
+        k3_launches, traced = _traced_launches(lambda: out.append(
+            integrator.render_path_with_counts(scene, view, cfg7, seed)[0]))
+        img = out[0]
         mean = float(img.mean())
         rel = abs(mean - main5["mean"]) / main5["mean"]
         same = bool(torch.equal(img, img5))
@@ -3565,9 +3608,11 @@ def main() -> int:
               f"launches {dict(block_trace.LAUNCHES)} / binned {dict(binned.LAUNCHES)}",
               flush=True)
         assert bool(torch.isfinite(img).all()) and rel <= PARITY_MEAN_REL
+        assert k3_launches == traced, (label, k3_launches, traced)
         if label == "gs=1":
-            k3_launches = dict(block_trace.LAUNCHES)
-            assert k3_launches == {"closest": 5, "occluded": 1}, k3_launches
+            # 759 single leaves: the culled mode, each wave at least one kernel
+            # and the deferred wave (5 bounces of lanes) in chunks
+            assert k3_launches["closest"] % 5 == 0 and k3_launches["occluded"] > 1, k3_launches
             assert same
 
     # ---- 8: the microbenchmark tools (T1-T4) ---------------------------------

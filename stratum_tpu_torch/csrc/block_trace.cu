@@ -532,7 +532,8 @@ size_t list_smem(bool culled, int num_groups, int cap_keys) {
 
 // A null list_scratch launches the shared list mode in one grid; otherwise
 // the culled mode, in chunks of scratch_ctas CTAs whose overflow rows take
-// turns in list_scratch ([scratch_ctas, list_keys(G)] keys).
+// turns in list_scratch ([scratch_ctas, list_keys(G)] keys). *launched
+// counts the kernels enqueued, one a chunk.
 template <bool OCCLUDED>
 cudaError_t launch(const float* rays, const float* t_max, const float* origin,
                    const float* inv_dir, const float* group_lo,
@@ -545,7 +546,8 @@ cudaError_t launch(const float* rays, const float* t_max, const float* origin,
                    int* slot_out, uint8_t* blocked_out, int* ncand_out,
                    float* entry_out, int* cand_out, long long* cta_out,
                    unsigned long long* list_scratch, int scratch_ctas,
-                   cudaStream_t stream) {
+                   int* launched, cudaStream_t stream) {
+  *launched = 0;
   const int num_keys = list_keys(num_groups);
   const bool culled = list_scratch != nullptr;
   if ((!culled && num_keys > kMaxKeys) || gs < 1 ||
@@ -567,7 +569,9 @@ cudaError_t launch(const float* rays, const float* t_max, const float* origin,
         leaf_hi, leaf_count, feat4, num_groups, num_keys, 0, 1, 0, 0, num_leaves,
         leaf_size, gs, t_out, slot_out, blocked_out, ncand_out, entry_out, cand_out,
         cta_out, nullptr);
-    return cudaGetLastError();
+    const cudaError_t le = cudaGetLastError();
+    if (le == cudaSuccess) *launched = 1;
+    return le;
   }
   cudaError_t e = cudaFuncSetAttribute(block_trace_kernel<OCCLUDED, true>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -587,6 +591,7 @@ cudaError_t launch(const float* rays, const float* t_max, const float* origin,
         cta_out ? cta_out + (size_t)c0 * 3 : nullptr, list_scratch);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
+    ++*launched;
   }
   return cudaSuccess;
 }
@@ -616,7 +621,8 @@ cudaError_t info(int num_groups, int cap_keys, int* out) {
 
 // list_scratch null: the shared list mode; else the culled mode (super_lo /
 // super_hi: num_super boxes of super_size groups; cap_keys a power of two;
-// force_overflow != 0 sends every CTA to its scratch row).
+// force_overflow != 0 sends every CTA to its scratch row); *launched: the
+// kernels enqueued.
 extern "C" cudaError_t block_trace_closest(
     const float* rays, const float* t_max, const float* origin,
     const float* inv_dir, const float* group_lo, const float* group_hi,
@@ -625,13 +631,13 @@ extern "C" cudaError_t block_trace_closest(
     int num_groups, int num_super, int super_size, int cap_keys, int force_overflow,
     int num_leaves, int leaf_size, int gs, float* t_out, int* slot_out, int* ncand_out,
     float* entry_out, int* cand_out, long long* cta_out,
-    unsigned long long* list_scratch, int scratch_ctas, void* stream) {
+    unsigned long long* list_scratch, int scratch_ctas, int* launched, void* stream) {
   return launch<false>(rays, t_max, origin, inv_dir, group_lo, group_hi, super_lo,
                        super_hi, leaf_lo, leaf_hi, leaf_count, feat, num_ctas,
                        num_groups, num_super, super_size, cap_keys, force_overflow,
                        num_leaves, leaf_size, gs, t_out, slot_out, nullptr, ncand_out,
                        entry_out, cand_out, cta_out, list_scratch, scratch_ctas,
-                       static_cast<cudaStream_t>(stream));
+                       launched, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" cudaError_t block_trace_occluded(
@@ -642,12 +648,12 @@ extern "C" cudaError_t block_trace_occluded(
     int num_groups, int num_super, int super_size, int cap_keys, int force_overflow,
     int num_leaves, int leaf_size, int gs, uint8_t* blocked_out, int* ncand_out,
     float* entry_out, int* cand_out, long long* cta_out,
-    unsigned long long* list_scratch, int scratch_ctas, void* stream) {
+    unsigned long long* list_scratch, int scratch_ctas, int* launched, void* stream) {
   return launch<true>(rays, t_max, origin, inv_dir, group_lo, group_hi, super_lo,
                       super_hi, leaf_lo, leaf_hi, leaf_count, feat, num_ctas, num_groups,
                       num_super, super_size, cap_keys, force_overflow, num_leaves,
                       leaf_size, gs, nullptr, nullptr, blocked_out, ncand_out, entry_out,
-                      cand_out, cta_out, list_scratch, scratch_ctas,
+                      cand_out, cta_out, list_scratch, scratch_ctas, launched,
                       static_cast<cudaStream_t>(stream));
 }
 

@@ -52,9 +52,10 @@ cycles of its list phase and its walk.
 ``block_closest`` / ``block_occluded`` launch the kernel when the rays lie
 on a CUDA device and use ``block_closest_plain`` / ``block_occluded_plain``
 only when they lie on the CPU. There is no fallback from one to the other:
-a CUDA tensor launches the kernel or raises. ``LAUNCHES`` counts kernel
-launches (and nothing else), so a run can show that its path went through
-the kernels.
+a CUDA tensor launches the kernel or raises. ``LAUNCHES`` counts the
+kernels enqueued (and nothing else), every chunk of the culled and global
+modes one, as the launcher reports them, so a run can show that its path
+went through the kernels.
 
 Results are slot-mode: ``slot = leaf * K + row`` (int32, -1 on a miss), and
 :func:`finalize_hit` resolves a slot to triangle, barycentrics and the fused
@@ -74,6 +75,7 @@ import torch
 from stratum_tpu_torch.ops import mxu as smxu
 from stratum_tpu_torch.ops.intersect import HitRecord, T_MAX
 from stratum_tpu_torch.ops.packet import FatBVH, _block_entries, leaf_counts, safe_inv
+from stratum_tpu_torch.utils import profiler as sprof
 
 BLOCK = 2048  # rays per candidate list of the reference (one 2048-lane block)
 CTA = 128  # rays per CTA of the kernel, each CTA with its own list
@@ -168,9 +170,10 @@ def _prepare(fat: FatBVH, origin, direction, t_max, gs: int = GS) -> Prepared:
     CTAs, their Plucker features and inverse directions, the group boxes
     and the leaves' real-triangle counts. The candidate lists are built
     inside the kernel."""
+    span = sprof.begin("prep")
     o, d, tm = _pad_rays(origin, direction, t_max, CTA)
     glo, ghi = group_boxes(fat, gs)
-    return Prepared(
+    prep = Prepared(
         rays=smxu.ray_features(o, d).contiguous(),
         t_max=tm.contiguous(),
         origin=o.contiguous(),
@@ -181,6 +184,8 @@ def _prepare(fat: FatBVH, origin, direction, t_max, gs: int = GS) -> Prepared:
         gs=gs,
         n=origin.shape[0],
     )
+    sprof.end(span)
+    return prep
 
 
 def _blocks(origin, direction, t_max, block: int, live_only: bool):
@@ -300,7 +305,7 @@ def _lib():
         ptrs = [ctypes.c_void_p] * 12
         ints = [ctypes.c_int] * 9
         stats = [ctypes.c_void_p] * 4
-        scratch = [ctypes.c_void_p, ctypes.c_int]
+        scratch = [ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         lib.block_trace_closest.argtypes = ptrs + ints + [ctypes.c_void_p] * 2 + stats + (
             scratch + [ctypes.c_void_p])
         lib.block_trace_occluded.argtypes = ptrs + ints + [ctypes.c_void_p] + stats + (
@@ -333,6 +338,7 @@ def launch(fat: FatBVH, prep: Prepared, occluded: bool, stats: Optional[str] = N
     ``stats="lists"`` each CTA's whole sorted list as well (``Lists`` at
     block 128: what ``candidate_lists(..., block=CTA, live_only=True)``
     gives for its blocks), ``stats="phases"`` a :class:`Phases`."""
+    span = sprof.begin("launch")
     L, K = fat.leaf_tri.shape
     G = prep.group_lo.shape[0]
     if G != -(-L // prep.gs):
@@ -387,7 +393,8 @@ def launch(fat: FatBVH, prep: Prepared, occluded: bool, stats: Optional[str] = N
     centry = torch.empty((n_cta, G), dtype=f32, device=dev) if whole else None
     cta = torch.empty((n_cta, 3), dtype=torch.int64, device=dev) if stats == "phases" else None
     stat_ptrs = [ptr(ncand), ptr(centry), ptr(cand), ptr(cta)]
-    scratch_args = (ptr(scratch), chunk)
+    launched = ctypes.c_int(0)  # kernels enqueued, set by the launcher
+    scratch_args = (ptr(scratch), chunk, ctypes.byref(launched))
     if occluded:
         blocked = torch.empty(np_, dtype=torch.uint8, device=dev)
         rc = lib.block_trace_occluded(*args, blocked.data_ptr(), *stat_ptrs, *scratch_args,
@@ -401,7 +408,9 @@ def launch(fat: FatBVH, prep: Prepared, occluded: bool, stats: Optional[str] = N
         outs = (t, slot)
     if rc != 0:
         raise RuntimeError(f"block_trace kernel launch failed: cudaError {rc}")
-    LAUNCHES["occluded" if occluded else "closest"] += 1
+    sprof.count(span, "kernels", launched.value)
+    sprof.end(span)  # its end event follows the last kernel enqueued
+    LAUNCHES["occluded" if occluded else "closest"] += launched.value
     if stats is None:
         return outs
     if stats == "phases":
@@ -581,6 +590,7 @@ def finalize_hit(slot_payload, origin, direction, h: HitRecord) -> HitRecord:
     (pallas_trace.py:1877-1902)."""
     if h.slot is None:
         return h
+    span = sprof.begin("finalize")
     hit = h.slot >= 0
     payload = slot_payload[torch.clamp(h.slot, min=0).long()]
     tri = torch.where(hit, payload[:, 62].to(torch.int32), -1)
@@ -595,4 +605,5 @@ def finalize_hit(slot_payload, origin, direction, h: HitRecord) -> HitRecord:
     inv_a = torch.where(torch.abs(a) > 1e-12, 1.0 / a, 0.0)
     bary = torch.stack([u_num * inv_a, v_num * inv_a], dim=-1)
     bary = torch.where(hit[:, None], bary, 0.0)
+    sprof.end(span)
     return HitRecord(t=h.t, tri=tri, bary=bary, payload=payload, slot=None)

@@ -11,6 +11,7 @@ import torch
 
 from stratum_tpu_torch.ops.bvh import morton3
 from stratum_tpu_torch.ops.intersect import HitRecord, T_MAX
+from stratum_tpu_torch.utils import profiler as sprof
 
 DIR_BITS = 5
 
@@ -50,6 +51,7 @@ def sorted_closest(closest, lo, hi, dir_bits: int = DIR_BITS):
     10M-row sort costs more than it buys there)."""
 
     def closest_sorted(o, d, tm=None):
+        span = sprof.begin("sort")
         if tm is None:
             tm = torch.full(o.shape[:1], T_MAX, dtype=torch.float32, device=o.device)
         key = ray_key(o, d, tm, lo, hi, dir_bits)
@@ -59,11 +61,14 @@ def sorted_closest(closest, lo, hi, dir_bits: int = DIR_BITS):
         packed = torch.cat([o, d, tm[:, None]], dim=-1)[order]
         h = closest(packed[:, 0:3], packed[:, 3:6], packed[:, 6].contiguous())
         if h.slot is None:  # a tracer whose hits carry triangle ids
-            return HitRecord(t=h.t[inv], tri=h.tri[inv], bary=h.bary[inv])
-        slot = h.slot[inv]
-        return HitRecord(
-            t=h.t[inv], tri=torch.where(slot >= 0, 0, -1).to(torch.int32),
-            bary=torch.zeros_like(o[:, :2]), slot=slot,
-        )
+            out = HitRecord(t=h.t[inv], tri=h.tri[inv], bary=h.bary[inv])
+        else:
+            slot = h.slot[inv]
+            out = HitRecord(
+                t=h.t[inv], tri=torch.where(slot >= 0, 0, -1).to(torch.int32),
+                bary=torch.zeros_like(o[:, :2]), slot=slot,
+            )
+        sprof.end(span)
+        return out
 
     return closest_sorted

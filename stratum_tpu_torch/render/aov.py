@@ -25,6 +25,7 @@ from stratum_tpu_torch.render.shading import (
     material_from_row,
     shading_point_from_row,
 )
+from stratum_tpu_torch.utils import profiler as sprof
 
 
 class GBuffer(NamedTuple):
@@ -41,16 +42,19 @@ class GBuffer(NamedTuple):
 def render_gbuffer(scene, view, prev_view, cfg: RenderConfig) -> GBuffer:
     """Trace the pixel centres once (no jitter, so the buffers are stable
     from frame to frame) -> the G-buffer on the scene's device."""
+    span = sprof.enter("gbuffer")
     px, py = scamera.pixel_grid(cfg.width, cfg.height, scene.device)
     flat = gbuffer_flat(scene, view, prev_view, cfg, px, py)
     h, w = cfg.height, cfg.width
-    return GBuffer(
+    gbuf = GBuffer(
         albedo=flat.albedo.reshape(h, w, 3),
         normal=flat.normal.reshape(h, w, 3),
         depth=flat.depth.reshape(h, w),
         instance=flat.instance.reshape(h, w),
         prev_uv=flat.prev_uv.reshape(h, w, 2),
     )
+    sprof.end(span)
+    return gbuf
 
 
 def _first_hits(scene, view, cfg: RenderConfig, px, py):

@@ -26,6 +26,7 @@ import torch
 
 from stratum_tpu_torch.core import math as smath
 from stratum_tpu_torch.render.aov import GBuffer
+from stratum_tpu_torch.utils import profiler as sprof
 
 _COS_2DEG = np.float32(np.cos(np.radians(2.0)))
 
@@ -88,6 +89,7 @@ def temporal_accumulate(state: DenoiseState, radiance, gbuf: GBuffer, cfg: Denoi
     and the history length. ``radiance`` and ``gbuf`` may be a band of
     rows of the image whose history ``state`` holds: ``prev_uv`` maps
     into the whole history."""
+    span = sprof.begin("temporal")
     h, w = state.color.shape[:2]
     color_in = radiance
     if cfg.demodulate_albedo:
@@ -139,6 +141,7 @@ def temporal_accumulate(state: DenoiseState, radiance, gbuf: GBuffer, cfg: Denoi
     hh = has_hist[..., None]
     color = torch.where(hh, prev_c + (color_in - prev_c) * alpha[..., None], color_in)
     moments = torch.where(hh, prev_m + (moments_in - prev_m) * alpha[..., None], moments_in)
+    sprof.end(span)
     variance = estimate_variance(moments, n, lum, cfg)
     new_state = DenoiseState(color=color, moments=moments, history=n, normal=gbuf.normal,
                              depth=gbuf.depth, instance=gbuf.instance)
@@ -174,6 +177,7 @@ def _shift(img, dy: int, dx: int):
 def estimate_variance(moments, history, lum, cfg: DenoiseConfig):
     """Variance from the moments, with a 5x5 spatial moment fallback for
     pixels with fewer than 4 frames of history."""
+    span = sprof.begin("variance")
     var_t = torch.clamp(moments[..., 1] - moments[..., 0] ** 2, min=0.0)
     m1 = torch.zeros_like(lum)
     m2 = torch.zeros_like(lum)
@@ -187,7 +191,9 @@ def estimate_variance(moments, history, lum, cfg: DenoiseConfig):
     var_s = torch.clamp(m2 - m1 * m1, min=0.0)
     young = history < 4.0
     boost = torch.where(young, cfg.variance_boost / torch.clamp(history, min=1.0), 1.0)
-    return torch.where(young, var_s, var_t) * boost
+    variance = torch.where(young, var_s, var_t) * boost
+    sprof.end(span)
+    return variance
 
 
 _ATROUS_W = np.asarray([1.0, 2.0 / 3.0, 1.0 / 6.0], np.float32)  # B3 spline
@@ -241,6 +247,7 @@ def atrous_filter(color, variance, gbuf: GBuffer, cfg: DenoiseConfig):
 
     tap_color = None
     for it in range(cfg.atrous_iterations):
+        span = sprof.begin("atrous", it=it)
         step = 1 << it
         # 3x3-gaussian-prefiltered variance for the luminance sigma
         gvar = torch.zeros_like(variance)
@@ -278,6 +285,7 @@ def atrous_filter(color, variance, gbuf: GBuffer, cfg: DenoiseConfig):
         variance = acc_v / torch.clamp(wsum * wsum, min=1e-6)
         if it + 1 == cfg.history_tap:
             tap_color = color
+        sprof.end(span)
     return color, tap_color
 
 
@@ -286,6 +294,7 @@ def denoise(state: DenoiseState, radiance, gbuf: GBuffer, cfg: DenoiseConfig | N
     ``cfg.debug_mode`` other than "none" the second output is that debug
     view (viridis of the history length, the variance or the reprojection
     weight sum) instead."""
+    span = sprof.enter("denoise")
     cfg = cfg or DenoiseConfig()
     new_state, color, variance, aux = temporal_accumulate(state, radiance, gbuf, cfg,
                                                           with_aux=True)
@@ -305,5 +314,6 @@ def denoise(state: DenoiseState, radiance, gbuf: GBuffer, cfg: DenoiseConfig | N
             dbg = smath.viridis(torch.clamp(aux["weight_sum"], 0.0, 1.0))
         else:
             raise ValueError(f"unknown debug_mode {cfg.debug_mode!r}")
-        return new_state, dbg
+        filtered = dbg
+    sprof.end(span)
     return new_state, filtered

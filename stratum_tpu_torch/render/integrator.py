@@ -64,6 +64,7 @@ from stratum_tpu_torch.render.shading import (
     shading_point_from_row,
     shadow_terminator_factor,
 )
+from stratum_tpu_torch.utils import profiler as sprof
 
 _ENV_DIST = float(np.float32(T_MAX) * np.float32(0.5))
 
@@ -550,6 +551,7 @@ def trace_path(scene, view, cfg: RenderConfig, seed, px=None, py=None, capture=N
     counts (:func:`_budget`): dead lanes drop first, then a uniform subset
     of the alive ones, the survivors carrying the n_alive / cap splitting
     weight, and a dropped lane's radiance goes into the image at once."""
+    call = sprof.enter("trace_path")
     check_supported(cfg)
     dev = scene.device
     bsdf_eval, bsdf_sample = _bsdf_fns(cfg)
@@ -562,6 +564,7 @@ def trace_path(scene, view, cfg: RenderConfig, seed, px=None, py=None, capture=N
     defer = cfg.defer_shadows and resolved_tracer(scene, cfg) in _BLOCK_TRACERS
     has_media = scene.media.density.shape[1] > 1  # the reference's shape check
     spheres = scene.spheres.num_spheres > 0
+    span = sprof.begin("camera")
     if px is None:
         px, py = scamera.pixel_grid(cfg.width, cfg.height, dev)
     if torch.is_tensor(seed):
@@ -589,6 +592,7 @@ def trace_path(scene, view, cfg: RenderConfig, seed, px=None, py=None, capture=N
         st=st, cone_dist=torch.zeros((n,), **f32),
         n_rays=torch.zeros((), dtype=torch.int64, device=dev),  # a scalar: never compacted
     )
+    sprof.end(span)
 
     def mis_weight(prev_pdf_w, nee_pdf_w):
         """Weight of a light reached by BSDF sampling (reference :928-937,
@@ -602,15 +606,20 @@ def trace_path(scene, view, cfg: RenderConfig, seed, px=None, py=None, capture=N
     def bounce(depth: int, closest_fn, px_l, py_l):
         """One bounce on the lanes of ``c`` (updated in place) -> its
         deferred shadow rays (origin, wi, dist, contrib) or None."""
+        span_b = sprof.begin("bounce", depth=depth)
         origin, direction, beta = c["origin"], c["direction"], c["beta"]
         alive, prev_pdf_w, st = c["alive"], c["prev_pdf_w"], c["st"]
         radiance = c["radiance"]
-        n_rays = c["n_rays"] + alive.sum()
+        n_alive = alive.sum()  # the wave's live lanes
+        n_rays = c["n_rays"] + n_alive
         # dead lanes trace a zero-length segment: no candidates
         seg_max = torch.where(alive, T_MAX, 0.0)
+        span = sprof.begin("closest", lanes=origin.shape[0], live=n_alive)
         hit = closest_fn(origin, direction, seg_max)
         if alpha:
             hit = _alpha_retrace(scene, closest_fn, hit, origin, direction, seg_max)
+        sprof.end(span)
+        span = sprof.begin("shade")
         srow, mrow, ntex = _hit_rows(scene, hit)
         sp = shading_point_from_row(srow, hit.tri, hit.bary, direction, textured, spheres)
         mat = material_from_row(mrow)
@@ -820,11 +829,15 @@ def trace_path(scene, view, cfg: RenderConfig, seed, px=None, py=None, capture=N
             beta = torch.where(survive[..., None], beta / p_cont[..., None], beta)
             alive = alive & survive
         c.update(beta=beta, alive=alive, st=st, radiance=radiance, n_rays=n_rays)
+        sprof.end(span)
+        sprof.end(span_b)
         return shadow
 
     if cfg.wave_caps:
-        return _compacting_bounces(cfg, n, c, bounce, trace_closest, trace_closest_u,
-                                   trace_occluded, px, py, seed)
+        out = _compacting_bounces(cfg, n, c, bounce, trace_closest, trace_closest_u,
+                                  trace_occluded, px, py, seed)
+        sprof.end(call)
+        return out
 
     shadow_parts = []
     for depth in range(cfg.max_bounces + 1):
@@ -840,10 +853,13 @@ def trace_path(scene, view, cfg: RenderConfig, seed, px=None, py=None, capture=N
     radiance = c["radiance"]
     if shadow_parts:
         # the deferred shadow wave: every bounce's NEE rays in one pass
+        span = sprof.begin("shadow")
         o_f, w_f, t_f, c_f = (torch.cat(x) for x in zip(*shadow_parts))
         occ = trace_occluded(o_f, w_f, t_f)
         hit_contrib = torch.where((~occ & (t_f > 0))[..., None], c_f, 0.0)
         radiance = radiance + hit_contrib.view(len(shadow_parts), n, 3).sum(dim=0)
+        sprof.end(span)
+    sprof.end(call)
     return radiance, c["n_rays"]
 
 

@@ -26,6 +26,7 @@ from stratum_tpu_torch.render import aov as saov
 from stratum_tpu_torch.render import denoise as sdenoise
 from stratum_tpu_torch.render import integrator as sintegrator
 from stratum_tpu_torch.render import tonemap as stonemap
+from stratum_tpu_torch.utils import profiler as sprof
 
 
 @dataclasses.dataclass
@@ -215,6 +216,7 @@ class RenderSession:
     def frame(self):
         """One interactive frame: a progressive sample, then (with
         ``denoise``) the SVGF pass -> the displayable radiance."""
+        span = sprof.enter("frame")
         img = self.step(1)
         if self.denoise:
             if self.mesh is not None:
@@ -228,6 +230,7 @@ class RenderSession:
             else:
                 self.denoise_state, img = sdenoise.denoise(
                     self.denoise_state, self.radiance(), self.gbuffer(), self.denoise_cfg)
+        sprof.end(span)
         return img
 
     def tonemapped(self, mode=stonemap.TonemapMode.ACES, exposure=0.0):

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from stratum_tpu_torch.core import math as smath
+from stratum_tpu_torch.utils import profiler as sprof
 
 
 class TonemapMode(enum.Enum):
@@ -128,6 +129,13 @@ def tonemap(image, mode: TonemapMode = TonemapMode.RAW, exposure: float = 0.0,
     """Exposure (in stops), then the operator. The LDR operators return
     linear values in [0, 1]; the display encoding (sRGB) is applied when
     the image is saved (io/image.py)."""
+    span = sprof.enter("tonemap")
+    out = _tonemap(image, mode, exposure, max_value)
+    sprof.end(span)
+    return out
+
+
+def _tonemap(image, mode: TonemapMode, exposure: float, max_value):
     c = _as_tensor(image) * (2.0 ** exposure)
     if max_value is None:
         max_value = torch.clamp(torch.amax(c), min=1e-4)

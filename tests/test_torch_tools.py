@@ -7,7 +7,7 @@ within 2e-6 of the reference's (its float32 mean is itself 1.0e-6 off the
 float64 one on the test's MSE);
 the tools' printed lines equal, their numbers (6 significant digits)
 within 1e-5 relative; the profiler's tree and report equal but for the
-times.
+times, and the port's spans, call ids and counters.
 """
 
 import re
@@ -130,41 +130,58 @@ def test_inspect_tool_matches_reference(capsys):
     assert len(tree) > 5 and tree == want.splitlines()[:len(tree)]
 
 
-def test_profiler_tree_and_report(tmp_path):
-    """The same regions give the reference's tree and report (times
-    aside); ``sync=`` takes a tensor or a device; ``device_trace`` writes a
-    Chrome trace."""
+def test_profiler_tree_and_report():
+    """The same frames and regions give the JAX package's tree and report
+    (times aside) while the port records, between ``start()`` and
+    ``stop()``; the port's spans nest under their parents, the spans of
+    one top-level call share its id, counters stay with their span (a
+    device scalar read as an int); stopped, it records nothing."""
     reports = []
-    for mod in (jprofiler, pprofiler):
-        prof = mod.Profiler()
-        for frame in range(3):
-            prof.begin_frame()
-            with prof.region("render"):
-                with prof.region("trace", sync=None):
+    pprofiler.start()
+    try:
+        for mod in (jprofiler, pprofiler):
+            prof = mod.Profiler()
+            for frame in range(3):
+                prof.begin_frame()
+                with prof.region("render"):
+                    with prof.region("trace"):
+                        pass
+                    with prof.region("shade"):
+                        pass
+                with prof.region("denoise"):
                     pass
-                with prof.region("shade"):
-                    pass
-            with prof.region("denoise"):
+                prof.end_frame()
+            reports.append(re.sub(r"\d+\.\d+", "#", prof.report()))
+        for _ in range(3):
+            top = pprofiler.enter("frame")
+            render = pprofiler.begin("render")
+            pprofiler.end(pprofiler.begin("trace", lanes=8, live=torch.tensor(5)))
+            pprofiler.end(pprofiler.begin("shade"))
+            pprofiler.end(render)
+            with pprofiler.region("denoise"):
                 pass
-            prof.end_frame()
-        reports.append(re.sub(r"\d+\.\d+", "#", prof.report()))
+            pprofiler.end(top)
+    finally:
+        pprofiler.stop()
     assert reports[0] == reports[1]
     assert reports[1].splitlines()[0].startswith("frames: 2  mean # ms")
     assert [ln.split()[0] for ln in reports[1].splitlines()[1:]] == [
         "frame", "render", "trace", "shade", "denoise"]
+    recs = pprofiler.records()
+    assert [r.name for r in recs[:5]] == ["frame", "render", "trace", "shade", "denoise"]
+    assert [r.parent for r in recs[:5]] == [-1, 0, 1, 1, 0]
+    assert [r.call for r in recs] == [1] * 5 + [2] * 5 + [3] * 5
+    assert recs[2].attrs == {"lanes": 8, "live": 5} and recs[0].device_us is None
+    assert all(r.host_ns[0] <= r.host_ns[1] for r in recs)
+    assert re.sub(r"\d+\.\d+", "#", pprofiler.report()) == reports[1]
+    spans = list(pprofiler.PROFILER.spans)
+    assert pprofiler.begin("off") is None and pprofiler.enter("off") is None
+    pprofiler.end(None)
+    with pprofiler.region("off") as s:
+        assert s is None
     prof = pprofiler.Profiler()
-    x = torch.ones(4)
-    with prof.region("a", sync=x):
-        with prof.region("b", sync="cpu"):
-            y = x * 2
-    assert float(y.sum()) == 8.0
-    tree = prof.report().splitlines()
-    assert tree[0].startswith("frame") and tree[1].strip().startswith("a") and \
-        tree[2].startswith("    b")
-    prof.enabled = False
+    prof.begin_frame()
     with prof.region("off"):
         pass
-    assert "off" not in prof.report()
-    with pprofiler.PROFILER.device_trace(str(tmp_path / "trace")):
-        torch.ones(8).sum()
-    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+    prof.end_frame()
+    assert pprofiler.PROFILER.spans == spans and prof.spans == [] and prof.report() == ""
