@@ -178,7 +178,12 @@ Phases, each printing its results:
    denoiser against the CPU port on the same inputs (the temporal colour,
    history and the a-trous filter on identical inputs on every pixel within
    twice test_torch_denoise.py's bound, the whole pass on >= 99 % of the
-   pixels: the variance's cancellation); the session's batched step(4)
+   pixels: the variance's cancellation); the a-trous kernel on those inputs
+   (``csrc/atrous.cu``, one launch an iteration): each launch's device time
+   from a ``torch.profiler`` trace beside its bytes bound, its launches
+   counted and traced, a call timed back to back, registers and spills,
+   and the plain torch loop on the card (its time, and both held to the
+   CPU port's plain loop); the session's batched step(4)
    against sequential, ``spp_lanes=4``, a ReSTIR step, ``step_adaptive``
    after a pilot, each timed, and a checkpoint round trip bit for bit;
    every debug view finite and the ``path_length_1..6`` images summing to
@@ -252,6 +257,10 @@ BINNED = dict(binned_secondary=8, binned_shadow=8)
 # tensor cores, and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
+# special-function ops (MUFU: ex2, lg2, rcp, rsq): 16 a clock an SM against
+# the 256 f32 flops of its 128 lanes (CUDA C++ Programming Guide, arithmetic
+# instruction throughput, compute capability 9.0)
+PEAK_SFU_S = PEAK_F32_FLOPS / 16
 FLOP_PER_TEST = 80  # one ray-triangle test: 40 FMAs (a, u, v, t_num)
 SLAB_RAYS = 16384  # rays per pass when counting needed triangle tests
 
@@ -529,10 +538,12 @@ def _traced_launches(fn) -> tuple:
 
 def _zero_launches():
     from stratum_tpu_torch.ops import binned, block_trace
+    from stratum_tpu_torch.render import denoise
 
     for counts in (block_trace.LAUNCHES, binned.LAUNCHES):
         for k in counts:
             counts[k] = 0
+    denoise.LAUNCHES = 0
 
 
 def _timed_samples(scene, view, cfg_run, label, scene_name, smi, samples: int = 5):
@@ -578,7 +589,7 @@ def _build():
     """Phase 2: every kernel source built by its own nvcc, all at once."""
     from stratum_tpu_torch.utils import cuda_build
 
-    names = ("block_trace", "binned", "microbench")
+    names = ("block_trace", "binned", "microbench", "atrous")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(cuda_build.load, names))
@@ -1233,7 +1244,7 @@ GOLDENS = {  # tests/update_goldens.py:41-52 (48x48, rr_depth=100)
 FURNACE_REL = 0.04  # sphere mean against albedo x radiance (tests/test_torch_dense_path.py)
 DIRECT_MEAN_REL = 1e-3  # render_direct, auto (mxu) against brute
 DIRECT_PIXEL_SHARE = 0.999
-GPU_TESTS = 50  # tests in tests/test_torch_cuda.py
+GPU_TESTS = 74  # tests in tests/test_torch_cuda.py
 
 
 def _modes_equal(fat, o, d, bound, occluded, gs):
@@ -2543,6 +2554,137 @@ class _SplitTimer:
             setattr(mod, attr, self._saved[label])
 
 
+ATROUS_REPS = 10  # a-trous filter calls the kernel's per-launch times come from
+_ATROUS_NAME = re.compile(r"atrous_kernel")
+
+
+ATROUS_TAP_FP32 = 29  # f32 adds, multiplies and maxes of a tap (csrc/atrous.cu; none fused)
+ATROUS_TAP_SFU = 5  # at the least: ex2 for each expf and for powf, rcp for each division
+
+
+def _atrous_bound(h, w, it, iters, history_tap, ntaps):
+    """(least ms, what bounds it) of a-trous launch ``it``: the bytes the
+    iteration needs, each read and each write once, at the memory rate
+    (colour, variance, normal and depth in, 32 B a pixel; colour | variance
+    out for the next, 16 B, unless it is the last; colour, 12 B, if it is
+    the last or the history tap's: the guide and dz the kernel keeps are
+    its layout's, not needed bytes), or the arithmetic of ``ntaps`` taps a
+    pixel, each ATROUS_TAP_FP32 instructions at the f32 lanes' rate (one a
+    lane a clock, none fused) and ATROUS_TAP_SFU at the special-function
+    units', whichever takes longest."""
+    per = 32 + (0 if it + 1 == iters else 16) + (12 if it + 1 in (iters, history_tap) else 0)
+    bytes_ms = per * h * w / PEAK_BYTES_S * 1e3
+    taps = h * w * ntaps
+    ops_ms = max(taps * ATROUS_TAP_FP32 / (PEAK_F32_FLOPS / 2),
+                 taps * ATROUS_TAP_SFU / PEAK_SFU_S) * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def _traced_atrous(dev, fn) -> dict:
+    """``denoise.LAUNCHES`` over one call of ``fn`` (zeroed before it) beside
+    the ``atrous_kernel`` launches a ``torch.profiler`` trace of that call
+    records, after a priming op (a trace may miss a kernel): the program's
+    count against the device's."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from stratum_tpu_torch.render import denoise
+
+    torch.cuda.synchronize()
+    _zero_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device=dev).add_(1)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    traced = sum(1 for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and _ATROUS_NAME.search(e.name))
+    return dict(counted=denoise.LAUNCHES, traced=traced)
+
+
+def _atrous_timing(dev, smi, color, variance, gbuf, dcfg, cpu_ref):
+    """Phase 16: the a-trous kernel on the frame's inputs -> dict: each
+    launch's device time (ATROUS_REPS filter calls, each under its own
+    ``torch.profiler`` trace after a priming op, since a trace may miss a
+    kernel; the median over the calls traced whole, by iteration) beside
+    its bound (``_atrous_bound``), the launches counted beside the traced,
+    the whole filter call timed back to back with CUDA events, its ``kernel_info``,
+    and the plain loop on the card (host clock around a synchronised call),
+    both held to ``cpu_ref``, the CPU port's plain loop (share of pixels
+    within DEN_RTOL / DEN_ATOL)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from stratum_tpu_torch.render import denoise
+
+    h, w = color.shape[:2]
+    iters = dcfg.atrous_iterations
+    run = lambda: denoise.atrous_filter(color, variance, gbuf, dcfg)  # noqa: E731
+    kern, _ = run()
+    torch.cuda.synchronize()
+    before = denoise.LAUNCHES
+    per_it, traced = [[] for _ in range(iters)], 0
+    for _ in range(ATROUS_REPS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device=dev).add_(1)
+            torch.cuda.synchronize()
+            run()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                         and _ATROUS_NAME.search(e.name)), key=lambda e: e.time_range.start)
+        traced += len(events)
+        if len(events) == iters:
+            for i, e in enumerate(events):
+                per_it[i].append(e.time_range.elapsed_us() / 1e3)
+    counted = denoise.LAUNCHES - before
+    assert counted == iters * ATROUS_REPS and traced <= counted, (counted, traced)
+    assert len(per_it[0]) >= ATROUS_REPS // 2, per_it
+    per_it = [sorted(t) for t in per_it]
+    ms = [t[len(t) // 2] for t in per_it]
+    bound, bound_by = zip(*(_atrous_bound(h, w, i, iters, dcfg.history_tap,
+                                          len(denoise._filter_taps(dcfg.filter_type, i)))
+                            for i in range(iters)))
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(ATROUS_REPS):
+        run()
+    stop.record()
+    torch.cuda.synchronize()
+    call_ms = start.elapsed_time(stop) / ATROUS_REPS
+    plain, plain_ms = None, []
+    for _ in range(3):
+        (plain, _), t = _sync_ms(lambda: denoise._atrous_plain(color, variance, gbuf, dcfg))
+        plain_ms.append(t)
+
+    def share(x):
+        b = cpu_ref
+        ok = torch.abs(x.cpu() - b) <= DEN_ATOL + DEN_RTOL * torch.abs(b)
+        return float(ok.all(dim=-1).float().mean())
+
+    info = {k: denoise.kernel_info(k == "first") for k in ("first", "later")}
+    line = dict(launch_ms=ms, launch_ms_all=per_it, bound_ms=list(bound), bound_by=list(bound_by),
+                launches_per_call=counted / ATROUS_REPS, traced_launches=traced,
+                calls_traced_whole=len(per_it[0]),
+                call_ms=call_ms, plain_ms=plain_ms, plain_ms_per_iteration=min(plain_ms) / iters,
+                kernel_within_cpu=share(kern), plain_within_cpu=share(plain),
+                kernel_vs_plain_max_abs=float((kern - plain).abs().max()), info=info)
+    print(f"[16 a-trous kernel] {w}x{h}, {iters} launches a call ({counted} counted, "
+          f"{traced} traced over {ATROUS_REPS} calls, {len(per_it[0])} whole): "
+          + ", ".join(f"it {i} {t:.4f} ms (bound {b:.4f}, {by}, {t / b:.1f}x)"
+                      for i, (t, b, by) in enumerate(zip(ms, bound, bound_by)))
+          + f"; a call {call_ms:.3f} ms back to back; plain loop on the card "
+          f"{', '.join(f'{t:.1f}' for t in plain_ms)} ms a call "
+          f"({line['plain_ms_per_iteration']:.2f} ms an iteration); within the CPU port's "
+          f"bound: kernel {line['kernel_within_cpu']:.6f}, plain {line['plain_within_cpu']:.6f}; "
+          f"kernel vs plain max |diff| {line['kernel_vs_plain_max_abs']:.3g}; {info} | {smi}",
+          flush=True)
+    assert info["first"]["local_bytes"] == 0 and info["later"]["local_bytes"] == 0, info
+    assert line["kernel_within_cpu"] == 1.0
+    return line
+
+
 def _frame_phase(dev, smi, scene, view, main5):
     """Phase 16: the frame pipeline at 1920x1080 on the full atrium with
     the bench configuration: the G-buffer (its K1 wave against its bound
@@ -2627,6 +2769,8 @@ def _frame_phase(dev, smi, scene, view, main5):
     targets = {"sample": (integrator, "render_path"), "gbuffer": (aov, "render_gbuffer"),
                "temporal_accumulate": (denoise, "temporal_accumulate"),
                "atrous_filter": (denoise, "atrous_filter"), "tonemap": (tonemap, "tonemap")}
+    # one a-trous launch an iteration on the card, the plain loop elsewhere
+    atrous_want = sess.denoise_cfg.atrous_iterations * (torch.device(dev).type == "cuda")
     frames = []
     for i in range(4):
         if i == 2:
@@ -2634,8 +2778,9 @@ def _frame_phase(dev, smi, scene, view, main5):
         _zero_launches()
         with _SplitTimer(targets) as split:
             (shown, ms) = _sync_ms(lambda: tonemap.tonemap(sess.frame(), tonemap.TonemapMode.ACES))
-        launches = dict(block_trace.LAUNCHES)
-        want = dict(FRAME_LAUNCHES, closest=FRAME_LAUNCHES["closest"] + (i == 2))
+        launches = dict(block_trace.LAUNCHES, atrous=denoise.LAUNCHES)
+        want = dict(FRAME_LAUNCHES, closest=FRAME_LAUNCHES["closest"] + (i == 2),
+                    atrous=atrous_want)
         assert launches == want, (i, launches)
         parts = dict(split.ms)
         parts["other"] = ms - sum(parts.values())
@@ -2646,6 +2791,11 @@ def _frame_phase(dev, smi, scene, view, main5):
               + f" | {smi}", flush=True)
         assert bool(torch.isfinite(shown).all())
     peak = torch.cuda.max_memory_allocated() / 2**30
+    atrous_frame = _traced_atrous(dev, sess.frame)
+    print(f"[16 frame a-trous] one frame: {atrous_frame['counted']} a-trous launches counted, "
+          f"{atrous_frame['traced']} traced | {smi}", flush=True)
+    assert atrous_frame["counted"] == atrous_want, atrous_frame
+    assert atrous_frame["traced"] <= atrous_frame["counted"], atrous_frame
     busy, ops = profile_sample.device_profile(
         scene, view2, cfg, 0, render=lambda *a: sess.frame())
     mean_ms = sum(f["ms"] for f in frames) / len(frames)
@@ -2705,6 +2855,10 @@ def _frame_phase(dev, smi, scene, view, main5):
           f"CPU {cpu_ms:.0f} ms | {smi}", flush=True)
     assert res["filter"][0] == 1.0 and res["temporal_color"][0] == 1.0 and flips == 0
     assert res["whole"][0] >= DEN_WHOLE_SHARE
+    out["atrous_kernel"] = _atrous_timing(dev, smi, col_h.to(dev), var_h.to(dev), gbuf, dcfg,
+                                          flt_h)
+    out["atrous_kernel"].update(launches_per_frame=[f["launches"]["atrous"] for f in frames],
+                                frame_traced=atrous_frame)
     del sess, st_c, den_c, st_h, den_h, rad, gbuf, state_h, gbuf_h, col_h, var_h, flt_c, flt_h
     del col_c, var_c
     torch.cuda.empty_cache()
@@ -3647,6 +3801,7 @@ def main() -> int:
     # ---- 16: the frame pipeline ----------------------------------------------
     torch.cuda.empty_cache()
     frame, gb_wave = _frame_phase(dev, smi, scene, view, main5)
+    atrous = frame["atrous_kernel"]
 
     # ---- 17: loaded scenes and the mesh ----------------------------------------
     torch.cuda.empty_cache()
@@ -3799,6 +3954,18 @@ def main() -> int:
                               occluded=past["occluded"]["emit"]),
              forced_tiles={k: past["atrium_forced"][k + " emission"]
                            for k in ("closest", "occluded")}),
+        dict(common, name="a-trous iteration", source="stratum_tpu_torch/csrc/atrous.cu",
+             replaces="stratum_tpu/render/denoise.py::atrous_filter", pallas=False,
+             note="the reference's jnp a-trous filter, not a Pallas kernel",
+             launches=atrous["launches_per_frame"][0],
+             launches_traced=atrous["frame_traced"]["traced"],
+             max_abs_err=atrous["kernel_vs_plain_max_abs"],
+             ms=sum(atrous["launch_ms"]) / len(atrous["launch_ms"]),
+             plain_ms=atrous["plain_ms_per_iteration"],
+             bound_ms=sum(atrous["bound_ms"]) / len(atrous["bound_ms"]),
+             bound_by="/".join(sorted(set(atrous["bound_by"]))),
+             wave_ms=atrous["launch_ms"], wave_bound_ms=atrous["bound_ms"],
+             wave_bound_by=atrous["bound_by"]),
     ] + t_kernels
     print(json.dumps({"kernels": kernels,
                       "paths": {"main": main5, "binned": main6, "cornell": cornell,

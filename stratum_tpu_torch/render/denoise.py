@@ -11,13 +11,18 @@ filtering (counterpart of stratum_tpu/render/denoise.py).
 
 Plain torch ops on [H, W, C] images on the device of their inputs. A shift
 is an edge-clamped copy (the reference's ``jnp.pad(mode="edge")`` and a
-slice) made by two row and column index gathers; inside an a-trous
-iteration the colour, variance, normal, depth and colour luminance of a
-pixel are shifted together as one 9-channel image, one copy a tap.
+slice) made by two row and column index gathers. On CUDA tensors each
+a-trous iteration is one launch of ``csrc/atrous.cu`` (``LAUNCHES`` counts
+them); on CPU tensors its plain version, :func:`_atrous_plain`, runs,
+where the colour, variance, normal, depth and colour luminance of a pixel
+are shifted together as one 9-channel image, one copy a tap. There is no
+fallback from one to the other: a CUDA tensor launches the kernel or
+raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import NamedTuple
 
@@ -235,7 +240,17 @@ def atrous_filter(color, variance, gbuf: GBuffer, cfg: DenoiseConfig):
     iteration ``cfg.history_tap - 1`` or None). Only foreground pixels are
     filtered: background depth (inf) is held at a finite 3.0e37 sentinel
     so no inf - inf reaches a weight, and background pixels keep their
-    input colour. Colour stays demodulated if ``cfg.demodulate_albedo``."""
+    input colour. Colour stays demodulated if ``cfg.demodulate_albedo``.
+    One kernel launch an iteration on CUDA tensors, :func:`_atrous_plain`
+    on CPU tensors; each iteration's ``atrous`` span counts its launches
+    as ``kernels``."""
+    if color.device.type == "cpu":
+        return _atrous_plain(color, variance, gbuf, cfg)
+    return _atrous_kernel(color, variance, gbuf, cfg)
+
+
+def _atrous_plain(color, variance, gbuf: GBuffer, cfg: DenoiseConfig):
+    """:func:`atrous_filter` in plain torch ops, on any device."""
     normal = gbuf.normal
     foreground = torch.isfinite(gbuf.depth)
     depth = torch.where(foreground, gbuf.depth, 3.0e37)
@@ -285,8 +300,96 @@ def atrous_filter(color, variance, gbuf: GBuffer, cfg: DenoiseConfig):
         variance = acc_v / torch.clamp(wsum * wsum, min=1e-6)
         if it + 1 == cfg.history_tap:
             tap_color = color
+        sprof.count(span, "kernels", 0)
         sprof.end(span)
     return color, tap_color
+
+
+LAUNCHES = 0  # a-trous kernels enqueued (one an iteration on CUDA tensors)
+
+
+def _lib():
+    from stratum_tpu_torch.utils import cuda_build
+
+    lib = cuda_build.load("atrous")
+    if not getattr(lib, "_stratum_bound", False):
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.atrous_iteration.argtypes = [ptr] * 9 + [i32] * 5 + [ptr] * 3 + [f32] * 3 + [ptr]
+        lib.atrous_info.argtypes = [i32, ptr]
+        for fn in (lib.atrous_iteration, lib.atrous_info):
+            fn.restype = ctypes.c_int
+        lib._stratum_bound = True
+    return lib
+
+
+def _tap_args(filter_type: str, it: int):
+    """(count, dy, dx, kernel weight) of an iteration's taps as ctypes
+    arrays."""
+    dy, dx, kw = zip(*_filter_taps(filter_type, it))
+    n = len(dy)
+    return n, (ctypes.c_int * n)(*dy), (ctypes.c_int * n)(*dx), (ctypes.c_float * n)(*kw)
+
+
+def kernel_info(first: bool) -> dict:
+    """Registers, spilled bytes and resident CTAs per SM of the first or a
+    later iteration's kernel, and its CTA's threads."""
+    out = (ctypes.c_int * 4)()
+    rc = _lib().atrous_info(int(first), out)
+    if rc != 0:
+        raise RuntimeError(f"atrous_info failed: cudaError {rc}")
+    return dict(zip(("registers", "local_bytes", "ctas_per_sm", "threads"), out))
+
+
+def _atrous_kernel(color, variance, gbuf: GBuffer, cfg: DenoiseConfig):
+    """:func:`atrous_filter` as one ``csrc/atrous.cu`` launch an iteration.
+    The first reads the inputs and writes the iteration-invariant guide
+    (normal | sentinel depth) and depth gradient; colour | variance passes
+    between iterations as a float4 a pixel in two buffers."""
+    global LAUNCHES
+    dev = color.device
+    if dev.type != "cuda":
+        raise ValueError("the a-trous kernel runs on CUDA tensors only")
+    h, w = color.shape[:2]
+    for x, name, shape in ((color, "color", (h, w, 3)), (variance, "variance", (h, w)),
+                           (gbuf.normal, "normal", (h, w, 3)), (gbuf.depth, "depth", (h, w))):
+        if x.device != dev or x.dtype != torch.float32 or tuple(x.shape) != shape:
+            raise ValueError(f"{name}: expected f32 {shape} on {dev}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+    iters = cfg.atrous_iterations
+    if iters <= 0:
+        return color, None
+    inputs = [x.contiguous() for x in (color, variance, gbuf.normal, gbuf.depth)]
+    f32 = dict(dtype=torch.float32, device=dev)
+    guide = torch.empty((h, w, 4), **f32)
+    dz = torch.empty((h, w), **f32)
+    packs = [torch.empty((h, w, 4), **f32) for _ in range(min(iters - 1, 2))]
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    cv_in = out = tap_color = None
+    with torch.cuda.device(dev):  # the runtime launches on the current device
+        for it in range(iters):
+            span = sprof.begin("atrous", it=it)
+            last = it + 1 == iters
+            keep = last or it + 1 == cfg.history_tap
+            out = torch.empty((h, w, 3), **f32) if keep else None
+            cv_out = None if last else packs[it % 2]
+            first = [x.data_ptr() for x in inputs] if it == 0 else [None] * 4
+            n, dy, dx, kw = _tap_args(cfg.filter_type, it)
+            rc = lib.atrous_iteration(
+                *first, None if cv_in is None else cv_in.data_ptr(), guide.data_ptr(),
+                dz.data_ptr(), None if cv_out is None else cv_out.data_ptr(),
+                None if out is None else out.data_ptr(), h, w, 1 << it, int(it == 0), n, dy, dx,
+                kw, cfg.sigma_luminance, cfg.sigma_normal, cfg.sigma_depth, stream)
+            if rc != 0:
+                raise RuntimeError(f"a-trous kernel launch failed: cudaError {rc}")
+            launched = int(h * w > 0)
+            LAUNCHES += launched
+            if it + 1 == cfg.history_tap:
+                tap_color = out
+            cv_in = cv_out
+            sprof.count(span, "kernels", launched)
+            sprof.end(span)  # its end event follows the kernel
+    return out, tap_color
 
 
 def denoise(state: DenoiseState, radiance, gbuf: GBuffer, cfg: DenoiseConfig | None = None):

@@ -37,7 +37,12 @@ barycentrics and the brute force's Moller-Trumbore ones differ in their
 last bits, which the interpolated normals of the pillars' small triangles
 magnify), and the
 denoiser on the card against the CPU port on the same inputs over two
-frames, at twice test_torch_denoise.py's bound (rtol 2e-5, atol 2e-6).
+frames, at twice test_torch_denoise.py's bound (rtol 2e-5, atol 2e-6). The
+a-trous kernel (one launch an iteration) against the plain loop on the CPU
+at that bound, for every filter type with and without a history tap, on
+images with background pixels whose sides are no multiple of the kernel's
+32 x 8 CTA and lie under the last iteration's dilation of 16, so the taps'
+edge clamps bind.
 """
 
 import dataclasses
@@ -56,6 +61,7 @@ from stratum_tpu_torch.tools import (
     perf_epilogue,
     probe_mxu_loop,
 )
+from stratum_tpu_torch.utils import profiler as sprof
 
 pytestmark = pytest.mark.cuda
 
@@ -733,6 +739,57 @@ def test_denoiser_on_the_card_matches_cpu(tiny_render):
         states[1], ref = denoise.denoise(states[1], torch.from_numpy(rad), gb_cpu, dcfg)
         torch.testing.assert_close(out.cpu(), ref, rtol=2e-5, atol=2e-6)
         torch.testing.assert_close(states[0].color.cpu(), states[1].color, rtol=2e-5, atol=2e-6)
+
+
+def _atrous_inputs(h, w, seed):
+    """Seeded a-trous inputs: three tilted planes of normals with a little
+    noise, depth steps between them, 15 % background (depth inf, normal 0)."""
+    rng = np.random.default_rng(seed)
+    color = (rng.exponential(1.0, (h, w, 3)) * 0.3).astype(np.float32)
+    var = rng.uniform(0.0, 0.3, (h, w)).astype(np.float32)
+    planes = np.array([[0, 1, 0], [1, 0, 0], [0.6, 0.8, 0]], np.float32)
+    lab = (np.arange(w)[None, :] * 3 // w + (np.arange(h)[:, None] > h // 2)) % 3
+    normal = planes[lab] + rng.normal(0, 0.02, (h, w, 3)).astype(np.float32)
+    normal /= np.linalg.norm(normal, axis=-1, keepdims=True)
+    depth = (5 + lab + rng.uniform(0, 0.1, (h, w))).astype(np.float32)
+    depth[rng.random((h, w)) < 0.15] = np.inf
+    normal[np.isinf(depth)] = 0
+    gb = aov.GBuffer(albedo=np.ones((h, w, 3), np.float32), normal=normal.astype(np.float32),
+                     depth=depth, instance=np.zeros((h, w), np.int32),
+                     prev_uv=np.zeros((h, w, 2), np.float32))
+    return color, var, gb
+
+
+@pytest.mark.parametrize("history_tap", [0, 2])
+@pytest.mark.parametrize("filter_type", ["atrous", "box3", "box5", "subsampled",
+                                         "box3_subsampled", "box5_subsampled"])
+@pytest.mark.parametrize("shape", [(13, 15), (37, 70)])
+def test_atrous_kernel_matches_plain(dev, shape, filter_type, history_tap):
+    """``atrous_filter`` on the card (one kernel an iteration, each
+    ``atrous`` span counting it as ``kernels``) against the plain loop on
+    the CPU on the same inputs: the filtered colour and the history tap's
+    (rtol 2e-5, atol 2e-6)."""
+    color, var, gb = _atrous_inputs(*shape, seed=len(filter_type) + history_tap)
+    cfg = denoise.DenoiseConfig(filter_type=filter_type, history_tap=history_tap)
+    cpu = [torch.from_numpy(x) for x in (color, var)]
+    gb_cpu = aov.GBuffer(*(torch.from_numpy(x) for x in gb))
+    before = denoise.LAUNCHES
+    sprof.start()
+    try:
+        out, tap = denoise.atrous_filter(*(x.to(dev) for x in cpu),
+                                         aov.GBuffer(*(x.to(dev) for x in gb_cpu)), cfg)
+    finally:
+        sprof.stop()
+    assert denoise.LAUNCHES - before == cfg.atrous_iterations
+    spans = [r for r in sprof.records() if r.name == "atrous"]
+    assert [(r.attrs["it"], r.attrs["kernels"]) for r in spans] == [
+        (it, 1) for it in range(cfg.atrous_iterations)]
+    ref, ref_tap = denoise.atrous_filter(*cpu, gb_cpu, cfg)
+    assert denoise.LAUNCHES - before == cfg.atrous_iterations
+    torch.testing.assert_close(out.cpu(), ref, rtol=2e-5, atol=2e-6)
+    assert (tap is None) == (ref_tap is None) == (history_tap == 0)
+    if tap is not None:
+        torch.testing.assert_close(tap.cpu(), ref_tap, rtol=2e-5, atol=2e-6)
 
 
 def test_sharded_cornell_on_the_card(dev):

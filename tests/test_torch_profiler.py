@@ -133,6 +133,15 @@ def test_span_tree_under_torch_profiler(tiny, frames):
             assert p.device_us[0] < r.device_us[0] and r.device_us[1] < p.device_us[1]
 
 
+def test_atrous_spans_count_no_kernel_on_the_cpu(frames):
+    """On CPU tensors the a-trous iterations take the plain loop: each of
+    the five ``atrous`` spans carries its iteration and ``kernels == 0``
+    (one a span on the card)."""
+    spans = [r for r in frames[1] if r.name == "atrous"]
+    assert [r.attrs["it"] for r in spans] == [0, 1, 2, 3, 4]
+    assert [r.attrs["kernels"] for r in spans] == [0] * 5
+
+
 # -- the readers on a made-up stretch -----------------------------------------
 # device times of the events (us after the recording's first); the trace's
 # clock runs OFFSET later
