@@ -1244,7 +1244,7 @@ GOLDENS = {  # tests/update_goldens.py:41-52 (48x48, rr_depth=100)
 FURNACE_REL = 0.04  # sphere mean against albedo x radiance (tests/test_torch_dense_path.py)
 DIRECT_MEAN_REL = 1e-3  # render_direct, auto (mxu) against brute
 DIRECT_PIXEL_SHARE = 0.999
-GPU_TESTS = 74  # tests in tests/test_torch_cuda.py
+GPU_TESTS = 76  # tests in tests/test_torch_cuda.py
 
 
 def _modes_equal(fat, o, d, bound, occluded, gs):

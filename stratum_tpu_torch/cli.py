@@ -8,8 +8,8 @@ Usage:
 
 Flags are the reference's (``--key=value``). The render runs on the card;
 ``--cpu`` runs it on the CPU, and without ``--cpu`` a machine with no card
-raises. ``--scene`` takes ``cornell``, ``furnace``, ``spheres``, ``atrium``
-or a file: ``.obj``, ``.gltf`` / ``.glb``, Mitsuba ``.xml``, ``.ply``,
+raises. ``--scene`` takes ``cornell``, ``furnace``, ``spheres``, ``atrium``,
+``sphereflake`` (SPD's ``balls`` at size factor 4) or a file: ``.obj``, ``.gltf`` / ``.glb``, Mitsuba ``.xml``, ``.ply``,
 ``.stl`` or binary ``.fbx`` (``.blend`` is refused with the export to use).
 ``--volume=file`` (repeatable; ``.vol``, ``.nvdb`` or ``.npy``) adds a
 medium, its density scaled by ``--densityScale``. ``--compileCache`` (the
@@ -39,6 +39,8 @@ def build_scene(opts):
         return builtin.material_spheres()
     if name == "atrium":
         return builtin.atrium()
+    if name == "sphereflake":
+        return builtin.sphereflake()
     path = Path(name)
     if not path.exists():
         raise FileNotFoundError(f"scene {name!r} not found")

@@ -63,6 +63,11 @@
 //         the stream, each reusing the buffer; no host synchronisation
 //         decides anything. force_overflow sends every CTA down that path
 //         (the global list mode of earlier versions, kept for checks).
+//       With list_counts (the culled and global modes, while the port's
+//       profiler records; null otherwise) thread 0 of each CTA with a live
+//       ray adds, at the end of its list phase, 1 to list_counts[0] if the
+//       CTA overflowed and its ncand to list_counts[1]: one atomic each,
+//       where the shared mode's instantiation has no such code.
 //       Under stats the kernel writes each CTA's ncand, its overflow flag
 //       and the clock64 cycles of its list phase (from its start, staging
 //       included) and of its walk (0 and 0 for a CTA without a live ray),
@@ -260,6 +265,7 @@ block_trace_kernel(const float* __restrict__ rays,       // [Np, 10] features
                    float* __restrict__ entry_out,        // [n_cta, G] or null
                    int* __restrict__ cand_out,           // [n_cta, G] or null
                    long long* __restrict__ cta_out,      // [n_cta, 3] or null
+                   unsigned long long* list_counts,      // [2] or null (culled)
                    unsigned long long* list_scratch)     // [CTAs, num_keys] (culled)
 {
   // shared mode: [num_keys]; culled mode: [cap_keys]
@@ -378,6 +384,10 @@ block_trace_kernel(const float* __restrict__ rays,       // [Np, 10] features
     nc = s.ncand;
   }
   if (cta_out != nullptr && tid == 0) s.clock[1] = clock64();
+  if (CULLED && list_counts != nullptr && tid == 0) {
+    if (overflow) atomicAdd(&list_counts[0], 1ull);
+    atomicAdd(&list_counts[1], (unsigned long long)nc);
+  }
   if (ncand_out != nullptr && tid == 0) ncand_out[blockIdx.x] = nc;
   if (entry_out != nullptr) {
     const size_t row = (size_t)blockIdx.x * num_groups;  // the CTA's stats row
@@ -532,8 +542,9 @@ size_t list_smem(bool culled, int num_groups, int cap_keys) {
 
 // A null list_scratch launches the shared list mode in one grid; otherwise
 // the culled mode, in chunks of scratch_ctas CTAs whose overflow rows take
-// turns in list_scratch ([scratch_ctas, list_keys(G)] keys). *launched
-// counts the kernels enqueued, one a chunk.
+// turns in list_scratch ([scratch_ctas, list_keys(G)] keys), every chunk
+// adding to list_counts where it is not null. *launched counts the kernels
+// enqueued, one a chunk.
 template <bool OCCLUDED>
 cudaError_t launch(const float* rays, const float* t_max, const float* origin,
                    const float* inv_dir, const float* group_lo,
@@ -545,8 +556,8 @@ cudaError_t launch(const float* rays, const float* t_max, const float* origin,
                    int num_leaves, int leaf_size, int gs, float* t_out,
                    int* slot_out, uint8_t* blocked_out, int* ncand_out,
                    float* entry_out, int* cand_out, long long* cta_out,
-                   unsigned long long* list_scratch, int scratch_ctas,
-                   int* launched, cudaStream_t stream) {
+                   unsigned long long* list_counts, unsigned long long* list_scratch,
+                   int scratch_ctas, int* launched, cudaStream_t stream) {
   *launched = 0;
   const int num_keys = list_keys(num_groups);
   const bool culled = list_scratch != nullptr;
@@ -554,7 +565,8 @@ cudaError_t launch(const float* rays, const float* t_max, const float* origin,
       (culled && (scratch_ctas < 1 || super_size < 1 || !power_of_two(cap_keys) ||
                   super_lo == nullptr || super_hi == nullptr ||
                   num_super != (num_groups + super_size - 1) / super_size)) ||
-      (entry_out == nullptr) != (cand_out == nullptr))
+      (entry_out == nullptr) != (cand_out == nullptr) ||
+      (!culled && list_counts != nullptr))
     return cudaErrorInvalidValue;
   const float4* feat4 = reinterpret_cast<const float4*>(feat);
   const size_t smem = list_smem(culled, num_groups, cap_keys);
@@ -568,7 +580,7 @@ cudaError_t launch(const float* rays, const float* t_max, const float* origin,
         rays, t_max, origin, inv_dir, group_lo, group_hi, nullptr, nullptr, leaf_lo,
         leaf_hi, leaf_count, feat4, num_groups, num_keys, 0, 1, 0, 0, num_leaves,
         leaf_size, gs, t_out, slot_out, blocked_out, ncand_out, entry_out, cand_out,
-        cta_out, nullptr);
+        cta_out, nullptr, nullptr);
     const cudaError_t le = cudaGetLastError();
     if (le == cudaSuccess) *launched = 1;
     return le;
@@ -588,7 +600,7 @@ cudaError_t launch(const float* rays, const float* t_max, const float* origin,
         leaf_size, gs, t_out ? t_out + r0 : nullptr, slot_out ? slot_out + r0 : nullptr,
         blocked_out ? blocked_out + r0 : nullptr, ncand_out ? ncand_out + c0 : nullptr,
         entry_out ? entry_out + l0 : nullptr, cand_out ? cand_out + l0 : nullptr,
-        cta_out ? cta_out + (size_t)c0 * 3 : nullptr, list_scratch);
+        cta_out ? cta_out + (size_t)c0 * 3 : nullptr, list_counts, list_scratch);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
     ++*launched;
@@ -621,8 +633,9 @@ cudaError_t info(int num_groups, int cap_keys, int* out) {
 
 // list_scratch null: the shared list mode; else the culled mode (super_lo /
 // super_hi: num_super boxes of super_size groups; cap_keys a power of two;
-// force_overflow != 0 sends every CTA to its scratch row); *launched: the
-// kernels enqueued.
+// force_overflow != 0 sends every CTA to its scratch row; list_counts, if not
+// null, gathers the CTAs that overflowed and the reached keys); *launched:
+// the kernels enqueued.
 extern "C" cudaError_t block_trace_closest(
     const float* rays, const float* t_max, const float* origin,
     const float* inv_dir, const float* group_lo, const float* group_hi,
@@ -630,13 +643,13 @@ extern "C" cudaError_t block_trace_closest(
     const float* leaf_hi, const int* leaf_count, const float* feat, int num_ctas,
     int num_groups, int num_super, int super_size, int cap_keys, int force_overflow,
     int num_leaves, int leaf_size, int gs, float* t_out, int* slot_out, int* ncand_out,
-    float* entry_out, int* cand_out, long long* cta_out,
+    float* entry_out, int* cand_out, long long* cta_out, unsigned long long* list_counts,
     unsigned long long* list_scratch, int scratch_ctas, int* launched, void* stream) {
   return launch<false>(rays, t_max, origin, inv_dir, group_lo, group_hi, super_lo,
                        super_hi, leaf_lo, leaf_hi, leaf_count, feat, num_ctas,
                        num_groups, num_super, super_size, cap_keys, force_overflow,
                        num_leaves, leaf_size, gs, t_out, slot_out, nullptr, ncand_out,
-                       entry_out, cand_out, cta_out, list_scratch, scratch_ctas,
+                       entry_out, cand_out, cta_out, list_counts, list_scratch, scratch_ctas,
                        launched, static_cast<cudaStream_t>(stream));
 }
 
@@ -647,13 +660,13 @@ extern "C" cudaError_t block_trace_occluded(
     const float* leaf_hi, const int* leaf_count, const float* feat, int num_ctas,
     int num_groups, int num_super, int super_size, int cap_keys, int force_overflow,
     int num_leaves, int leaf_size, int gs, uint8_t* blocked_out, int* ncand_out,
-    float* entry_out, int* cand_out, long long* cta_out,
+    float* entry_out, int* cand_out, long long* cta_out, unsigned long long* list_counts,
     unsigned long long* list_scratch, int scratch_ctas, int* launched, void* stream) {
   return launch<true>(rays, t_max, origin, inv_dir, group_lo, group_hi, super_lo,
                       super_hi, leaf_lo, leaf_hi, leaf_count, feat, num_ctas, num_groups,
                       num_super, super_size, cap_keys, force_overflow, num_leaves,
                       leaf_size, gs, nullptr, nullptr, blocked_out, ncand_out, entry_out,
-                      cand_out, cta_out, list_scratch, scratch_ctas, launched,
+                      cand_out, cta_out, list_counts, list_scratch, scratch_ctas, launched,
                       static_cast<cudaStream_t>(stream));
 }
 

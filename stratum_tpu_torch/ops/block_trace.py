@@ -55,7 +55,12 @@ only when they lie on the CPU. There is no fallback from one to the other:
 a CUDA tensor launches the kernel or raises. ``LAUNCHES`` counts the
 kernels enqueued (and nothing else), every chunk of the culled and global
 modes one, as the launcher reports them, so a run can show that its path
-went through the kernels.
+went through the kernels. While the port's profiler records, each
+``launch`` span carries its list ``mode`` and ``ctas``, and in the culled
+and global modes two device counters the kernel adds to at the end of each
+CTA's list phase: ``overflow`` (CTAs that sorted in a scratch row) and
+``reached_keys`` (their ``ncand`` summed); off, no counter buffer exists
+and the kernel gets a null pointer.
 
 Results are slot-mode: ``slot = leaf * K + row`` (int32, -1 on a miss), and
 :func:`finalize_hit` resolves a slot to triangle, barycentrics and the fused
@@ -304,7 +309,7 @@ def _lib():
     if not getattr(lib, "_stratum_bound", False):
         ptrs = [ctypes.c_void_p] * 12
         ints = [ctypes.c_int] * 9
-        stats = [ctypes.c_void_p] * 4
+        stats = [ctypes.c_void_p] * 5  # ncand, entries, groups, CTA phases, list counts
         scratch = [ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
         lib.block_trace_closest.argtypes = ptrs + ints + [ctypes.c_void_p] * 2 + stats + (
             scratch + [ctypes.c_void_p])
@@ -326,6 +331,24 @@ def _check(x: torch.Tensor, name, dtype, shape, device):
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _list_counts(span, mode: str, n_cta: int, device) -> Optional[torch.Tensor]:
+    """Record a ``launch`` span's list ``mode`` and ``ctas``; in the culled
+    and global modes, while the span is recorded, also a zeroed int64 [2]
+    buffer that the kernel adds each CTA's overflow flag and reached keys
+    to, whose words the span keeps as its ``overflow`` and ``reached_keys``
+    counters. None (a null pointer for the kernel) otherwise."""
+    if span is None:
+        return None
+    sprof.count(span, "mode", mode)
+    sprof.count(span, "ctas", n_cta)
+    if mode == "shared":
+        return None
+    counts = torch.zeros(2, dtype=torch.int64, device=device)
+    sprof.count(span, "overflow", counts[0])
+    sprof.count(span, "reached_keys", counts[1])
+    return counts
 
 
 def launch(fat: FatBVH, prep: Prepared, occluded: bool, stats: Optional[str] = None,
@@ -392,7 +415,8 @@ def launch(fat: FatBVH, prep: Prepared, occluded: bool, stats: Optional[str] = N
     cand = torch.empty((n_cta, G), dtype=i32, device=dev) if whole else None
     centry = torch.empty((n_cta, G), dtype=f32, device=dev) if whole else None
     cta = torch.empty((n_cta, 3), dtype=torch.int64, device=dev) if stats == "phases" else None
-    stat_ptrs = [ptr(ncand), ptr(centry), ptr(cand), ptr(cta)]
+    counts = _list_counts(span, mode, n_cta, dev)
+    stat_ptrs = [ptr(ncand), ptr(centry), ptr(cand), ptr(cta), ptr(counts)]
     launched = ctypes.c_int(0)  # kernels enqueued, set by the launcher
     scratch_args = (ptr(scratch), chunk, ctypes.byref(launched))
     if occluded:

@@ -48,10 +48,11 @@ def leaf_counts(fat: FatBVH) -> torch.Tensor:
 
 
 def build_fat_bvh_sah(positions, indices, valid_mask=None,
-                      leaf_size: int = 256) -> FatBVH:
+                      leaf_size: int = 256, features=None) -> FatBVH:
     """Fat leaves from the native binned-SAH builder (numpy out). Raises if
     the native builder cannot be built or run: a Morton build would silently
-    change every candidate list."""
+    change every candidate list. ``features``: the triangles'
+    ``build_tri_features`` under the same mask, where the caller has them."""
     pos_np = np.asarray(positions, np.float32)
     idx_np = np.asarray(indices, np.int32)
     num_tris = idx_np.shape[0]
@@ -82,7 +83,8 @@ def build_fat_bvh_sah(positions, indices, valid_mask=None,
     hi = np.where(ok, np.maximum(np.maximum(p0, p1), p2), -big)
     leaf_lo = lo.reshape(num_leaves, leaf_size, 3).min(axis=1)
     leaf_hi = hi.reshape(num_leaves, leaf_size, 3).max(axis=1)
-    feats = smxu.build_tri_features(pos_np, idx_np, valid_np)
+    feats = (smxu.build_tri_features(pos_np, idx_np, valid_np) if features is None
+             else np.asarray(features, np.float32))
     leaf_feat = np.where(
         (flat >= 0)[:, None, None], feats[gather], np.float32(0.0)
     ).reshape(num_leaves, leaf_size, 10, 4)

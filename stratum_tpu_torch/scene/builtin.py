@@ -2,7 +2,8 @@
 the Cornell box, the material spheres, the procedural atrium, the smoky
 Cornell box and the white furnace, built on the port's
 node graph with its numpy sphere tessellation and look_at, so building them
-pulls in nothing of the JAX package.
+pulls in nothing of the JAX package. The port adds the sphereflake of
+Haines' Standard Procedural Databases (:func:`sphereflake`).
 """
 
 from __future__ import annotations
@@ -240,4 +241,120 @@ def furnace(albedo: float = 0.8, radiance: float = 0.5, stacks: int = 16,
     m[:, 3] = (0.0, 0.0, -4.0)
     cam.make_component(TransformComponent(matrix=m))
     cam.make_component(CameraComponent(fovy=np.radians(45.0)))
+    return g
+
+
+# -- the SPD sphereflake (Haines, "A Proposal for Standard Graphics
+# Environments", IEEE CG&A 7(11), 1987: balls.c), as its NFF output gives it
+SPD_EYE = (2.1, 1.3, 1.7)
+SPD_AT = (0.0, 0.0, 0.0)
+SPD_UP = (0.0, 0.0, 1.0)
+SPD_FOV_DEG = 45.0
+SPD_BACKGROUND = (0.078, 0.361, 0.753)
+SPD_LIGHTS = ((4.0, 3.0, 2.0), (1.0, -4.0, 4.0), (-3.0, 1.0, 5.0))
+SPD_GROUND = ((12.0, 12.0, -0.5), (-12.0, 12.0, -0.5), (-12.0, -12.0, -0.5),
+              (12.0, -12.0, -0.5))
+SPD_LIGHT_RADIUS = 0.1
+
+
+def _axis_rotation(axis, angle: float) -> np.ndarray:
+    """Rodrigues' rotation by ``angle`` about the unit ``axis`` (float64)."""
+    a = np.asarray(axis, np.float64)
+    k = np.asarray([[0.0, -a[2], a[1]], [a[2], 0.0, -a[0]], [-a[1], a[0], 0.0]])
+    return np.eye(3) + np.sin(angle) * k + (1.0 - np.cos(angle)) * (k @ k)
+
+
+def _flake_directions() -> np.ndarray:
+    """The nine child directions about +z: three corners of a cuboctahedron
+    (pairwise 60 degrees apart) turned so that the triangular face normal
+    (1, 1, 1) becomes +z, then that trio at 0, 120 and 240 degrees about
+    +z: six on the equator and three above at 54.7 degrees."""
+    s = 1.0 / np.sqrt(2.0)
+    trio = np.asarray([[s, s, 0.0], [s, 0.0, -s], [0.0, s, -s]])
+    trio = trio @ _axis_rotation(np.asarray([1.0, -1.0, 0.0]) * s,
+                                 np.arccos(1.0 / np.sqrt(3.0))).T
+    return np.concatenate([trio @ _axis_rotation((0.0, 0.0, 1.0), k * 2.0 * np.pi / 3.0).T
+                           for k in range(3)])
+
+
+def sphereflake_spheres(size_factor: int = 4):
+    """The sphereflake's spheres in balls.c's output order (each sphere,
+    then each child's subtree) -> (centres [N, 3] f64, radii [N] f64),
+    N = 1 + 9 + ... + 9^size_factor. The root is (0, 0, 0) of radius 0.5;
+    each child has a third of its parent's radius r, touches it (centre
+    distance r + r / 3), and its nine directions are turned so that +z
+    points away from the parent."""
+    dirs = _flake_directions()
+    centres, radii = [], []
+
+    def grow(depth, centre, direction, radius):
+        centres.append(centre)
+        radii.append(radius)
+        if depth == 0:
+            return
+        if direction[2] >= 1.0:
+            frame = np.eye(3)
+        elif direction[2] <= -1.0:
+            frame = _axis_rotation((0.0, 1.0, 0.0), np.pi)
+        else:
+            axis = np.asarray([-direction[1], direction[0], 0.0])
+            frame = _axis_rotation(axis / np.linalg.norm(axis), np.arccos(direction[2]))
+        for d in dirs @ frame.T:
+            grow(depth - 1, centre + d * (radius * 4.0 / 3.0), d, radius / 3.0)
+
+    grow(int(size_factor), np.zeros(3), np.asarray([0.0, 0.0, 1.0]), 0.5)
+    return np.asarray(centres), np.asarray(radii)
+
+
+def sphereflake(size_factor: int = 4, stacks: int = 12, slices: int = 24) -> NodeGraph:
+    """SPD's ``balls`` database, the sphereflake: 7,381 spheres at the
+    default size factor 4 (3,897,530 triangles at 12 x 24 a sphere, with
+    the ground and the lights) on a 24 x 24 ground quad at z = -0.5, seen
+    from (2.1, 1.3, 1.7) toward the origin, z up, 45 degrees vertically.
+
+    One node a sphere, the unit UV sphere under a ``TransformComponent``.
+    The child layout (:func:`sphereflake_spheres`), the view, the lights
+    and the surfaces are recalled from balls.c's NFF output, not read from
+    its source. NFF's surfaces become Disney materials: the spheres' ``f 1
+    0.9 0.7 0.5 0.5 3.0827 0 0`` (half diffuse, half mirror) base colour (1,
+    0.9, 0.7), metallic 0.5, roughness 0.1; the ground's ``f 1 0.75 0.33 0.8
+    0 100 0 0`` base colour 0.8 x (1, 0.75, 0.33), roughness 1. Each point
+    light becomes an emitting sphere of radius 0.1 (6 x 12) whose radiance
+    L gives unit irradiance at the origin (pi r^2 L = d^2, d its distance).
+    The background becomes a constant environment, which, unlike NFF's,
+    lights the scene."""
+    g = NodeGraph()
+    sph_pos, _, _, sph_idx = tessellate_sphere(1.0, stacks, slices)
+    flake = Material(base_color=np.asarray([1.0, 0.9, 0.7], np.float32), metallic=0.5,
+                     roughness=0.1)
+    centres, radii = sphereflake_spheres(size_factor)
+    for i, (c, r) in enumerate(zip(centres, radii)):
+        m = np.eye(3, 4, dtype=np.float32)
+        m[:, :3] *= np.float32(r)
+        m[:, 3] = c
+        n = g.root.add_child(f"sphere_{i}")
+        n.make_component(TransformComponent(matrix=m))
+        n.make_component(MeshPrimitive(positions=sph_pos, indices=sph_idx, material=flake))
+    ground = g.root.add_child("ground")
+    pos, idx = _quad(*SPD_GROUND)
+    ground.make_component(MeshPrimitive(
+        positions=pos, indices=idx,
+        material=Material(base_color=np.asarray([0.8, 0.6, 0.264], np.float32))))
+    lpos, _, _, lidx = tessellate_sphere(1.0, 6, 12)
+    for i, p in enumerate(SPD_LIGHTS):
+        m = np.eye(3, 4, dtype=np.float32)
+        m[:, :3] *= np.float32(SPD_LIGHT_RADIUS)
+        m[:, 3] = p
+        radiance = float(np.dot(p, p)) / (np.pi * SPD_LIGHT_RADIUS ** 2)
+        n = g.root.add_child(f"light_{i}")
+        n.make_component(TransformComponent(matrix=m))
+        n.make_component(MeshPrimitive(
+            positions=lpos, indices=lidx,
+            material=Material(base_color=np.zeros(3, np.float32),
+                              emission=np.full(3, radiance, np.float32))))
+    env = g.root.add_child("env")
+    env.make_component(EnvironmentComponent(color=np.asarray(SPD_BACKGROUND, np.float32)))
+    cam = g.root.add_child("camera")
+    cam.make_component(TransformComponent(matrix=look_at(SPD_EYE, SPD_AT, SPD_UP)))
+    cam.make_component(CameraComponent(fovy=np.radians(SPD_FOV_DEG)))
     return g

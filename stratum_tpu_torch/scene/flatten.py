@@ -157,6 +157,9 @@ def flatten(root: Node, env_probability: float = 0.5, time: float | None = None,
     mat_rows: dict = {}
     vert_base = 0
     default_mat = Material()
+    # object-space smooth normals of meshes whose nodes share their arrays
+    # (instances of one mesh), with the arrays, so their ids stay theirs
+    smooth: dict = {}
 
     def material_row(mat) -> int:
         m = mat if mat is not None else default_mat
@@ -169,7 +172,10 @@ def flatten(root: Node, env_probability: float = 0.5, time: float | None = None,
     def add_mesh(node, positions, indices, normals, uvs, material):
         nonlocal vert_base
         if normals is None:
-            normals = compute_smooth_normals(positions, indices)
+            key = (id(positions), id(indices))
+            if key not in smooth:
+                smooth[key] = (positions, indices, compute_smooth_normals(positions, indices))
+            normals = smooth[key][2]
         if uvs is None:
             uvs = np.zeros((positions.shape[0], 2), np.float32)
         pw, nw = _transform_mesh(node.to_world(time), positions, normals)
@@ -301,12 +307,14 @@ def flatten(root: Node, env_probability: float = 0.5, time: float | None = None,
         tri_material=mat_p, tri_light=tri_light, tri_instance=inst_p,
         packed_tri=packed_rows,
     )
-    fat = (build_fat_bvh_sah(pos_p, idx_p, mat_p >= 0, leaf_size=LEAF_SIZE)
+    tri_features = build_tri_features(pos_p, idx_p, mat_p >= 0)
+    fat = (build_fat_bvh_sah(pos_p, idx_p, mat_p >= 0, leaf_size=LEAF_SIZE,
+                             features=tri_features)
            if (mat_p >= 0).any() else empty_fat_bvh(LEAF_SIZE))
     scene = schema.SceneData(
         geo=geo, materials=mats, lights=lights, env=env, fat_bvh=fat,
         slot_payload=build_slot_payload(packed_rows, mats, fat),
-        tri_features=build_tri_features(pos_p, idx_p, mat_p >= 0),
+        tri_features=tri_features,
         tri_payload=schema.build_tri_payload(packed_rows, mats.packed),
         bvh=build_bvh(pos_p, idx_p, mat_p >= 0),
         textures=textures,

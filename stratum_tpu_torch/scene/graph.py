@@ -1,7 +1,8 @@
 """Host-side scene graph: nodes, typed components, events.
 
-The port's copy of stratum_tpu/scene/graph.py (numpy only, unchanged), so
-that the port builds scenes without importing the JAX package.
+The port's copy of stratum_tpu/scene/graph.py (numpy only; the breadth-first
+walk takes a deque, so a graph of thousands of nodes walks in linear time),
+so that the port builds scenes without importing the JAX package.
 
 TPU-native analog of the reference engine's ECS-lite
 (src/Node/NodeGraph.hpp: NodeGraph/Node/component_ptr/Event). The graph is a
@@ -18,6 +19,7 @@ priority-sorted events for frame-loop hooks (NodeGraph.hpp:166-202).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import enum
 from typing import Any, Callable, Iterator, Optional, Type, TypeVar
@@ -110,9 +112,9 @@ class Node:
 
     def descendants(self) -> Iterator["Node"]:
         """BFS over the subtree including self (NodeGraph.hpp:275-344)."""
-        queue = [self]
+        queue = collections.deque([self])
         while queue:
-            n = queue.pop(0)
+            n = queue.popleft()
             yield n
             queue.extend(n.children)
 

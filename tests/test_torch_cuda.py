@@ -42,7 +42,11 @@ a-trous kernel (one launch an iteration) against the plain loop on the CPU
 at that bound, for every filter type with and without a history tap, on
 images with background pixels whose sides are no multiple of the kernel's
 32 x 8 CTA and lie under the last iteration's dilation of 16, so the taps'
-edge clamps bind.
+edge clamps bind. SPD's sphereflake at size factor 2 forced into the
+culled list mode: K1 / K2 against the plain walk, the lists bit for bit
+against the plain two-level phase, and the recorder's ``overflow`` and
+``reached_keys`` counters equal to its sums, with and without overflowing
+CTAs.
 """
 
 import dataclasses
@@ -251,6 +255,83 @@ def test_culled_lists_past_the_budget(dev, monkeypatch, gs):
         assert torch.equal(ph.overflow, _expected_overflow(lists, tm, "culled"))
         overflowed.append(int(ph.overflow.sum()))
     assert overflowed[0] == 0 and 0 < overflowed[1] < n_cta, (overflowed, longest)
+
+
+@pytest.fixture(scope="module")
+def flake(dev):
+    """SPD's sphereflake at size factor 2 (91 spheres of 528 triangles, the
+    ground, three light spheres) on the card, and 8,192 camera rays at
+    128 x 64 followed by 8,192 rays leaving the spheres' surfaces, every 5th
+    lane dead and every 3rd short."""
+    g = builtin.sphereflake(size_factor=2)
+    scene, _ = flatten.flatten(g.root, device=dev)
+    node, cam = flatten.find_camera(g.root)
+    view = camera.make_view(node.to_world(), cam.fovy, 128, 64, device=dev)
+    rng = np.random.default_rng(5)
+    px, py = camera.pixel_grid(128, 64, dev)
+    jit = torch.from_numpy(rng.random((8192, 2), dtype=np.float32)).to(dev)
+    o_cam, d_cam = camera.generate_rays(view, px, py, jit, 128, 64)
+    centres, radii = builtin.sphereflake_spheres(2)
+    k = rng.integers(0, len(radii), 8192)
+    n = rng.normal(size=(8192, 3))
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    o_s = centres[k] + n * radii[k, None] * 1.001
+    d_s = n + rng.normal(size=(8192, 3))
+    d_s /= np.linalg.norm(d_s, axis=1, keepdims=True)
+    as_dev = lambda x: torch.from_numpy(x.astype(np.float32)).to(dev)  # noqa: E731
+    o = torch.cat([o_cam, as_dev(o_s)]).contiguous()
+    d = torch.cat([d_cam, as_dev(d_s)]).contiguous()
+    t_max = np.full(16384, intersect.T_MAX, np.float32)
+    t_max[::5] = 0.0
+    t_max[1::3] = rng.uniform(0.05, 2.0, t_max[1::3].shape)
+    return scene.fat_bvh, o, d, as_dev(t_max)
+
+
+@pytest.mark.parametrize("tight", [False, True], ids=["default_budget", "small_budget"])
+def test_culled_counters_on_the_flake(flake, monkeypatch, tight):
+    """The flake forced into the culled list mode (super-groups of 4) at gs
+    4 and 1, under the recorder: K1 / K2 against the plain walk, each CTA's
+    list bit for bit against the plain two-level phase
+    (``culled_lists``), and the launch span's ``overflow`` and
+    ``reached_keys`` equal to that phase's overflow and ``ncand`` sums;
+    with the list budget cut below the longest list, CTAs overflow."""
+    fat, o, d, tm = flake
+    monkeypatch.setattr(block_trace, "SUPER_SIZE", 4)
+    hp = block_trace.block_closest_plain(fat, o, d, tm)
+    op = block_trace.block_occluded_plain(fat, o, d, tm)
+    overflowed = 0
+    for gs in (4, 1):
+        for occluded in (False, True):
+            bound = tm * block_trace.SHADOW_EPS if occluded else tm
+            cap = block_trace.CULL_LIST_KEYS
+            lists, over = block_trace.culled_lists(fat, o, d, bound, gs, block_trace.CTA,
+                                                   super_size=4, cap=cap)
+            if tight:
+                cap = 1 << ((int(lists.ncand.max()) - 1).bit_length() - 1)
+                lists, over = block_trace.culled_lists(fat, o, d, bound, gs, block_trace.CTA,
+                                                       super_size=4, cap=cap)
+            monkeypatch.setattr(block_trace, "CULL_LIST_KEYS", cap)
+            prep = block_trace._prepare(fat, o, d, bound, gs)
+            sprof.start()
+            try:
+                *res, got = block_trace.launch(fat, prep, occluded, stats="lists",
+                                               list_mode="culled")
+            finally:
+                sprof.stop()
+            (rec,) = [r for r in sprof.records() if r.name == "launch"]
+            n_cta = got.ncand.numel()
+            for a, b in zip(got, lists):
+                assert torch.equal(a, b[:n_cta]), (gs, occluded, tight)
+            if occluded:
+                blocked = res[0][:prep.n].bool()
+                assert (blocked == op).float().mean().item() >= AGREE
+            else:
+                _close_slots(res[0][:prep.n], res[1][:prep.n], hp.t, hp.slot)
+            assert rec.attrs["mode"] == "culled" and rec.attrs["ctas"] == n_cta
+            assert rec.attrs["overflow"] == int(over.sum())
+            assert rec.attrs["reached_keys"] == int(lists.ncand.sum())
+            overflowed += rec.attrs["overflow"]
+    assert (overflowed > 0) == tight, overflowed
 
 
 def _padded(atrium, g):

@@ -5,9 +5,11 @@ spans (portbench/progspans.py, portbench/metrics/).
 Under torch's profiler a tiny denoised frame records the span tree at the
 layer boundaries, with shared call ids and the waves' lane counters; with
 stand-in CUDA events, their device extents nest as the host spans do. Off,
-the session's next frame records nothing and creates no event. The
-readers' arithmetic runs on a made-up stretch whose numbers are worked out
-by hand in the comments.
+the session's next frame records nothing and creates no event. The block
+tracer's ``launch`` span carries its list mode and CTAs in every mode and
+the list phase's device counters in the culled and global modes only; off,
+no counter buffer is made. The readers' arithmetic runs on a made-up
+stretch whose numbers are worked out by hand in the comments.
 """
 
 from types import SimpleNamespace
@@ -17,13 +19,14 @@ import torch
 
 from portbench import devtrace, harness, progspans
 from portbench.tests import _tiny
+from stratum_tpu_torch.ops import block_trace
 from stratum_tpu_torch.render import camera, integrator, session, tonemap
 from stratum_tpu_torch.scene import builtin, flatten
 from stratum_tpu_torch.utils import profiler as pprofiler
 
 METRICS = ("host_issue_ms.path", "host_issue_ms.lanes", "host_issue_ms.frame",
            "idle_shade_ms.path", "idle_tracer_ms.path", "atrous_ms.frame",
-           "live_lanes_pct.path")
+           "live_lanes_pct.path", "list_overflow_pct.path", "reached_keys.path")
 
 
 @pytest.fixture(scope="module")
@@ -152,10 +155,11 @@ TREE = [  # name, parent, call, attrs, host ms, device begin / end
     ("camera", 0, 1, {}, 0.5, 0, 8),
     ("bounce", 0, 1, {"depth": 0}, 3.0, 10, 90),
     ("closest", 2, 1, {"lanes": 100, "live": 80}, 1.0, 20, 50),
-    ("launch", 3, 1, {"kernels": 2}, 0.2, 22, 45),
+    ("launch", 3, 1, {"kernels": 2, "mode": "culled", "ctas": 40, "overflow": 2,
+                      "reached_keys": 3000}, 0.2, 22, 45),
     ("shade", 2, 1, {}, 2.0, 50, 90),
     ("shadow", 0, 1, {}, 1.0, 91, 98),
-    ("launch", 6, 1, {"kernels": 1}, 0.2, 92, 97),
+    ("launch", 6, 1, {"kernels": 1, "mode": "shared", "ctas": 10}, 0.2, 92, 97),
     ("frame", -1, 2, {}, 4.0, 100, 130),
     ("denoise", 8, 2, {}, 3.0, 100, 130),
     ("atrous", 9, 2, {"it": 0}, 1.0, 105, 115),
@@ -181,6 +185,8 @@ WANT = {  # per unit: host ms; idle and device us / 1e3; live lanes 80 of 100
     "idle_tracer_ms.path": (7 + 3 + 2) / 1e3 / UNITS,
     "atrous_ms.frame": (8 + 4) / 1e3 / UNITS,  # the 124-126 kernel straddles an end
     "live_lanes_pct.path": 80.0,
+    "list_overflow_pct.path": 100.0 * 2 / 40,  # the culled launch's 40 CTAs only
+    "reached_keys.path": 3000 / 40,
 }
 
 
@@ -255,6 +261,51 @@ def test_reader_on_a_made_up_stretch(name, monkeypatch):
     st = devtrace.Stretch(intervals=_intervals(), spans=[], window_s=1.0, units=UNITS)
     assert _read(name, st) == pytest.approx(WANT[name])
     assert _read(name, None) is None
+
+
+@pytest.mark.parametrize("mode", ["shared", "culled", "global"])
+def test_launch_span_carries_the_list_mode_and_counters(mode):
+    """A recorded ``launch`` span keeps its list mode and CTAs; in the
+    culled and global modes it also gets the zeroed buffer the kernel adds
+    to, whose two words it reads as ``overflow`` and ``reached_keys``."""
+    pprofiler.start()
+    try:
+        span = pprofiler.begin("launch")
+        counts = block_trace._list_counts(span, mode, 7, "cpu")
+        if counts is not None:
+            assert counts.tolist() == [0, 0]
+            counts += torch.tensor([2, 300])  # what the CTAs' atomics would add
+        pprofiler.end(span)
+    finally:
+        pprofiler.stop()
+    (rec,) = pprofiler.records()
+    want = {"mode": mode, "ctas": 7}
+    if mode != "shared":
+        want.update(overflow=2, reached_keys=300)
+    assert (counts is None) == (mode == "shared") and rec.attrs == want
+
+
+@pytest.mark.parametrize("mode", ["shared", "culled", "global"])
+def test_no_counter_buffer_with_the_recorder_off(mode, monkeypatch):
+    """Off, ``begin`` gives no span, so no buffer is made and the kernel's
+    pointer is null (None through ctypes)."""
+    def refuse(*a, **k):
+        raise AssertionError("a counter buffer was made with the recorder off")
+
+    monkeypatch.setattr(torch, "zeros", refuse)
+    span = pprofiler.begin("launch")
+    assert span is None and block_trace._list_counts(span, mode, 7, "cpu") is None
+
+
+@pytest.mark.parametrize("name", ["list_overflow_pct.path", "reached_keys.path"])
+def test_list_readers_without_the_counters(name, monkeypatch):
+    """A program whose launch spans carry no list counters (an older tree,
+    or only shared-mode launches) gives no number."""
+    plain = [(n, p, c, {"kernels": a["kernels"]} if n == "launch" else a, *rest)
+             for n, p, c, a, *rest in TREE]
+    monkeypatch.setattr(progspans, "program_records", lambda: _records(plain))
+    st = devtrace.Stretch(intervals=_intervals(), spans=[], window_s=1.0, units=UNITS)
+    assert _read(name, st) is None
 
 
 @pytest.mark.parametrize("name", METRICS)
