@@ -31,7 +31,8 @@ Phases, each printing its results:
 5. main path: ``render_path_with_counts`` on the full atrium at 1920x1080
    with the bench configuration (Disney, 4 bounces, presample 4096,
    coherent tiles 16): 1 warm-up and 4 timed samples; the kernel launch
-   counters are zeroed just before and read just after this phase;
+   counters are zeroed just before and read just after this phase (the
+   Disney kernels' 10 a sample among them);
 6. the binned path: the same render with ``binned_secondary=8,
    binned_shadow=8``. The registers and resident CTAs of K5 and of the
    emission kernel; then one sample's binned waves (4 sorted closest waves,
@@ -215,7 +216,15 @@ Phases, each printing its results:
    against ``render_path`` (tests/test_parallel.py's bounds), the atrium in
    5 shards against phase 5's sample (shards of whole 2,048-lane granules:
    the image and the rays equal bit for bit) and a denoised
-   ``RenderSession`` frame on the mesh.
+   ``RenderSession`` frame on the mesh;
+18. the Disney BSDF kernels (``csrc/disney.cu``): one 1920x1080 sample of
+   each benchmark configuration in DISNEY_CONFIGS (``portbench/configs/``,
+   the scene built as ``portbench.harness`` builds it) with the inputs of
+   its 10 Disney calls kept (an eval for NEE and a sample a bounce, 10
+   launches); each call run by the kernel and by the plain torch body on
+   the card: the differing lanes of every output (0: bit for bit) and
+   differing words, each launch's device time beside its bytes bound, the
+   plain body's time, and both kernels' registers and spills (no spill).
 
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 result line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -252,6 +261,9 @@ PARITY_MEAN_REL = 2 * 0.02
 PARITY_PIXEL_SHARE = 1.0 - 2 * 0.03
 PARITY_RAYS_REL = 2 * 0.01
 BENCH = dict(max_bounces=4, bsdf="disney", presample_lights=4096, coherent_tiles=16)
+# disney.LAUNCHES over _timed_samples' 5 samples of a BENCH path: a 4-bounce
+# sample launches an eval (NEE) and a sample a bounce, 10 in all
+DISNEY_5 = {"disney eval": 25, "disney sample": 25}
 BINNED = dict(binned_secondary=8, binned_shadow=8)
 # published peaks of one H100 SXM (NVIDIA data sheet): f32 outside the
 # tensor cores, and HBM3 bandwidth
@@ -538,9 +550,9 @@ def _traced_launches(fn) -> tuple:
 
 def _zero_launches():
     from stratum_tpu_torch.ops import binned, block_trace
-    from stratum_tpu_torch.render import denoise
+    from stratum_tpu_torch.render import denoise, disney
 
-    for counts in (block_trace.LAUNCHES, binned.LAUNCHES):
+    for counts in (block_trace.LAUNCHES, binned.LAUNCHES, disney.LAUNCHES):
         for k in counts:
             counts[k] = 0
     denoise.LAUNCHES = 0
@@ -553,7 +565,7 @@ def _timed_samples(scene, view, cfg_run, label, scene_name, smi, samples: int = 
     peak GiB, image mean)."""
     import torch
     from stratum_tpu_torch.ops import binned, block_trace
-    from stratum_tpu_torch.render import integrator
+    from stratum_tpu_torch.render import disney, integrator
 
     W, H = cfg_run.width, cfg_run.height
     torch.cuda.synchronize()
@@ -570,6 +582,7 @@ def _timed_samples(scene, view, cfg_run, label, scene_name, smi, samples: int = 
             total_rays += n
     launches = {f"block {k}": v for k, v in block_trace.LAUNCHES.items()}
     launches.update({f"binned {k}": v for k, v in binned.LAUNCHES.items()})
+    launches.update({f"disney {k}": v for k, v in disney.LAUNCHES.items()})
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     mean = float(img.mean())
     ms_spp = sum(times) / len(times) * 1e3
@@ -589,7 +602,7 @@ def _build():
     """Phase 2: every kernel source built by its own nvcc, all at once."""
     from stratum_tpu_torch.utils import cuda_build
 
-    names = ("block_trace", "binned", "microbench", "atrous")
+    names = ("block_trace", "binned", "microbench", "atrous", "disney")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(cuda_build.load, names))
@@ -1244,7 +1257,7 @@ GOLDENS = {  # tests/update_goldens.py:41-52 (48x48, rr_depth=100)
 FURNACE_REL = 0.04  # sphere mean against albedo x radiance (tests/test_torch_dense_path.py)
 DIRECT_MEAN_REL = 1e-3  # render_direct, auto (mxu) against brute
 DIRECT_PIXEL_SHARE = 0.999
-GPU_TESTS = 76  # tests in tests/test_torch_cuda.py
+GPU_TESTS = 84  # tests in tests/test_torch_cuda.py
 
 
 def _modes_equal(fat, o, d, bound, occluded, gs):
@@ -1810,7 +1823,7 @@ def _colonnade(dev, smi):
     closest, occluded = _colonnade_waves(scene, view, cfg, rng)
     launches, img, main = _timed_samples(scene, view, cfg, "13 colonnade", "colonnade", smi)
     assert launches == {"block closest": 25, "block occluded": 5, "binned emit": 0,
-                        "binned closest": 0, "binned occluded": 0}, launches
+                        "binned closest": 0, "binned occluded": 0, **DISNEY_5}, launches
     busy, ops = profile_sample.device_profile(scene, view, cfg, 1)
     split = _texture_layers(scene, view, cfg, 2)
     share = ("not measured: the profiler recorded no device events" if busy is None
@@ -3121,7 +3134,7 @@ def _scan(dev, smi):
     assert one == traced and one["closest"] % SCAN_WAVES["closest"] == 0, (one, traced)
     assert one["closest"] >= SCAN_WAVES["closest"] and one["occluded"] >= 1, one
     want = {f"block {k}": SCAN_SAMPLES * v for k, v in one.items()}
-    want.update({"binned emit": 0, "binned closest": 0, "binned occluded": 0})
+    want.update({"binned emit": 0, "binned closest": 0, "binned occluded": 0, **DISNEY_5})
     assert launches == want, (launches, want)
     busy, ops = profile_sample.device_profile(scene, view, cfg, 1)
     share = ("not measured: the profiler recorded no device events" if busy is None
@@ -3516,6 +3529,147 @@ def _loaded_phase(dev, smi, atrium, atrium_view, main5, img5):
     return dict(scan=scan["path"], tools=tools, gltf=glb, volumes=vols, mesh=mesh), scan["waves"]
 
 
+# ---- 18: the Disney BSDF kernels (csrc/disney.cu) ------------------------------
+DISNEY_CONFIGS = ("atrium", "sphereflake")  # portbench/configs/ whose sample feeds phase 18
+DISNEY_SEED = 20261018
+DISNEY_REPS = 5  # traced launches a captured call
+_DISNEY_NAME = re.compile(r"disney_(eval|sample)_kernel")
+# needed bytes a lane: 11 material floats, wo and wi or u in; f, pdf and
+# pdf_rev out (eval), and wi and eta besides (sample)
+DISNEY_BYTES = {"eval": 4 * (11 + 3 + 3) + 4 * 5, "sample": 4 * (11 + 3 + 3) + 4 * 9}
+
+
+def _disney_sample_calls(dev, name: str):
+    """One sample of a benchmark configuration (``portbench/configs/<name>``,
+    its scene built as ``portbench.harness`` builds it) with every Disney
+    call's inputs kept -> (calls [(op, depth, mat, wo, wi or u)],
+    ``disney.LAUNCHES`` of the sample, flatten s)."""
+    import importlib
+
+    import torch
+
+    from portbench import harness
+    from stratum_tpu_torch.render import camera, disney, integrator
+    from stratum_tpu_torch.scene import flatten
+
+    conf = harness.load_json(ROOT / "portbench" / "configs" / f"{name}.json")
+    raw = importlib.import_module(f"portbench.scenes.{conf['scene']}").build(
+        {**conf.get("scene_params", {}), "camera": conf["camera"]}, DISNEY_SEED, None)
+    t0 = time.perf_counter()
+    scene, _ = flatten.flatten(harness.build_program_scene(raw).root,
+                               env_probability=float(conf["env_probability"]), device=dev)
+    torch.cuda.synchronize()
+    flatten_s = time.perf_counter() - t0
+    w, h = int(conf["width"]), int(conf["height"])
+    view = camera.make_view(raw["camera"]["camera_to_world"], raw["camera"]["fovy"], w, h,
+                            device=dev)
+    cfg = integrator.RenderConfig(width=w, height=h, **conf["render"])
+    calls = []
+    real = {"eval": disney.disney_eval, "sample": disney.disney_sample}
+
+    def keep(op):
+        def call(mat, wo, arg):
+            calls.append((op, sum(c[0] == "sample" for c in calls), mat, wo, arg))
+            return real[op](mat, wo, arg)
+        return call
+
+    _zero_launches()
+    disney.disney_eval, disney.disney_sample = keep("eval"), keep("sample")
+    try:
+        integrator.render_path_with_counts(scene, view, cfg, DISNEY_SEED)
+    finally:
+        disney.disney_eval, disney.disney_sample = real["eval"], real["sample"]
+    torch.cuda.synchronize()
+    return calls, dict(disney.LAUNCHES), flatten_s
+
+
+def _differing_lanes(got, want) -> int:
+    """Lanes where two outputs differ by value, or where one is NaN and the
+    other not."""
+    import torch
+
+    gn, wn = torch.isnan(got), torch.isnan(want)
+    bad = (gn != wn) | (~gn & ~wn & (got != want))
+    return int(bad.reshape(bad.shape[0], -1).any(-1).sum())
+
+
+def _disney_phase(dev, smi):
+    """Phase 18: the Disney kernels on the inputs of every bounce of one
+    1920x1080 sample of each benchmark configuration in DISNEY_CONFIGS:
+    each captured call (an eval for NEE and a sample a bounce) run by the
+    kernel and by the plain torch body on the card, the differing lanes of
+    every output printed (all must be 0: the kernel is the plain body bit
+    for bit) beside the differing 32-bit words; each launch's device time
+    (median of DISNEY_REPS ``torch.profiler``-traced launches, and
+    DISNEY_REPS launches back to back between CUDA events) beside its
+    bound, the needed bytes at the memory rate; the plain body's time on
+    the card (host clock, synchronised); each kernel's registers, stack
+    frame and spills (ptxas's report: no spill)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from stratum_tpu_torch.render import disney
+    from stratum_tpu_torch.utils import cuda_build
+
+    info = {op: disney.kernel_info(op == "sample") for op in ("eval", "sample")}
+    ptxas = [ln.strip() for ln in cuda_build.BUILD_LOG.get("disney.cu", "").splitlines()
+             if "registers" in ln or "spill" in ln]
+    print(f"[18 disney] kernel_info {info}; ptxas: {' | '.join(ptxas)}", flush=True)
+    out, bad = {}, []
+    for name in DISNEY_CONFIGS:
+        calls, launches, flatten_s = _disney_sample_calls(dev, name)
+        rows = []
+        for op, depth, mat, wo, arg in calls:
+            kern = disney.disney_eval if op == "eval" else disney.disney_sample
+            plain = disney._disney_eval_plain if op == "eval" else disney._disney_sample_plain
+            got, (want, plain_ms) = kern(mat, wo, arg), _sync_ms(lambda: plain(mat, wo, arg))
+            diff = {f: _differing_lanes(a, b) for f, a, b in zip(got._fields, got, want)}
+            words = {f: int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                     for f, a, b in zip(got._fields, got, want)}
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                torch.ones(1, device=dev).add_(1)
+                torch.cuda.synchronize()
+                for _ in range(DISNEY_REPS):
+                    kern(mat, wo, arg)
+                torch.cuda.synchronize()
+            times = sorted(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                           if e.device_type == DeviceType.CUDA and _DISNEY_NAME.search(e.name))
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(DISNEY_REPS):
+                kern(mat, wo, arg)
+            stop.record()
+            torch.cuda.synchronize()
+            back_ms = start.elapsed_time(stop) / DISNEY_REPS
+            lanes = got.pdf_fwd.numel()
+            bound = lanes * DISNEY_BYTES[op] / PEAK_BYTES_S * 1e3
+            ms = times[len(times) // 2] if times else None
+            row = dict(op=op, depth=depth, lanes=lanes, differing=diff, words=words, ms=ms,
+                       traced=len(times), back_to_back_ms=back_ms, bound_ms=bound,
+                       plain_ms=plain_ms)
+            rows.append(row)
+            if any(diff.values()):
+                bad.append((name, op, depth, diff))
+            print(f"[18 disney] {name} bounce {depth} {op}: {lanes:,} lanes, differing lanes "
+                  f"{diff}, differing words {words}; kernel "
+                  + (f"{ms:.4f} ms ({len(times)} traced" if ms else "not traced (a trace may "
+                     "miss a kernel")
+                  + f"; {back_ms:.4f} ms a launch back to back; bound {bound:.4f} ms, bytes, "
+                  f"{(ms or back_ms) / bound:.1f}x); plain body on the card {plain_ms:.2f} ms",
+                  flush=True)
+        print(f"[18 disney] {name}: {len(calls)} calls, {launches} launches in the sample "
+              f"(flatten {flatten_s:.1f} s) | {smi}", flush=True)
+        out[name] = dict(launches=launches, calls=rows, flatten_s=flatten_s)
+        assert launches == {"eval": 5, "sample": 5} and len(calls) == 10, (launches, len(calls))
+        del calls
+        torch.cuda.empty_cache()
+    assert not bad, bad
+    assert all(i["spill_stores"] == 0 and i["spill_loads"] == 0 for i in info.values()), info
+    return dict(info=info, **out)
+
+
 def _gpu_tests():
     """Phase 12: tests/test_torch_cuda.py in a subprocess (no conftest: the
     card has no JAX); every test must pass, none skip."""
@@ -3713,7 +3867,7 @@ def main() -> int:
     # ---- 5: main path -------------------------------------------------------
     launches, img5, main5 = _timed_samples(scene, view, cfg, "5 main path", "atrium", smi)
     assert launches == {"block closest": 25, "block occluded": 5, "binned emit": 0,
-                        "binned closest": 0, "binned occluded": 0}, launches
+                        "binned closest": 0, "binned occluded": 0, **DISNEY_5}, launches
 
     # ---- 6: the binned path -------------------------------------------------
     for name, info in (("binned_min_kernel (K5)", binned.kernel_info("bin")),
@@ -3741,7 +3895,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches6, img6, main6 = _timed_samples(scene, view, cfg6, "6 binned path", "atrium", smi)
     assert launches6 == {"block closest": 5, "block occluded": 0, "binned emit": 25,
-                         "binned closest": 20, "binned occluded": 5}, launches6
+                         "binned closest": 20, "binned occluded": 5, **DISNEY_5}, launches6
     print(f"[6 binned path] {main6['ms_spp']:.1f} ms/spp vs {main5['ms_spp']:.1f} (phase 5); "
           f"image mean {main6['mean']:.6f} vs {main5['mean']:.6f} "
           f"(rel {abs(main6['mean'] - main5['mean']) / main5['mean']:.2e})", flush=True)
@@ -3807,6 +3961,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     loaded, scan_waves = _loaded_phase(dev, smi, scene, view, main5, img5)
     scan_k1, scan_k2 = scan_waves["closest"], scan_waves["occluded"]
+
+    # ---- 18: the Disney BSDF kernels on the benchmark's samples --------------
+    torch.cuda.empty_cache()
+    dis = _disney_phase(dev, smi)
 
     # ms / plain_ms / wrapper_ms of K1 are means per closest wave over the
     # main path's five waves; K2's are the deferred shadow wave's. K3's are
@@ -3966,6 +4124,18 @@ def main() -> int:
              bound_by="/".join(sorted(set(atrous["bound_by"]))),
              wave_ms=atrous["launch_ms"], wave_bound_ms=atrous["bound_ms"],
              wave_bound_by=atrous["bound_by"]),
+    ] + [
+        dict(common, name=f"Disney {op}", source="stratum_tpu_torch/csrc/disney.cu",
+             replaces=f"stratum_tpu/render/disney.py::disney_{op}", pallas=False,
+             note="the reference's jnp Disney BSDF, not a Pallas kernel",
+             launches=launches[f"disney {op}"],
+             max_abs_err=0.0 if not any(any(c["differing"].values()) for k in DISNEY_CONFIGS
+                                        for c in dis[k]["calls"]) else None,
+             info=dis["info"][op],
+             **{k: {f: [c[f] for c in dis[k]["calls"] if c["op"] == op]
+                    for f in ("ms", "back_to_back_ms", "bound_ms", "plain_ms", "lanes")}
+                for k in DISNEY_CONFIGS})
+        for op in ("eval", "sample")
     ] + t_kernels
     print(json.dumps({"kernels": kernels,
                       "paths": {"main": main5, "binned": main6, "cornell": cornell,

@@ -6,9 +6,21 @@ f and pdf always come from the full mixture.
 Conventions: local frame with wo.z > 0; wi.z < 0 is transmission;
 ``mat.eta`` is the relative IOR of the transmitted side; f excludes
 |cos theta_i|.
+
+On CUDA tensors (f32 [N] and [N, 3], views as they are) :func:`disney_eval`
+and :func:`disney_sample` are one launch each of ``csrc/disney.cu``
+(``LAUNCHES`` counts them by op), bit for bit with the plain bodies on the
+card; on CPU tensors the plain bodies, :func:`_disney_eval_plain` and
+:func:`_disney_sample_plain`, run. There is
+no fallback from one to the other: a CUDA tensor launches the kernel or
+raises. Each call is a ``bsdf`` span with ``op`` (``eval`` / ``sample``),
+``lanes`` and ``kernels`` (the launches it enqueued).
 """
 
 from __future__ import annotations
+
+import ctypes
+import re
 
 import torch
 
@@ -16,6 +28,7 @@ from stratum_tpu_torch.core import math as smath
 from stratum_tpu_torch.core import microfacet as mf
 from stratum_tpu_torch.render.bsdf import BSDFEval, BSDFSample
 from stratum_tpu_torch.render.shading import MaterialSample
+from stratum_tpu_torch.utils import profiler as sprof
 
 
 def _lobe_weights(mat: MaterialSample):
@@ -140,8 +153,8 @@ def _clearcoat_eval(mat, wo, wi, h):
     return f, pdf, pdf
 
 
-def disney_eval(mat: MaterialSample, wo, wi) -> BSDFEval:
-    """Full-mixture eval."""
+def _disney_eval_plain(mat: MaterialSample, wo, wi) -> BSDFEval:
+    """:func:`disney_eval` in plain torch ops, on any device."""
     ax, ay = mf.ggx_alpha(mat.roughness, mat.anisotropic)
     h_refl = smath.normalize(wi + wo)
     h_refl = h_refl * torch.sign(h_refl[..., 2:3])
@@ -159,9 +172,8 @@ def disney_eval(mat: MaterialSample, wo, wi) -> BSDFEval:
     return BSDFEval(f=f, pdf_fwd=pdf, pdf_rev=pdf_rev)
 
 
-def disney_sample(mat: MaterialSample, wo, u) -> BSDFSample:
-    """Pick a lobe by weight with u[..., 2], generate wi with u[..., 0:2],
-    then evaluate the full mixture at wi."""
+def _disney_sample_plain(mat: MaterialSample, wo, u) -> BSDFSample:
+    """:func:`disney_sample` in plain torch ops, on any device."""
     ax, ay = mf.ggx_alpha(mat.roughness, mat.anisotropic)
     _, _, _, _, pd, pm, pg, pc = _lobe_weights(mat)
     u1, u2, usel = u[..., 0], u[..., 1], u[..., 2]
@@ -190,9 +202,134 @@ def disney_sample(mat: MaterialSample, wo, u) -> BSDFSample:
         ),
     )
     wi = smath.normalize(wi)
-    ev = disney_eval(mat, wo, wi)
+    ev = _disney_eval_plain(mat, wo, wi)
     took_trans = (usel >= c_m) & (usel < c_g) & ~glass_reflects
     return BSDFSample(
         wi=wi, f=ev.f, pdf_fwd=ev.pdf_fwd, pdf_rev=ev.pdf_rev,
         eta=torch.where(took_trans, eta, 0.0), roughness=mat.roughness,
     )
+
+
+def disney_eval(mat: MaterialSample, wo, wi) -> BSDFEval:
+    """Full-mixture eval: f [..., 3], the forward and the reverse pdf."""
+    span = sprof.begin("bsdf")
+    try:
+        if wo.device.type == "cuda":
+            ev, launched = _launch(False, mat, wo, wi)
+        else:
+            ev, launched = _disney_eval_plain(mat, wo, wi), 0
+        _count(span, "eval", ev.pdf_fwd.numel(), launched)
+    finally:
+        sprof.end(span)  # its end event follows the kernel
+    return ev
+
+
+def disney_sample(mat: MaterialSample, wo, u) -> BSDFSample:
+    """Pick a lobe by weight with u[..., 2], generate wi with u[..., 0:2],
+    then evaluate the full mixture at wi."""
+    span = sprof.begin("bsdf")
+    try:
+        if wo.device.type == "cuda":
+            bs, launched = _launch(True, mat, wo, u)
+        else:
+            bs, launched = _disney_sample_plain(mat, wo, u), 0
+        _count(span, "sample", bs.pdf_fwd.numel(), launched)
+    finally:
+        sprof.end(span)
+    return bs
+
+
+def _count(span, op: str, lanes: int, launched: int):
+    sprof.count(span, "op", op)
+    sprof.count(span, "lanes", lanes)
+    sprof.count(span, "kernels", launched)
+
+
+LAUNCHES = {"eval": 0, "sample": 0}  # Disney kernels enqueued (one a call on CUDA tensors)
+
+# the material columns in the kernel's Field order; wo and wi (eval) or u
+# (sample) follow
+_FIELDS = ("base_color", "metallic", "roughness", "anisotropic", "subsurface", "clearcoat",
+           "clearcoat_gloss", "transmission", "eta")
+_VECTORS = ("base_color", "wo", "wi", "u")  # [N, 3]; the rest [N]
+
+
+def _lib():
+    from stratum_tpu_torch.utils import cuda_build
+
+    lib = cuda_build.load("disney")
+    if not getattr(lib, "_stratum_bound", False):
+        ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
+        lib.disney_eval.argtypes = [ptr] * 3 + [i64] + [ptr] * 4
+        lib.disney_sample.argtypes = [ptr] * 3 + [i64] + [ptr] * 6
+        lib.disney_info.argtypes = [ctypes.c_int, ptr]
+        for fn in (lib.disney_eval, lib.disney_sample, lib.disney_info):
+            fn.restype = ctypes.c_int
+        lib._stratum_bound = True
+    return lib
+
+
+def kernel_info(sample: bool) -> dict:
+    """Registers, local bytes, resident CTAs per SM and CTA threads of the
+    eval or the sample kernel; then, from ptxas's report of the library,
+    its stack frame and spilled bytes (stores, loads), None without a
+    report."""
+    from stratum_tpu_torch.utils import cuda_build
+
+    out = (ctypes.c_int * 4)()
+    rc = _lib().disney_info(int(sample), out)
+    if rc != 0:
+        raise RuntimeError(f"disney_info failed: cudaError {rc}")
+    info = dict(zip(("registers", "local_bytes", "ctas_per_sm", "threads"), out))
+    kernel = "disney_sample_kernel" if sample else "disney_eval_kernel"
+    lines = cuda_build.BUILD_LOG.get("disney.cu", "").splitlines()
+    frame = None
+    for ln, nxt in zip(lines, lines[1:]):
+        if "Function properties for" in ln and kernel in ln:
+            frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                              r"(\d+) bytes spill loads", nxt)
+    for i, key in enumerate(("stack_bytes", "spill_stores", "spill_loads"), start=1):
+        info[key] = int(frame[i]) if frame else None
+    return info
+
+
+def _launch(sample: bool, mat: MaterialSample, wo, arg):
+    """One ``csrc/disney.cu`` launch over the N lanes of the inputs -> (
+    BSDFEval or BSDFSample, launches enqueued: 1, or 0 for N = 0). Every
+    input is an f32 [N] or [N, 3] tensor on one CUDA device, passed by
+    pointer and strides as it is (the material columns are views of the
+    payload rows)."""
+    dev, n = wo.device, wo.shape[0]
+    names = _FIELDS + ("wo", "u" if sample else "wi")
+    inputs = [getattr(mat, k) for k in _FIELDS] + [wo, arg]
+    ptrs = (ctypes.c_void_p * len(names))()
+    lane, comp = (ctypes.c_longlong * len(names))(), (ctypes.c_longlong * len(names))()
+    for k, (x, name) in enumerate(zip(inputs, names)):
+        vec = name in _VECTORS
+        shape = (n, 3) if vec else (n,)
+        if x.device != dev or x.dtype != torch.float32 or tuple(x.shape) != shape:
+            raise ValueError(f"{name}: expected f32 {shape} on {dev}, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
+        ptrs[k], lane[k], comp[k] = x.data_ptr(), x.stride(0), x.stride(1) if vec else 0
+    f32 = dict(dtype=torch.float32, device=dev)
+    f, pdf, rev = torch.empty((n, 3), **f32), torch.empty((n,), **f32), torch.empty((n,), **f32)
+    if sample:
+        wi, eta = torch.empty((n, 3), **f32), torch.empty((n,), **f32)
+    if n > 0:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        lib = _lib()
+        with torch.cuda.device(dev):  # the runtime launches on the current device
+            if sample:
+                rc = lib.disney_sample(ptrs, lane, comp, n, wi.data_ptr(), f.data_ptr(),
+                                       pdf.data_ptr(), rev.data_ptr(), eta.data_ptr(), stream)
+            else:
+                rc = lib.disney_eval(ptrs, lane, comp, n, f.data_ptr(), pdf.data_ptr(),
+                                     rev.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"Disney kernel launch failed: cudaError {rc}")
+    launched = int(n > 0)
+    LAUNCHES["sample" if sample else "eval"] += launched
+    if sample:
+        return BSDFSample(wi=wi, f=f, pdf_fwd=pdf, pdf_rev=rev, eta=eta,
+                          roughness=mat.roughness), launched
+    return BSDFEval(f=f, pdf_fwd=pdf, pdf_rev=rev), launched

@@ -3,7 +3,9 @@
 Each ``stratum_tpu_torch/csrc/<name>.cu`` exposes a plain C interface and is
 compiled by ``nvcc`` for ``sm_90a`` into ``build/stratum_tpu_torch/`` at the
 repository root, keyed by a hash of the source and the flags, so an edited
-kernel is rebuilt and an unchanged one is loaded as it is. A plain C
+kernel is rebuilt and an unchanged one is loaded as it is; the compiler's
+report (ptxas registers and spills) is kept beside the library and read
+into ``BUILD_LOG`` when it loads. A plain C
 interface keeps the build to seconds (no PyTorch headers). :func:`build`
 does the same for any source and compiler; ``utils/native.py`` builds the
 host-side C++ helpers with it.
@@ -28,7 +30,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 _LOADED: dict = {}
-BUILD_LOG: dict = {}  # source file name -> compiler report (ptxas registers, ...)
+BUILD_LOG: dict = {}  # source file name -> compiler report (ptxas registers, ...) of its library
 
 
 def _nvcc() -> str:
@@ -57,6 +59,7 @@ def build(source: str, compiler: Callable[[], str], flags, key: bytes = b"") -> 
         return _LOADED[source]
     src = CSRC / source
     out = _library_path(src, flags, key)
+    log = out.with_name(out.name + ".log")  # the compiler's report beside the library
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=str(BUILD_DIR))
@@ -68,11 +71,13 @@ def build(source: str, compiler: Callable[[], str], flags, key: bytes = b"") -> 
                 raise RuntimeError(
                     f"{Path(cmd[0]).name} failed for {source}:\n{proc.stdout}\n{proc.stderr}"
                 )
-            BUILD_LOG[source] = proc.stdout + proc.stderr
+            log.write_text(proc.stdout + proc.stderr)
             os.replace(tmp, out)
         finally:
             if os.path.exists(tmp):
                 os.unlink(tmp)
+    if log.exists():
+        BUILD_LOG[source] = log.read_text()
     _LOADED[source] = ctypes.CDLL(str(out))
     return _LOADED[source]
 

@@ -46,7 +46,14 @@ edge clamps bind. SPD's sphereflake at size factor 2 forced into the
 culled list mode: K1 / K2 against the plain walk, the lists bit for bit
 against the plain two-level phase, and the recorder's ``overflow`` and
 ``reached_keys`` counters equal to its sums, with and without overflowing
-CTAs.
+CTAs. The Disney kernels (``csrc/disney.cu``) against the plain torch
+bodies on the card bit for bit (equal values, NaN where they are NaN) on
+every output: mixed, diffuse, glass, metal, clearcoat and anisotropic
+lanes, grazing and below-horizon directions, u at 0 and one ulp below 1,
+the material columns as the payload's strided views and as contiguous
+tensors; torch's sum over 3 components on the card in the kernels' order;
+one 4-bounce sample's 10 launches and ``bsdf`` spans, and its image equal
+to the plain bodies' bit for bit.
 """
 
 import dataclasses
@@ -942,3 +949,168 @@ def test_glb_texture_stack_on_the_card(dev, tmp_path):
             assert torch.equal(a.cpu(), b)
         else:
             assert a == b
+
+
+# -- the Disney BSDF kernels (csrc/disney.cu) -------------------------------------
+E24 = 2.0 ** -24
+ONE_BELOW = float(np.nextafter(np.float32(1.0), np.float32(0.0)))
+
+
+@pytest.mark.parametrize("keepdim", [False, True])
+def test_sum_of_three_adds_the_outer_components_first(dev, keepdim):
+    """``torch.sum(x, dim=-1)`` over 3 components on the card is
+    ``(x0 + x2) + x1`` with a zero result +0: the order csrc/disney.cu's
+    ``sum3`` takes. The three triples tell the three orders apart (each
+    order rounds one of them to 1 + 2^-23, the others to 1); the normal
+    values and a row of -0 check it on a wave."""
+    rng = np.random.default_rng(21)
+    x = np.concatenate([
+        np.asarray([[1.0, E24, E24], [E24, 1.0, E24], [E24, E24, 1.0], [-0.0, -0.0, -0.0]]),
+        rng.normal(size=(1 << 16, 3)) * rng.choice([1e-3, 1.0, 1e3], (1 << 16, 1)),
+    ]).astype(np.float32)
+    x = torch.from_numpy(x).to(dev)
+    got = torch.sum(x, dim=-1, keepdim=keepdim).reshape(-1)
+    want = (x[:, 0] + x[:, 2]) + x[:, 1] + 0.0
+    assert got[:3].tolist() == [1.0, 1.0 + 2 * E24, 1.0]
+    assert not torch.signbit(got[3])
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def _disney_inputs(dev, n, seed, payload):
+    """Seeded Disney inputs on the card: (MaterialSample, wo, wi, u). The
+    material kind cycles through mixed, diffuse, glass, metal, clearcoat
+    and anisotropic lanes, with some at roughness 0, eta 1 and subsurface
+    1. ``payload``: the columns are the strided views of [n, 88] slot
+    payload rows that ``material_from_row`` hands the integrator (eta a
+    contiguous ``torch.where`` as there), and wo, wi, u are views of [n, 4]
+    rows; else every input is contiguous. wo lies on the upper hemisphere
+    with grazing (z = 0) and below-horizon lanes; wi over the sphere with
+    grazing lanes, wi = wo and wi = -wo; u holds 0 and one ulp below 1."""
+    from stratum_tpu_torch.render import shading
+
+    rng = np.random.default_rng(seed)
+    kind = np.arange(n) % 6
+    row = np.zeros((n, 88), np.float32)
+    row[:, :64] = rng.normal(size=(n, 64))
+    m = row[:, 64:88]
+    m[:, 0:3] = rng.uniform(0.0, 1.0, (n, 3))
+    m[:, 3:6] = rng.uniform(0.0, 2.0, (n, 3))
+    u01 = rng.uniform(0.0, 1.0, (8, n)).astype(np.float32)
+    m[:, 6] = np.select([kind == 0, kind == 3], [u01[0], 1.0], 0.0)
+    m[:, 7] = np.where(rng.random(n) < 0.05, 0.0, 0.001 + 0.999 * u01[1])
+    m[:, 8] = np.select([kind == 0, kind == 5], [u01[2], 0.2 + 0.8 * u01[2]], 0.0)
+    m[:, 9] = np.select([kind == 0, kind == 1], [u01[3], np.where(u01[3] < 0.2, 1.0, u01[3])], 0.0)
+    m[:, 10] = np.select([kind == 0, kind == 4], [u01[4], 1.0], 0.0)
+    m[:, 11] = u01[5]
+    m[:, 12] = np.select([kind == 0, kind == 2], [u01[6], 1.0], 0.0)
+    m[:, 13] = np.where(u01[7] < 0.1, 1.0, 1.2 + 0.6 * u01[7])
+
+    def unit(k):
+        d = rng.normal(size=(n, 3))
+        return d / np.linalg.norm(d, axis=1, keepdims=True)
+
+    wo = unit(0)
+    wo[:, 2] = np.abs(wo[:, 2])
+    wo[::29, 2] = 0.0
+    wo[5::31, 2] *= -1.0
+    wi = unit(1)
+    wi[::23, 2] = 0.0
+    wi[7::37] = wo[7::37]
+    wi[11::41] = -wo[11::41]
+    u = rng.random((n, 3))
+    u[::13, 0] = 0.0
+    u[::11, 1] = ONE_BELOW
+    u[3::17, 2] = 0.0
+    u[4::19, 2] = ONE_BELOW
+    u[5::7] = rng.choice([0.0, ONE_BELOW], (len(u[5::7]), 3))
+
+    front = torch.from_numpy(rng.random(n) < 0.7).to(dev)
+    if payload:
+        rows = torch.from_numpy(row).to(dev)
+        mat = shading.material_from_row(rows[:, 64:88])
+
+        def view4(a):
+            t = torch.zeros((n, 4), dtype=torch.float32, device=dev)
+            t[:, :3] = torch.from_numpy(a.astype(np.float32)).to(dev)
+            return t[:, :3]
+
+        wo, wi, u = view4(wo), view4(wi), view4(u)
+    else:
+        mat = shading.material_from_row(torch.from_numpy(m).to(dev))
+        mat = type(mat)(*(x.contiguous() for x in mat))
+        wo, wi, u = (torch.from_numpy(a.astype(np.float32)).to(dev) for a in (wo, wi, u))
+    mat = mat._replace(eta=torch.where(front, mat.eta, 1.0 / torch.clamp(mat.eta, min=1e-6)))
+    return mat, wo, wi, u
+
+
+def _differing_lanes(got, want) -> int:
+    """Lanes where two outputs differ: by value, or where one is NaN and the
+    other not (NaNs at the same place agree)."""
+    gn, wn = torch.isnan(got), torch.isnan(want)
+    bad = (gn != wn) | (~gn & ~wn & (got != want))
+    return int(bad.reshape(bad.shape[0], -1).any(-1).sum())
+
+
+@pytest.mark.parametrize("payload", [True, False])
+@pytest.mark.parametrize("op", ["eval", "sample"])
+def test_disney_kernel_equals_plain(dev, op, payload):
+    """One ``csrc/disney.cu`` launch against the plain torch body on the
+    same card inputs (:func:`_disney_inputs`): every output equal on every
+    lane, NaN positions included; ``disney.LAUNCHES`` counts the launch,
+    and the sample's roughness is the input tensor."""
+    from stratum_tpu_torch.render import disney
+
+    mat, wo, wi, u = _disney_inputs(dev, 1 << 16, 5 + payload, payload)
+    before = dict(disney.LAUNCHES)
+    if op == "eval":
+        got, want = disney.disney_eval(mat, wo, wi), disney._disney_eval_plain(mat, wo, wi)
+    else:
+        got, want = disney.disney_sample(mat, wo, u), disney._disney_sample_plain(mat, wo, u)
+        assert got.roughness is mat.roughness
+    assert disney.LAUNCHES == dict(before, **{op: before[op] + 1})
+    diff = {k: _differing_lanes(a, b) for k, a, b in zip(got._fields, got, want)}
+    bits = {k: int((a.view(torch.int32) != b.view(torch.int32)).sum())
+            for k, a, b in zip(got._fields, got, want)}
+    print(f"[disney {op} payload={payload}] differing lanes {diff}, differing words {bits}")
+    assert set(diff.values()) == {0}, diff
+
+
+def test_disney_spans_and_launches_in_a_sample(tiny_render):
+    """One 4-bounce sample of the tiny atrium through K1/K2 makes 10 Disney
+    launches (an eval for NEE and a sample a bounce), each a ``bsdf`` span
+    inside ``shade`` with ``kernels`` 1; its image and ray count equal
+    those of the same sample through the plain bodies bit for bit."""
+    from stratum_tpu_torch.render import disney
+
+    scene, view, cfg = tiny_render
+    cfg = dataclasses.replace(cfg, max_bounces=4)
+    before = dict(disney.LAUNCHES)
+    sprof.start()
+    try:
+        img, rays = integrator.render_path_with_counts(scene, view, cfg, 9)
+    finally:
+        sprof.stop()
+    added = {k: disney.LAUNCHES[k] - before[k] for k in before}
+    assert added == {"eval": 5, "sample": 5}, added
+    recs = sprof.records()
+    spans = [r for r in recs if r.name == "bsdf"]
+    assert [(r.attrs["op"], r.attrs["kernels"]) for r in spans] == [("eval", 1), ("sample", 1)] * 5
+    assert all(recs[r.parent].name == "shade" and r.attrs["lanes"] == 64 * 32 for r in spans)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(disney, "disney_eval", disney._disney_eval_plain)
+        mp.setattr(disney, "disney_sample", disney._disney_sample_plain)
+        ref, ref_rays = integrator.render_path_with_counts(scene, view, cfg, 9)
+    assert {k: disney.LAUNCHES[k] - before[k] for k in before} == added
+    assert torch.equal(img, ref) and int(rays) == int(ref_rays)
+
+
+def test_disney_kernel_info(dev):
+    """Both kernels build and report their registers and at least one
+    resident CTA per SM; ptxas's report spills no byte of either."""
+    from stratum_tpu_torch.render import disney
+
+    for sample in (False, True):
+        info = disney.kernel_info(sample)
+        print(f"[disney kernel_info sample={sample}] {info}")
+        assert info["ctas_per_sm"] >= 1, info
+        assert info["spill_stores"] == 0 and info["spill_loads"] == 0, info

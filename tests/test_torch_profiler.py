@@ -315,3 +315,53 @@ def test_reader_without_the_recorder(name, monkeypatch):
     monkeypatch.delattr(pprofiler, "records")
     st = devtrace.Stretch(intervals=_intervals(), spans=[], window_s=1.0, units=UNITS)
     assert _read(name, st) is None
+
+
+def test_bsdf_spans_count_no_kernel_on_the_cpu(tiny, frames):
+    """On CPU tensors the Disney BSDF takes its plain bodies: the frame's
+    sample holds an eval (NEE) and a sample ``bsdf`` span in each bounce's
+    ``shade``, each with the wave's lanes and ``kernels == 0`` (one a span
+    on the card)."""
+    _, _, cfg = tiny
+    recs = frames[1]
+    spans = [r for r in recs if r.name == "bsdf"]
+    assert [r.attrs["op"] for r in spans] == ["eval", "sample"] * 5
+    assert all(recs[r.parent].name == "shade" for r in spans)
+    assert [(r.attrs["lanes"], r.attrs["kernels"]) for r in spans] == [
+        (cfg.width * cfg.height, 0)] * 10
+
+
+def test_disney_on_the_cpu_is_the_plain_body():
+    """``disney_eval`` / ``disney_sample`` on CPU tensors, recording and
+    not: the plain bodies' outputs bit for bit (NaN where they are NaN),
+    no launch counted, one ``bsdf`` span a call while recording."""
+    from stratum_tpu_torch.render import disney, shading
+
+    gen = torch.Generator().manual_seed(3)
+    n = 512
+    row = torch.rand((n, 24), generator=gen)
+    row[:, 13] = 1.0 + row[:, 13]  # eta in [1, 2)
+    row[::5, 7] = 0.0  # roughness 0
+    mat = shading.material_from_row(row)
+    wo, wi = torch.randn((n, 3), generator=gen), torch.randn((n, 3), generator=gen)
+    wo = wo / wo.norm(dim=-1, keepdim=True)
+    wi = wi / wi.norm(dim=-1, keepdim=True)
+    u = torch.rand((n, 3), generator=gen)
+    want = (disney._disney_eval_plain(mat, wo, wi), disney._disney_sample_plain(mat, wo, u))
+    before = dict(disney.LAUNCHES)
+    for on in (False, True):
+        if on:
+            pprofiler.start()
+        try:
+            got = (disney.disney_eval(mat, wo, wi), disney.disney_sample(mat, wo, u))
+        finally:
+            if on:
+                pprofiler.stop()
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                assert torch.equal(torch.isnan(a), torch.isnan(b))
+                assert torch.equal(torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0))
+    assert disney.LAUNCHES == before
+    spans = [r for r in pprofiler.records() if r.name == "bsdf"]
+    assert [(r.attrs["op"], r.attrs["lanes"], r.attrs["kernels"]) for r in spans] == [
+        ("eval", n, 0), ("sample", n, 0)]
