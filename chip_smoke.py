@@ -242,6 +242,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from stratum_tpu_torch.utils import cuda_build
+
 ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda:0"
 FRAME = (1920, 1080)
@@ -261,8 +263,15 @@ PARITY_MEAN_REL = 2 * 0.02
 PARITY_PIXEL_SHARE = 1.0 - 2 * 0.03
 PARITY_RAYS_REL = 2 * 0.01
 BENCH = dict(max_bounces=4, bsdf="disney", presample_lights=4096, coherent_tiles=16)
-# disney.LAUNCHES over _timed_samples' 5 samples of a BENCH path: a 4-bounce
-# sample launches an eval (NEE) and a sample a bounce, 10 in all
+# the launch registry's keys (cuda_build.launches) under the labels the
+# phases report: K1 / K2 by mode, and every kernel of a path sample
+BLOCK_KEYS = {"closest": "block_trace_closest", "occluded": "block_trace_occluded"}
+SAMPLE_KEYS = {"block closest": "block_trace_closest", "block occluded": "block_trace_occluded",
+               "binned emit": "binned_emit", "binned closest": "binned_min/closest",
+               "binned occluded": "binned_min/occluded", "disney eval": "disney_eval",
+               "disney sample": "disney_sample"}
+# the Disney launches over _timed_samples' 5 samples of a BENCH path: a
+# 4-bounce sample launches an eval (NEE) and a sample a bounce, 10 in all
 DISNEY_5 = {"disney eval": 25, "disney sample": 25}
 BINNED = dict(binned_secondary=8, binned_shadow=8)
 # published peaks of one H100 SXM (NVIDIA data sheet): f32 outside the
@@ -524,19 +533,23 @@ def _bounce_rays(scene, tile, lo, hi, o, d, h, rng):
 _KERNEL_NAME = re.compile(r"block_trace_kernel(?:<\s*(true|false)\b|ILb([01])E)")
 
 
+def _launches(keys=BLOCK_KEYS) -> dict:
+    """The launch registry's counts under ``keys``' labels."""
+    counts = cuda_build.launches()
+    return {label: counts[key] for label, key in keys.items()}
+
+
 def _traced_launches(fn) -> tuple:
-    """``block_trace.LAUNCHES`` over one call of ``fn`` (zeroed before it)
-    beside the ``block_trace_kernel`` launches a ``torch.profiler`` trace of
-    that call records, each as {"closest": n, "occluded": n}: the program's
-    count against the device's."""
+    """The registry's K1 / K2 launches over one call of ``fn`` (reset
+    before it) beside the ``block_trace_kernel`` launches a
+    ``torch.profiler`` trace of that call records, each as {"closest": n,
+    "occluded": n}: the program's count against the device's."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from stratum_tpu_torch.ops import block_trace
-
     torch.cuda.synchronize()
-    _zero_launches()
+    cuda_build.reset_launches()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
@@ -545,32 +558,21 @@ def _traced_launches(fn) -> tuple:
         m = _KERNEL_NAME.search(e.name) if e.device_type == DeviceType.CUDA else None
         if m:
             traced["occluded" if m.group(1) == "true" or m.group(2) == "1" else "closest"] += 1
-    return dict(block_trace.LAUNCHES), traced
-
-
-def _zero_launches():
-    from stratum_tpu_torch.ops import binned, block_trace
-    from stratum_tpu_torch.render import denoise, disney
-
-    for counts in (block_trace.LAUNCHES, binned.LAUNCHES, disney.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
-    denoise.LAUNCHES = 0
+    return _launches(), traced
 
 
 def _timed_samples(scene, view, cfg_run, label, scene_name, smi, samples: int = 5):
     """1 warm-up and ``samples`` - 1 timed samples of
-    ``render_path_with_counts`` with every launch counter zeroed just before
+    ``render_path_with_counts`` with the launch registry reset just before
     and read just after -> (launches, last image, dict of ms/spp, Mrays/s,
     peak GiB, image mean)."""
     import torch
-    from stratum_tpu_torch.ops import binned, block_trace
-    from stratum_tpu_torch.render import disney, integrator
+    from stratum_tpu_torch.render import integrator
 
     W, H = cfg_run.width, cfg_run.height
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _zero_launches()
+    cuda_build.reset_launches()
     times, total_rays = [], 0
     for seed in range(samples):
         t0 = time.perf_counter()
@@ -580,9 +582,7 @@ def _timed_samples(scene, view, cfg_run, label, scene_name, smi, samples: int = 
         if seed > 0:  # sample 0 is the warm-up
             times.append(time.perf_counter() - t0)
             total_rays += n
-    launches = {f"block {k}": v for k, v in block_trace.LAUNCHES.items()}
-    launches.update({f"binned {k}": v for k, v in binned.LAUNCHES.items()})
-    launches.update({f"disney {k}": v for k, v in disney.LAUNCHES.items()})
+    launches = _launches(SAMPLE_KEYS)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     mean = float(img.mean())
     ms_spp = sum(times) / len(times) * 1e3
@@ -600,17 +600,13 @@ def _timed_samples(scene, view, cfg_run, label, scene_name, smi, samples: int = 
 
 def _build():
     """Phase 2: every kernel source built by its own nvcc, all at once."""
-    from stratum_tpu_torch.utils import cuda_build
-
     names = ("block_trace", "binned", "microbench", "atrous", "disney")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(cuda_build.load, names))
     for name in names:
-        ptxas = [ln.strip() for ln in cuda_build.BUILD_LOG.get(f"{name}.cu", "").splitlines()
-                 if ("registers" in ln or "spill" in ln) and "(C75" not in ln]
         print(f"[2 build] {name}.cu -> {cuda_build.library_path(name).name}; "
-              f"ptxas: {' | '.join(ptxas)}", flush=True)
+              f"ptxas: {cuda_build.ptxas_report(f'{name}.cu')}", flush=True)
     print(f"[2 build] {len(names)} kernels in {time.perf_counter() - t0:.3f} s", flush=True)
 
 
@@ -897,7 +893,6 @@ def _resources():
     from stratum_tpu_torch import tools
     from stratum_tpu_torch.tools import perf_commit_pipeline as t1
     from stratum_tpu_torch.tools import perf_epilogue as t2
-    from stratum_tpu_torch.utils import cuda_build
 
     out = {}
     for i, v in enumerate(t1.VARIANTS):
@@ -960,6 +955,8 @@ def _microbench():
     from stratum_tpu_torch.tools import probe_mxu_loop as t3
 
     mods = {"T1": t1, "T2": t2, "T3": t3, "T4": t4}
+    entries = {"T1": "mb_commit_pipeline", "T2": "mb_epilogue", "T3": "mb_mxu_loop",
+               "T4": "mb_mxu_model"}
     clock = tools.max_sm_clock_hz()
     # instructions per test by pipe of each T1 / T2 kernel's tile loop, from
     # the SASS of the library this run built
@@ -973,9 +970,7 @@ def _microbench():
                   f"mufu {o['mufu']:.3f}, other {o['other']:.3f} (issue "
                   f"{o['fp32'] + o['alu'] + o['mufu'] + o['other']:.3f}) over {o['tests']:g} "
                   f"tests a thread on the loop's path", flush=True)
-    for m in mods.values():
-        for key in m.LAUNCHES:
-            m.LAUNCHES[key] = 0
+    cuda_build.reset_launches()
     t0 = time.perf_counter()
     runs = {}
     for name, mod, argv in (("T1", t1, []), ("T1 k=256", t1, ["--k=256"]),
@@ -983,7 +978,7 @@ def _microbench():
                             ("T3", t3, []), ("T3 k=256", t3, ["--k=256"]), ("T4", t4, [])):
         print(f"[8 tools] {mod.__name__.rsplit('.', 1)[1]} {' '.join(argv)}", flush=True)
         runs[name] = mod.main(argv)
-    launches = {name: sum(m.LAUNCHES.values()) for name, m in mods.items()}
+    launches = _launches(entries)
     print(f"[8 tools] launches {launches} in {time.perf_counter() - t0:.1f} s", flush=True)
     assert all(v > 0 for v in launches.values()), launches
 
@@ -1940,17 +1935,16 @@ def _lanes_run(scene, view, cfg, spp, smi, capture=None):
     """One ``render_path_lanes`` call -> (image, dict of ms/spp, Mrays/s,
     peak GiB, launches)."""
     import torch
-    from stratum_tpu_torch.ops import block_trace
     from stratum_tpu_torch.render import integrator
 
     torch.cuda.reset_peak_memory_stats()
-    _zero_launches()
+    cuda_build.reset_launches()
     (img, rays), ms = _sync_ms(
         lambda: integrator.render_path_lanes(scene, view, cfg, spp, 0, capture=capture))
     rays = int(rays)
     line = dict(spp=spp, ms_spp=ms / spp, mrays=rays / ms / 1e3, rays=rays,
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30, mean=float(img.mean()),
-                launches=dict(block_trace.LAUNCHES))
+                launches=_launches())
     print(f"[14 lanes] spp={spp} ({spp * cfg.width * cfg.height} lanes a wave): "
           f"{line['ms_spp']:.1f} ms/spp, {line['mrays']:.3f} Mrays/s, peak "
           f"{line['peak_gib']:.2f} GiB, launches {line['launches']}, image mean "
@@ -2038,9 +2032,9 @@ def _wavefront(dev, smi, scene, view, main5, img5):
 
     # -- render_path_batched against render_path_progressive, seeds 0-3 ----
     torch.cuda.reset_peak_memory_stats()
-    _zero_launches()
+    cuda_build.reset_launches()
     (img_b, rays_b), ms_b = _sync_ms(lambda: integrator.render_path_batched(scene, view, cfg, 4, 0))
-    launches_b = dict(block_trace.LAUNCHES)
+    launches_b = _launches()
     img_p = integrator.render_path_progressive(scene, view, cfg, 4, 0)
     singles = [integrator.render_path_with_counts(scene, view, cfg, s) for s in range(4)]
     counts = [int(c) for _, c in singles]
@@ -2203,12 +2197,11 @@ def _wavefront(dev, smi, scene, view, main5, img5):
         for at in (True, False):
             acfg = integrator.RenderConfig(width=W, height=H, max_bounces=1, alpha_test=at,
                                            tracer=tracer)
-            _zero_launches()
+            cuda_build.reset_launches()
             img, ms = _sync_ms(lambda: integrator.render_path(quad, qview, acfg, 0))
             img = img.cpu().numpy()
             res[at] = dict(ms=ms, left_mean=float(img[left].mean()),
-                           right_max=float(img[right].max()),
-                           launches=dict(block_trace.LAUNCHES))
+                           right_max=float(img[right].max()), launches=_launches())
         print(f"[14 alpha] {tracer} ({integrator.resolved_tracer(quad, acfg)}) {W}x{H}: "
               f"alpha_test on: cut-out half mean {res[True]['left_mean']:.4f}, opaque half "
               f"max {res[True]['right_max']:.4f}, {res[True]['ms']:.1f} ms, launches "
@@ -2319,21 +2312,21 @@ ESTIMATOR_SPP = 4  # samples of each side of the estimator checks at SMALL
 
 def _timed_runs(label, fn, seeds, smi, lanes):
     """``fn(seed)`` over ``seeds`` (the first a warm-up) with the launch
-    counters zeroed after the warm-up -> (last result, dict of ms per call,
+    registry reset after the warm-up -> (last result, dict of ms per call,
     peak GiB, launches)."""
     import torch
-    from stratum_tpu_torch.ops import binned, block_trace
 
     fn(seeds[0])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _zero_launches()
+    cuda_build.reset_launches()
     times = []
     for seed in seeds[1:]:
         out, ms = _sync_ms(lambda: fn(seed))
         times.append(ms)
-    launches = dict(block_trace.LAUNCHES)
-    assert not any(binned.LAUNCHES.values()), dict(binned.LAUNCHES)
+    launches = _launches()
+    binned_launches = {k: v for k, v in cuda_build.launches().items() if k.startswith("binned")}
+    assert not binned_launches, binned_launches
     line = dict(ms=times, ms_mean=sum(times) / len(times),
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                 launches={k: v / len(times) for k, v in launches.items()})
@@ -2470,14 +2463,14 @@ def _bdpt_phase(dev, smi, scene, view, main5, img5):
     state = restir.init_restir(n, device=dev)
     frames = []
     torch.cuda.reset_peak_memory_stats()
-    _zero_launches()
+    cuda_build.reset_launches()
     for s in range(3):
         (state, img), ms = _sync_ms(lambda: restir.restir_di(
             scene, view, rs_cfg, state, s, candidates=4, spatial_taps=2))
         frames.append(ms)
         assert bool(torch.isfinite(img).all())
     line = dict(ms=frames, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                launches=dict(block_trace.LAUNCHES), mean=float(img.mean()),
+                launches=_launches(), mean=float(img.mean()),
                 m_mean=float(state.m.mean()))
     print(f"[15 ReSTIR] candidates 4, spatial_taps 2, {W}x{H}: frames "
           f"{', '.join(f'{t:.1f}' for t in frames)} ms, "
@@ -2594,7 +2587,7 @@ def _atrous_bound(h, w, it, iters, history_tap, ntaps):
 
 
 def _traced_atrous(dev, fn) -> dict:
-    """``denoise.LAUNCHES`` over one call of ``fn`` (zeroed before it) beside
+    """The registry's a-trous launches over one call of ``fn`` (reset before it) beside
     the ``atrous_kernel`` launches a ``torch.profiler`` trace of that call
     records, after a priming op (a trace may miss a kernel): the program's
     count against the device's."""
@@ -2602,10 +2595,8 @@ def _traced_atrous(dev, fn) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from stratum_tpu_torch.render import denoise
-
     torch.cuda.synchronize()
-    _zero_launches()
+    cuda_build.reset_launches()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.ones(1, device=dev).add_(1)
         torch.cuda.synchronize()
@@ -2613,7 +2604,7 @@ def _traced_atrous(dev, fn) -> dict:
         torch.cuda.synchronize()
     traced = sum(1 for e in prof.events()
                  if e.device_type == DeviceType.CUDA and _ATROUS_NAME.search(e.name))
-    return dict(counted=denoise.LAUNCHES, traced=traced)
+    return dict(counted=cuda_build.launches()["atrous_iteration"], traced=traced)
 
 
 def _atrous_timing(dev, smi, color, variance, gbuf, dcfg, cpu_ref):
@@ -2637,7 +2628,7 @@ def _atrous_timing(dev, smi, color, variance, gbuf, dcfg, cpu_ref):
     run = lambda: denoise.atrous_filter(color, variance, gbuf, dcfg)  # noqa: E731
     kern, _ = run()
     torch.cuda.synchronize()
-    before = denoise.LAUNCHES
+    before = cuda_build.launches()["atrous_iteration"]
     per_it, traced = [[] for _ in range(iters)], 0
     for _ in range(ATROUS_REPS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2651,7 +2642,7 @@ def _atrous_timing(dev, smi, color, variance, gbuf, dcfg, cpu_ref):
         if len(events) == iters:
             for i, e in enumerate(events):
                 per_it[i].append(e.time_range.elapsed_us() / 1e3)
-    counted = denoise.LAUNCHES - before
+    counted = cuda_build.launches()["atrous_iteration"] - before
     assert counted == iters * ATROUS_REPS and traced <= counted, (counted, traced)
     assert len(per_it[0]) >= ATROUS_REPS // 2, per_it
     per_it = [sorted(t) for t in per_it]
@@ -2731,10 +2722,10 @@ def _frame_phase(dev, smi, scene, view, main5):
     aov.render_gbuffer(scene, view, view, cfg)
     gb_times = []
     for _ in range(3):
-        _zero_launches()
+        cuda_build.reset_launches()
         gb, ms = _sync_ms(lambda: aov.render_gbuffer(scene, view, view, cfg))
         gb_times.append(ms)
-        gb_launches = dict(block_trace.LAUNCHES)
+        gb_launches = _launches()
         assert gb_launches == {"closest": 1, "occluded": 0}, gb_launches
     gb_ms = sum(gb_times) / len(gb_times)
     px, py = camera.pixel_grid(W, H, dev)
@@ -2788,10 +2779,10 @@ def _frame_phase(dev, smi, scene, view, main5):
     for i in range(4):
         if i == 2:
             sess.set_view(view2)
-        _zero_launches()
+        cuda_build.reset_launches()
         with _SplitTimer(targets) as split:
             (shown, ms) = _sync_ms(lambda: tonemap.tonemap(sess.frame(), tonemap.TonemapMode.ACES))
-        launches = dict(block_trace.LAUNCHES, atrous=denoise.LAUNCHES)
+        launches = _launches(dict(BLOCK_KEYS, atrous="atrous_iteration"))
         want = dict(FRAME_LAUNCHES, closest=FRAME_LAUNCHES["closest"] + (i == 2),
                     atrous=atrous_want)
         assert launches == want, (i, launches)
@@ -2879,9 +2870,9 @@ def _frame_phase(dev, smi, scene, view, main5):
     # -- the session's other paths, and a checkpoint ---------------------------
     def run(label, make, steps):
         s = make()
-        _zero_launches()
+        cuda_build.reset_launches()
         img, ms = _sync_ms(lambda: steps(s))
-        print(f"[16 session] {label}: {ms:.1f} ms, launches {dict(block_trace.LAUNCHES)}, "
+        print(f"[16 session] {label}: {ms:.1f} ms, launches {_launches()}, "
               f"image mean {float(img.mean()):.6f} | {smi}", flush=True)
         assert bool(torch.isfinite(img).all())
         return s, img, ms
@@ -2904,10 +2895,10 @@ def _frame_phase(dev, smi, scene, view, main5):
         scene, view, cfg, use_restir=True, restir_spatial_taps=1), lambda s: s.step(1))
     sa = session.RenderSession(scene, view, cfg)
     sa.step(1)
-    _zero_launches()
+    cuda_build.reset_launches()
     img_a, paths["adaptive_round"] = _sync_ms(lambda: sa.step_adaptive(1))
     print(f"[16 session] step_adaptive(1) after a 1-sample pilot: {paths['adaptive_round']:.1f} "
-          f"ms, launches {dict(block_trace.LAUNCHES)}, spp {sa.spp:.4f} | {smi}", flush=True)
+          f"ms, launches {_launches()}, spp {sa.spp:.4f} | {smi}", flush=True)
     ck = ROOT / "build" / "session_checkpoint.npz"
     ck.parent.mkdir(parents=True, exist_ok=True)
     sa.save_checkpoint(ck)
@@ -3543,7 +3534,7 @@ def _disney_sample_calls(dev, name: str):
     """One sample of a benchmark configuration (``portbench/configs/<name>``,
     its scene built as ``portbench.harness`` builds it) with every Disney
     call's inputs kept -> (calls [(op, depth, mat, wo, wi or u)],
-    ``disney.LAUNCHES`` of the sample, flatten s)."""
+    the registry's Disney launches of the sample, flatten s)."""
     import importlib
 
     import torch
@@ -3573,14 +3564,14 @@ def _disney_sample_calls(dev, name: str):
             return real[op](mat, wo, arg)
         return call
 
-    _zero_launches()
+    cuda_build.reset_launches()
     disney.disney_eval, disney.disney_sample = keep("eval"), keep("sample")
     try:
         integrator.render_path_with_counts(scene, view, cfg, DISNEY_SEED)
     finally:
         disney.disney_eval, disney.disney_sample = real["eval"], real["sample"]
     torch.cuda.synchronize()
-    return calls, dict(disney.LAUNCHES), flatten_s
+    return calls, _launches({"eval": "disney_eval", "sample": "disney_sample"}), flatten_s
 
 
 def _differing_lanes(got, want) -> int:
@@ -3610,12 +3601,10 @@ def _disney_phase(dev, smi):
     from torch.profiler import ProfilerActivity, profile
 
     from stratum_tpu_torch.render import disney
-    from stratum_tpu_torch.utils import cuda_build
 
     info = {op: disney.kernel_info(op == "sample") for op in ("eval", "sample")}
-    ptxas = [ln.strip() for ln in cuda_build.BUILD_LOG.get("disney.cu", "").splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"[18 disney] kernel_info {info}; ptxas: {' | '.join(ptxas)}", flush=True)
+    print(f"[18 disney] kernel_info {info}; ptxas: {cuda_build.ptxas_report('disney.cu')}",
+          flush=True)
     out, bad = {}, []
     for name in DISNEY_CONFIGS:
         calls, launches, flatten_s = _disney_sample_calls(dev, name)
@@ -3752,7 +3741,8 @@ def main() -> int:
     c2 = _compare_closest(fat, o2, d2, hk2, hp2, tm2 > 0)
     _check_closest("closest secondary", c2)
     _check_occluded("occluded shadow", ok3, op3, tm3 > 0)
-    assert block_trace.LAUNCHES["closest"] >= 2 and block_trace.LAUNCHES["occluded"] >= 1
+    k12 = _launches()
+    assert k12["closest"] >= 2 and k12["occluded"] >= 1, k12
 
     # the main path's own waves: one sample's five closest waves (the
     # unsorted primary peel, then four sorted bounces with dead lanes) and
@@ -3913,7 +3903,7 @@ def main() -> int:
         same = bool(torch.equal(img, img5))
         print(f"[7 {label}] image mean {mean:.6f} vs {main5['mean']:.6f} (rel {rel:.2e}), "
               f"equal to phase 5's sample {seed} bit for bit: {same}; "
-              f"launches {dict(block_trace.LAUNCHES)} / binned {dict(binned.LAUNCHES)}",
+              f"launches {dict(cuda_build.launches())}",
               flush=True)
         assert bool(torch.isfinite(img).all()) and rel <= PARITY_MEAN_REL
         assert k3_launches == traced, (label, k3_launches, traced)

@@ -41,14 +41,14 @@ any scene, for checks; the render path never sets it.
 Steps 1 and 4 run as kernels when the rays lie on a CUDA device (no
 fallback: a build or launch failure raises) and as their plain versions,
 :func:`_emit` and :func:`bin_min_plain`, only when they lie on the CPU;
-sort and padding are the same torch code on both. ``LAUNCHES`` counts kernel
-launches. Dropped pairs (``pcap`` or ``mcap`` overflow) are misses, as in
+sort and padding are the same torch code on both. ``cuda_build.launches()``
+counts their launches under ``binned_emit`` and ``binned_min/closest`` /
+``binned_min/occluded``. Dropped pairs (``pcap`` or ``mcap`` overflow) are misses, as in
 the reference; ``stats`` counts them.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
@@ -56,7 +56,6 @@ import torch
 from stratum_tpu_torch.ops.block_trace import (
     SHADOW_EPS,
     T_MIN,
-    _check,
     _classify,
     _default_t_max,
     _slot_record,
@@ -67,6 +66,7 @@ from stratum_tpu_torch.ops.block_trace import (
 from stratum_tpu_torch.ops.intersect import T_MAX
 from stratum_tpu_torch.ops.mxu import ray_features
 from stratum_tpu_torch.ops.packet import FatBVH, leaf_counts, safe_inv
+from stratum_tpu_torch.utils import cuda_build
 
 LANES = 128  # lanes per bin
 LEAF_PAD = 64  # the plain emission pads the leaf axis to a multiple of this with NaN boxes
@@ -79,8 +79,6 @@ EMIT_SMEM_BUDGET = 227 * 1024  # shared memory an emission CTA may use (csrc kMa
 EMIT_CHUNK = 32  # leaves per chunk box of the emission kernel (csrc kChunk)
 EMIT_TILE = 2048  # leaves per tile past the budget (49 KB of boxes)
 FORCED_TILES = 4  # emit_mode="tiled" cuts the leaves into at least this many tiles
-
-LAUNCHES = {"emit": 0, "closest": 0, "occluded": 0}
 
 
 class Bins(NamedTuple):
@@ -194,19 +192,9 @@ def _emit(fat: FatBVH, o, inv, tb, t_min, g, pcap, em):
     return count, slots
 
 
-def _lib():
-    from stratum_tpu_torch.utils import cuda_build
-
-    lib = cuda_build.load("binned")
-    if not getattr(lib, "_stratum_bound", False):
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.binned_emit.argtypes = [ptr] * 5 + [i32] * 6 + [f32] + [ptr] * 3
-        lib.binned_min.argtypes = [ptr] * 10 + [i32] * 5 + [f32] + [ptr] * 2
-        lib.binned_info.argtypes = [i32] * 4 + [ptr]
-        for fn in (lib.binned_emit, lib.binned_min, lib.binned_info):
-            fn.restype = ctypes.c_int
-        lib._stratum_bound = True
-    return lib
+_EMIT = cuda_build.entry("binned.cu", "binned_emit", "ppppp iiiiii f pp p")
+_MIN = cuda_build.entry("binned.cu", "binned_min", "pppppppppp iiiii f p p")
+_INFO = cuda_build.entry("binned.cu", "binned_info", "iiii p")
 
 
 def emit_smem(tile: int, g: int, pcap: int) -> int:
@@ -236,8 +224,6 @@ def emit_launch(fat: FatBVH, o, inv, tb, t_min, g, pcap, em, emit_mode: str = "a
     through shared memory in tiles of :func:`emit_tile_leaves` leaves
     (one tile where they all fit)."""
     dev = o.device
-    if dev.type != "cuda":
-        raise ValueError("the emission kernel runs on CUDA tensors only")
     L = fat.num_leaves
     npad = o.shape[0]
     if npad % g:
@@ -247,21 +233,16 @@ def emit_launch(fat: FatBVH, o, inv, tb, t_min, g, pcap, em, emit_mode: str = "a
     for x, name, shape in ((o, "origin", (npad, 3)), (inv, "inv_dir", (npad, 3)),
                            (tb, "t_bound", (npad,)), (fat.leaf_lo, "leaf_lo", (L, 3)),
                            (fat.leaf_hi, "leaf_hi", (L, 3))):
-        _check(x, name, torch.float32, shape, dev)
+        cuda_build.check(x, name, torch.float32, shape, dev)
     tile = emit_tile_leaves(L, g, pcap, emit_mode)
     ng = npad // g
     count = torch.empty(ng, dtype=torch.int32, device=dev)
     slots = torch.empty((ng, pcap), dtype=torch.int32, device=dev)
     if ng == 0:
         return count, slots
-    rc = _lib().binned_emit(
-        o.data_ptr(), inv.data_ptr(), tb.data_ptr(), fat.leaf_lo.data_ptr(),
-        fat.leaf_hi.data_ptr(), npad, L, tile, g, pcap, int(em == "group"), t_min,
-        count.data_ptr(), slots.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"binned emission kernel launch failed: cudaError {rc}")
-    LAUNCHES["emit"] += 1
+    cuda_build.launch(_EMIT, dev, o.data_ptr(), inv.data_ptr(), tb.data_ptr(),
+                      fat.leaf_lo.data_ptr(), fat.leaf_hi.data_ptr(), npad, L, tile, g, pcap,
+                      int(em == "group"), t_min, count.data_ptr(), slots.data_ptr())
     return count, slots
 
 
@@ -349,10 +330,8 @@ def bin_pairs(fat: FatBVH, origin, direction, t_bound, t_min=T_MIN, g: int = 8,
 def launch(fat: FatBVH, bins: Bins, kind: str):
     """One K5 launch over every bin -> i64 [n] ``(t bits << 32) | slot``
     minima (MISS where no lane of the ray hit). ``kind`` ("closest" or
-    "occluded") names the counter it adds to."""
+    "occluded") is the op the launch registry counts it under."""
     dev = bins.rays.device
-    if dev.type != "cuda":
-        raise ValueError("the binned kernel runs on CUDA tensors only")
     L, K = fat.leaf_tri.shape
     nbins = bins.bin_leaf.shape[0]
     n = bins.n
@@ -370,20 +349,15 @@ def launch(fat: FatBVH, bins: Bins, kind: str):
         (counts, "leaf_count", i32, (L,)),
         (fat.leaf_feat, "leaf_feat", f32, (L, K, 10, 4)),
     ):
-        _check(x, name, dt, shape, dev)
+        cuda_build.check(x, name, dt, shape, dev)
     words = torch.full((n,), MISS, dtype=torch.int64, device=dev)
     if nbins == 0:
         return words
-    rc = _lib().binned_min(
-        bins.bin_leaf.data_ptr(), bins.pair_id.data_ptr(), bins.rays.data_ptr(),
-        bins.origin.data_ptr(), bins.inv_dir.data_ptr(), bins.t_bound.data_ptr(),
-        fat.leaf_lo.data_ptr(), fat.leaf_hi.data_ptr(), counts.data_ptr(),
-        fat.leaf_feat.data_ptr(), nbins, n, K, bins.g, bins.pcap, bins.t_min,
-        words.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if rc != 0:
-        raise RuntimeError(f"binned kernel launch failed: cudaError {rc}")
-    LAUNCHES[kind] += 1
+    cuda_build.launch(_MIN, dev, bins.bin_leaf.data_ptr(), bins.pair_id.data_ptr(),
+                      bins.rays.data_ptr(), bins.origin.data_ptr(), bins.inv_dir.data_ptr(),
+                      bins.t_bound.data_ptr(), fat.leaf_lo.data_ptr(), fat.leaf_hi.data_ptr(),
+                      counts.data_ptr(), fat.leaf_feat.data_ptr(), nbins, n, K, bins.g,
+                      bins.pcap, bins.t_min, words.data_ptr(), op=kind)
     return words
 
 
@@ -399,14 +373,9 @@ def kernel_info(kernel: str, num_leaves: int = 0, g: int = 8, pcap: int = 16) ->
     if kernel not in ("bin", "emit"):
         raise ValueError(f"kernel must be 'bin' or 'emit', not {kernel!r}")
     names = ("registers", "static_smem", "dynamic_smem", "ctas_per_sm", "local_bytes")
-    if kernel == "bin":
-        names += ("run_bins", "pass_lanes")
-    out = (ctypes.c_int * 7)()
+    names += ("run_bins", "pass_lanes") if kernel == "bin" else (None, None)
     tile = emit_tile_leaves(num_leaves, g, pcap) if kernel == "emit" else 0
-    rc = _lib().binned_info(int(kernel == "emit"), tile, g, pcap, out)
-    if rc != 0:
-        raise RuntimeError(f"binned_info failed: cudaError {rc}")
-    info = dict(zip(names, out))
+    info = cuda_build.kernel_info(_INFO, names, int(kernel == "emit"), tile, g, pcap)
     if kernel == "emit":
         info["tile_leaves"] = tile
     return info

@@ -52,10 +52,12 @@ cycles of its list phase and its walk.
 ``block_closest`` / ``block_occluded`` launch the kernel when the rays lie
 on a CUDA device and use ``block_closest_plain`` / ``block_occluded_plain``
 only when they lie on the CPU. There is no fallback from one to the other:
-a CUDA tensor launches the kernel or raises. ``LAUNCHES`` counts the
-kernels enqueued (and nothing else), every chunk of the culled and global
-modes one, as the launcher reports them, so a run can show that its path
-went through the kernels. While the port's profiler records, each
+a CUDA tensor launches the kernel or raises. ``cuda_build.launches()``
+counts the kernels enqueued under ``block_trace_closest`` /
+``block_trace_occluded`` (and nothing else), every chunk of the culled and
+global modes one, as the launcher reports them, so a run can show that its
+path went through the kernels; each ``launch`` span's ``kernels`` is the
+same number. While the port's profiler records, each
 ``launch`` span carries its list ``mode`` and ``ctas``, and in the culled
 and global modes two device counters the kernel adds to at the end of each
 CTA's list phase: ``overflow`` (CTAs that sorted in a scratch row) and
@@ -71,7 +73,6 @@ keeps the lower slot.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -80,6 +81,7 @@ import torch
 from stratum_tpu_torch.ops import mxu as smxu
 from stratum_tpu_torch.ops.intersect import HitRecord, T_MAX
 from stratum_tpu_torch.ops.packet import FatBVH, _block_entries, leaf_counts, safe_inv
+from stratum_tpu_torch.utils import cuda_build
 from stratum_tpu_torch.utils import profiler as sprof
 
 BLOCK = 2048  # rays per candidate list of the reference (one 2048-lane block)
@@ -100,8 +102,6 @@ LIST_SCRATCH_BYTES = 1 << 29  # the culled mode's overflow rows: 512 MB of keys
 ENTRY_CHUNK_ELEMS = 64 * 2048 * 190
 PLAIN_RAY_CHUNK = 1 << 20
 PLAIN_MT_ROWS = 65536
-
-LAUNCHES = {"closest": 0, "occluded": 0}
 
 
 class Prepared(NamedTuple):
@@ -302,35 +302,14 @@ def list_scratch_ctas(num_groups: int, n_cta: int) -> int:
     return max(1, min(n_cta, LIST_SCRATCH_BYTES // (8 * list_keys(num_groups))))
 
 
-def _lib():
-    from stratum_tpu_torch.utils import cuda_build
-
-    lib = cuda_build.load("block_trace")
-    if not getattr(lib, "_stratum_bound", False):
-        ptrs = [ctypes.c_void_p] * 12
-        ints = [ctypes.c_int] * 9
-        stats = [ctypes.c_void_p] * 5  # ncand, entries, groups, CTA phases, list counts
-        scratch = [ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-        lib.block_trace_closest.argtypes = ptrs + ints + [ctypes.c_void_p] * 2 + stats + (
-            scratch + [ctypes.c_void_p])
-        lib.block_trace_occluded.argtypes = ptrs + ints + [ctypes.c_void_p] + stats + (
-            scratch + [ctypes.c_void_p])
-        lib.block_trace_info.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        for fn in (lib.block_trace_closest, lib.block_trace_occluded, lib.block_trace_info):
-            fn.restype = ctypes.c_int
-        lib._stratum_bound = True
-    return lib
-
-
-def _check(x: torch.Tensor, name, dtype, shape, device):
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+# rays .. feat (12 pointers), num_ctas .. gs (9 ints), the outputs (t and
+# slot, or blocked), the stats (ncand, entries, groups, CTA phases, list
+# counts), the scratch and its CTAs, the kernels launched, the stream
+_CLOSEST = cuda_build.entry("block_trace.cu", "block_trace_closest",
+                            "pppppppppppp iiiiiiiii pp ppppp pi np")
+_OCCLUDED = cuda_build.entry("block_trace.cu", "block_trace_occluded",
+                             "pppppppppppp iiiiiiiii p ppppp pi np")
+_INFO = cuda_build.entry("block_trace.cu", "block_trace_info", "iiii p")
 
 
 def _list_counts(span, mode: str, n_cta: int, device) -> Optional[torch.Tensor]:
@@ -368,8 +347,6 @@ def launch(fat: FatBVH, prep: Prepared, occluded: bool, stats: Optional[str] = N
         raise ValueError(f"{G} candidate groups do not match {L} leaves in groups of {prep.gs}")
     mode = resolve_list_mode(G, list_mode)
     dev = prep.rays.device
-    if dev.type != "cuda":
-        raise ValueError("the block-trace kernel runs on CUDA tensors only")
     if stats not in (None, "ncand", "lists", "phases"):
         raise ValueError(f"stats must be None, 'ncand', 'lists' or 'phases', not {stats!r}")
     if CULL_LIST_KEYS < 1 or CULL_LIST_KEYS & (CULL_LIST_KEYS - 1):
@@ -391,9 +368,7 @@ def launch(fat: FatBVH, prep: Prepared, occluded: bool, stats: Optional[str] = N
         (prep.leaf_count, "leaf_count", i32, (L,)),
         (fat.leaf_feat, "leaf_feat", f32, (L, K, 10, 4)),
     ):
-        _check(x, name, dt, shape, dev)
-    lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+        cuda_build.check(x, name, dt, shape, dev)
     slo = shi = scratch = None
     n_super, chunk = 0, 0
     if mode != "shared":
@@ -416,25 +391,18 @@ def launch(fat: FatBVH, prep: Prepared, occluded: bool, stats: Optional[str] = N
     centry = torch.empty((n_cta, G), dtype=f32, device=dev) if whole else None
     cta = torch.empty((n_cta, 3), dtype=torch.int64, device=dev) if stats == "phases" else None
     counts = _list_counts(span, mode, n_cta, dev)
-    stat_ptrs = [ptr(ncand), ptr(centry), ptr(cand), ptr(cta), ptr(counts)]
-    launched = ctypes.c_int(0)  # kernels enqueued, set by the launcher
-    scratch_args = (ptr(scratch), chunk, ctypes.byref(launched))
+    tail = (ptr(ncand), ptr(centry), ptr(cand), ptr(cta), ptr(counts), ptr(scratch), chunk)
     if occluded:
         blocked = torch.empty(np_, dtype=torch.uint8, device=dev)
-        rc = lib.block_trace_occluded(*args, blocked.data_ptr(), *stat_ptrs, *scratch_args,
-                                      stream)
+        launched = cuda_build.launch(_OCCLUDED, dev, *args, blocked.data_ptr(), *tail)
         outs = (blocked,)
     else:
         t = torch.empty(np_, dtype=f32, device=dev)
         slot = torch.empty(np_, dtype=i32, device=dev)
-        rc = lib.block_trace_closest(*args, t.data_ptr(), slot.data_ptr(), *stat_ptrs,
-                                     *scratch_args, stream)
+        launched = cuda_build.launch(_CLOSEST, dev, *args, t.data_ptr(), slot.data_ptr(), *tail)
         outs = (t, slot)
-    if rc != 0:
-        raise RuntimeError(f"block_trace kernel launch failed: cudaError {rc}")
-    sprof.count(span, "kernels", launched.value)
+    sprof.count(span, "kernels", launched)
     sprof.end(span)  # its end event follows the last kernel enqueued
-    LAUNCHES["occluded" if occluded else "closest"] += launched.value
     if stats is None:
         return outs
     if stats == "phases":
@@ -449,13 +417,9 @@ def kernel_info(occluded: bool, num_groups: int, mode: str = "shared") -> dict:
     bytes per thread, at a list of ``num_groups`` groups, in the list mode
     ``mode`` ("shared", or "culled" and "global", one instantiation with
     ``CULL_LIST_KEYS`` keys in shared memory)."""
-    out = (ctypes.c_int * 5)()
-    rc = _lib().block_trace_info(int(occluded), int(mode != "shared"), num_groups,
-                                 CULL_LIST_KEYS, out)
-    if rc != 0:
-        raise RuntimeError(f"block_trace_info failed: cudaError {rc}")
-    return dict(zip(("registers", "static_smem", "dynamic_smem", "ctas_per_sm",
-                     "local_bytes"), out))
+    return cuda_build.kernel_info(
+        _INFO, ("registers", "static_smem", "dynamic_smem", "ctas_per_sm", "local_bytes"),
+        int(occluded), int(mode != "shared"), num_groups, CULL_LIST_KEYS)
 
 
 def pack_key(t, slot):

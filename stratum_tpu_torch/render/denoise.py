@@ -12,10 +12,11 @@ filtering (counterpart of stratum_tpu/render/denoise.py).
 Plain torch ops on [H, W, C] images on the device of their inputs. A shift
 is an edge-clamped copy (the reference's ``jnp.pad(mode="edge")`` and a
 slice) made by two row and column index gathers. On CUDA tensors each
-a-trous iteration is one launch of ``csrc/atrous.cu`` (``LAUNCHES`` counts
-them); on CPU tensors its plain version, :func:`_atrous_plain`, runs,
-where the colour, variance, normal, depth and colour luminance of a pixel
-are shifted together as one 9-channel image, one copy a tap. There is no
+a-trous iteration is one launch of ``csrc/atrous.cu``
+(``cuda_build.launches()`` counts them as ``atrous_iteration``); on CPU
+tensors its plain version, :func:`_atrous_plain`, runs, where the colour,
+variance, normal, depth and colour luminance of a pixel are shifted
+together as one 9-channel image, one copy a tap. There is no
 fallback from one to the other: a CUDA tensor launches the kernel or
 raises.
 """
@@ -31,6 +32,7 @@ import torch
 
 from stratum_tpu_torch.core import math as smath
 from stratum_tpu_torch.render.aov import GBuffer
+from stratum_tpu_torch.utils import cuda_build
 from stratum_tpu_torch.utils import profiler as sprof
 
 _COS_2DEG = np.float32(np.cos(np.radians(2.0)))
@@ -305,21 +307,10 @@ def _atrous_plain(color, variance, gbuf: GBuffer, cfg: DenoiseConfig):
     return color, tap_color
 
 
-LAUNCHES = 0  # a-trous kernels enqueued (one an iteration on CUDA tensors)
-
-
-def _lib():
-    from stratum_tpu_torch.utils import cuda_build
-
-    lib = cuda_build.load("atrous")
-    if not getattr(lib, "_stratum_bound", False):
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.atrous_iteration.argtypes = [ptr] * 9 + [i32] * 5 + [ptr] * 3 + [f32] * 3 + [ptr]
-        lib.atrous_info.argtypes = [i32, ptr]
-        for fn in (lib.atrous_iteration, lib.atrous_info):
-            fn.restype = ctypes.c_int
-        lib._stratum_bound = True
-    return lib
+# the images, guide, depth gradient and outputs; h, w, step, first and the
+# tap count; the taps; the three sigmas; the stream
+_ITERATION = cuda_build.entry("atrous.cu", "atrous_iteration", "ppppppppp iiiii ppp fff p")
+_INFO = cuda_build.entry("atrous.cu", "atrous_info", "i p")
 
 
 def _tap_args(filter_type: str, it: int):
@@ -333,11 +324,8 @@ def _tap_args(filter_type: str, it: int):
 def kernel_info(first: bool) -> dict:
     """Registers, spilled bytes and resident CTAs per SM of the first or a
     later iteration's kernel, and its CTA's threads."""
-    out = (ctypes.c_int * 4)()
-    rc = _lib().atrous_info(int(first), out)
-    if rc != 0:
-        raise RuntimeError(f"atrous_info failed: cudaError {rc}")
-    return dict(zip(("registers", "local_bytes", "ctas_per_sm", "threads"), out))
+    return cuda_build.kernel_info(_INFO, ("registers", "local_bytes", "ctas_per_sm", "threads"),
+                                  int(first))
 
 
 def _atrous_kernel(color, variance, gbuf: GBuffer, cfg: DenoiseConfig):
@@ -345,16 +333,11 @@ def _atrous_kernel(color, variance, gbuf: GBuffer, cfg: DenoiseConfig):
     The first reads the inputs and writes the iteration-invariant guide
     (normal | sentinel depth) and depth gradient; colour | variance passes
     between iterations as a float4 a pixel in two buffers."""
-    global LAUNCHES
     dev = color.device
-    if dev.type != "cuda":
-        raise ValueError("the a-trous kernel runs on CUDA tensors only")
     h, w = color.shape[:2]
     for x, name, shape in ((color, "color", (h, w, 3)), (variance, "variance", (h, w)),
                            (gbuf.normal, "normal", (h, w, 3)), (gbuf.depth, "depth", (h, w))):
-        if x.device != dev or x.dtype != torch.float32 or tuple(x.shape) != shape:
-            raise ValueError(f"{name}: expected f32 {shape} on {dev}, got {x.dtype} "
-                             f"{tuple(x.shape)} on {x.device}")
+        cuda_build.check(x, name, torch.float32, shape, dev, contiguous=False)
     iters = cfg.atrous_iterations
     if iters <= 0:
         return color, None
@@ -363,10 +346,8 @@ def _atrous_kernel(color, variance, gbuf: GBuffer, cfg: DenoiseConfig):
     guide = torch.empty((h, w, 4), **f32)
     dz = torch.empty((h, w), **f32)
     packs = [torch.empty((h, w, 4), **f32) for _ in range(min(iters - 1, 2))]
-    lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     cv_in = out = tap_color = None
-    with torch.cuda.device(dev):  # the runtime launches on the current device
+    with torch.cuda.device(dev):  # the spans' events on the launches' device
         for it in range(iters):
             span = sprof.begin("atrous", it=it)
             last = it + 1 == iters
@@ -375,15 +356,11 @@ def _atrous_kernel(color, variance, gbuf: GBuffer, cfg: DenoiseConfig):
             cv_out = None if last else packs[it % 2]
             first = [x.data_ptr() for x in inputs] if it == 0 else [None] * 4
             n, dy, dx, kw = _tap_args(cfg.filter_type, it)
-            rc = lib.atrous_iteration(
-                *first, None if cv_in is None else cv_in.data_ptr(), guide.data_ptr(),
-                dz.data_ptr(), None if cv_out is None else cv_out.data_ptr(),
+            launched = cuda_build.launch(
+                _ITERATION, dev, *first, None if cv_in is None else cv_in.data_ptr(),
+                guide.data_ptr(), dz.data_ptr(), None if cv_out is None else cv_out.data_ptr(),
                 None if out is None else out.data_ptr(), h, w, 1 << it, int(it == 0), n, dy, dx,
-                kw, cfg.sigma_luminance, cfg.sigma_normal, cfg.sigma_depth, stream)
-            if rc != 0:
-                raise RuntimeError(f"a-trous kernel launch failed: cudaError {rc}")
-            launched = int(h * w > 0)
-            LAUNCHES += launched
+                kw, cfg.sigma_luminance, cfg.sigma_normal, cfg.sigma_depth)
             if it + 1 == cfg.history_tap:
                 tap_color = out
             cv_in = cv_out

@@ -9,7 +9,8 @@ Conventions: local frame with wo.z > 0; wi.z < 0 is transmission;
 
 On CUDA tensors (f32 [N] and [N, 3], views as they are) :func:`disney_eval`
 and :func:`disney_sample` are one launch each of ``csrc/disney.cu``
-(``LAUNCHES`` counts them by op), bit for bit with the plain bodies on the
+(``cuda_build.launches()`` counts them as ``disney_eval`` /
+``disney_sample``), bit for bit with the plain bodies on the
 card; on CPU tensors the plain bodies, :func:`_disney_eval_plain` and
 :func:`_disney_sample_plain`, run. There is
 no fallback from one to the other: a CUDA tensor launches the kernel or
@@ -20,7 +21,6 @@ raises. Each call is a ``bsdf`` span with ``op`` (``eval`` / ``sample``),
 from __future__ import annotations
 
 import ctypes
-import re
 
 import torch
 
@@ -28,6 +28,7 @@ from stratum_tpu_torch.core import math as smath
 from stratum_tpu_torch.core import microfacet as mf
 from stratum_tpu_torch.render.bsdf import BSDFEval, BSDFSample
 from stratum_tpu_torch.render.shading import MaterialSample
+from stratum_tpu_torch.utils import cuda_build
 from stratum_tpu_torch.utils import profiler as sprof
 
 
@@ -212,40 +213,32 @@ def _disney_sample_plain(mat: MaterialSample, wo, u) -> BSDFSample:
 
 def disney_eval(mat: MaterialSample, wo, wi) -> BSDFEval:
     """Full-mixture eval: f [..., 3], the forward and the reverse pdf."""
-    span = sprof.begin("bsdf")
-    try:
-        if wo.device.type == "cuda":
-            ev, launched = _launch(False, mat, wo, wi)
-        else:
-            ev, launched = _disney_eval_plain(mat, wo, wi), 0
-        _count(span, "eval", ev.pdf_fwd.numel(), launched)
-    finally:
-        sprof.end(span)  # its end event follows the kernel
-    return ev
+    return _bsdf(False, mat, wo, wi)
 
 
 def disney_sample(mat: MaterialSample, wo, u) -> BSDFSample:
     """Pick a lobe by weight with u[..., 2], generate wi with u[..., 0:2],
     then evaluate the full mixture at wi."""
+    return _bsdf(True, mat, wo, u)
+
+
+def _bsdf(sample: bool, mat: MaterialSample, wo, arg):
+    """One ``bsdf`` span around the kernel (CUDA tensors) or the plain body
+    (CPU ones), with its ``op``, ``lanes`` and the ``kernels`` enqueued."""
     span = sprof.begin("bsdf")
     try:
         if wo.device.type == "cuda":
-            bs, launched = _launch(True, mat, wo, u)
+            out, launched = _launch(sample, mat, wo, arg)
         else:
-            bs, launched = _disney_sample_plain(mat, wo, u), 0
-        _count(span, "sample", bs.pdf_fwd.numel(), launched)
+            plain = _disney_sample_plain if sample else _disney_eval_plain
+            out, launched = plain(mat, wo, arg), 0
+        sprof.count(span, "op", "sample" if sample else "eval")
+        sprof.count(span, "lanes", out.pdf_fwd.numel())
+        sprof.count(span, "kernels", launched)
     finally:
-        sprof.end(span)
-    return bs
+        sprof.end(span)  # its end event follows the kernel
+    return out
 
-
-def _count(span, op: str, lanes: int, launched: int):
-    sprof.count(span, "op", op)
-    sprof.count(span, "lanes", lanes)
-    sprof.count(span, "kernels", launched)
-
-
-LAUNCHES = {"eval": 0, "sample": 0}  # Disney kernels enqueued (one a call on CUDA tensors)
 
 # the material columns in the kernel's Field order; wo and wi (eval) or u
 # (sample) follow
@@ -254,19 +247,10 @@ _FIELDS = ("base_color", "metallic", "roughness", "anisotropic", "subsurface", "
 _VECTORS = ("base_color", "wo", "wi", "u")  # [N, 3]; the rest [N]
 
 
-def _lib():
-    from stratum_tpu_torch.utils import cuda_build
-
-    lib = cuda_build.load("disney")
-    if not getattr(lib, "_stratum_bound", False):
-        ptr, i64 = ctypes.c_void_p, ctypes.c_longlong
-        lib.disney_eval.argtypes = [ptr] * 3 + [i64] + [ptr] * 4
-        lib.disney_sample.argtypes = [ptr] * 3 + [i64] + [ptr] * 6
-        lib.disney_info.argtypes = [ctypes.c_int, ptr]
-        for fn in (lib.disney_eval, lib.disney_sample, lib.disney_info):
-            fn.restype = ctypes.c_int
-        lib._stratum_bound = True
-    return lib
+# the inputs' pointers, lane and component strides, the lanes, the outputs
+_EVAL = cuda_build.entry("disney.cu", "disney_eval", "ppp q ppp p")
+_SAMPLE = cuda_build.entry("disney.cu", "disney_sample", "ppp q ppppp p")
+_INFO = cuda_build.entry("disney.cu", "disney_info", "i p")
 
 
 def kernel_info(sample: bool) -> dict:
@@ -274,23 +258,9 @@ def kernel_info(sample: bool) -> dict:
     eval or the sample kernel; then, from ptxas's report of the library,
     its stack frame and spilled bytes (stores, loads), None without a
     report."""
-    from stratum_tpu_torch.utils import cuda_build
-
-    out = (ctypes.c_int * 4)()
-    rc = _lib().disney_info(int(sample), out)
-    if rc != 0:
-        raise RuntimeError(f"disney_info failed: cudaError {rc}")
-    info = dict(zip(("registers", "local_bytes", "ctas_per_sm", "threads"), out))
-    kernel = "disney_sample_kernel" if sample else "disney_eval_kernel"
-    lines = cuda_build.BUILD_LOG.get("disney.cu", "").splitlines()
-    frame = None
-    for ln, nxt in zip(lines, lines[1:]):
-        if "Function properties for" in ln and kernel in ln:
-            frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                              r"(\d+) bytes spill loads", nxt)
-    for i, key in enumerate(("stack_bytes", "spill_stores", "spill_loads"), start=1):
-        info[key] = int(frame[i]) if frame else None
-    return info
+    return cuda_build.kernel_info(
+        _INFO, ("registers", "local_bytes", "ctas_per_sm", "threads"), int(sample),
+        kernel="disney_sample_kernel" if sample else "disney_eval_kernel")
 
 
 def _launch(sample: bool, mat: MaterialSample, wo, arg):
@@ -306,29 +276,19 @@ def _launch(sample: bool, mat: MaterialSample, wo, arg):
     lane, comp = (ctypes.c_longlong * len(names))(), (ctypes.c_longlong * len(names))()
     for k, (x, name) in enumerate(zip(inputs, names)):
         vec = name in _VECTORS
-        shape = (n, 3) if vec else (n,)
-        if x.device != dev or x.dtype != torch.float32 or tuple(x.shape) != shape:
-            raise ValueError(f"{name}: expected f32 {shape} on {dev}, got {x.dtype} "
-                             f"{tuple(x.shape)} on {x.device}")
+        cuda_build.check(x, name, torch.float32, (n, 3) if vec else (n,), dev, contiguous=False)
         ptrs[k], lane[k], comp[k] = x.data_ptr(), x.stride(0), x.stride(1) if vec else 0
     f32 = dict(dtype=torch.float32, device=dev)
     f, pdf, rev = torch.empty((n, 3), **f32), torch.empty((n,), **f32), torch.empty((n,), **f32)
     if sample:
         wi, eta = torch.empty((n, 3), **f32), torch.empty((n,), **f32)
-    if n > 0:
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        lib = _lib()
-        with torch.cuda.device(dev):  # the runtime launches on the current device
-            if sample:
-                rc = lib.disney_sample(ptrs, lane, comp, n, wi.data_ptr(), f.data_ptr(),
-                                       pdf.data_ptr(), rev.data_ptr(), eta.data_ptr(), stream)
-            else:
-                rc = lib.disney_eval(ptrs, lane, comp, n, f.data_ptr(), pdf.data_ptr(),
-                                     rev.data_ptr(), stream)
-        if rc != 0:
-            raise RuntimeError(f"Disney kernel launch failed: cudaError {rc}")
-    launched = int(n > 0)
-    LAUNCHES["sample" if sample else "eval"] += launched
+    launched = 0
+    if n > 0 and sample:
+        launched = cuda_build.launch(_SAMPLE, dev, ptrs, lane, comp, n, wi.data_ptr(),
+                                     f.data_ptr(), pdf.data_ptr(), rev.data_ptr(), eta.data_ptr())
+    elif n > 0:
+        launched = cuda_build.launch(_EVAL, dev, ptrs, lane, comp, n, f.data_ptr(),
+                                     pdf.data_ptr(), rev.data_ptr())
     if sample:
         return BSDFSample(wi=wi, f=f, pdf_fwd=pdf, pdf_rev=rev, eta=eta,
                           roughness=mat.roughness), launched

@@ -6,8 +6,9 @@ traced leaf visit (the repository's ``tools/`` scripts of the same names):
 * ``probe_mxu_loop`` (T3): a loop of c48 products, optionally carried;
 * ``bench_mxu_model`` (T4): the cost model of the contraction.
 
-Each module holds its kernel's wrapper (source ``csrc/microbench.cu``, a
-``LAUNCHES`` count), its plain torch version and a ``main`` that keeps the
+Each module holds its kernel's wrapper (source ``csrc/microbench.cu``;
+``cuda_build.launches()`` counts its launches by entry point), its plain
+torch version and a ``main`` that keeps the
 reference's ``--key=value`` options and output, timed with CUDA events::
 
     python3 -m stratum_tpu_torch.tools.perf_commit_pipeline [--k=1024] ...
@@ -27,6 +28,8 @@ import time
 
 import numpy as np
 import torch
+
+from stratum_tpu_torch.utils import cuda_build
 
 # bf16 dense tensor-core peak and memory rate of one H100 SXM (NVIDIA data
 # sheet); the tools' per-SM bounds divide the peak by its 132 SMs
@@ -125,42 +128,8 @@ def time_call(fn, reps: int, device: torch.device):
     return out, (time.perf_counter() - t0) / reps
 
 
-def check(x: torch.Tensor, name: str, dtype, shape) -> None:
-    """Raise unless ``x`` is a contiguous CUDA tensor of this type and shape."""
-    from stratum_tpu_torch.ops.block_trace import _check
-
-    if x.device.type != "cuda":
-        raise ValueError(f"{name} is on {x.device}: the kernel takes CUDA tensors")
-    _check(x, name, dtype, shape, x.device)
-
-
-_SIGNATURES = {  # C entry point -> (pointer args, int args)
-    "mb_commit_pipeline": (6, 4),
-    "mb_epilogue": (3, 4),
-    "mb_mxu_loop": (3, 3),
-    "mb_mxu_model": (3, 6),
-}
-
-
-def lib() -> ctypes.CDLL:
-    """``csrc/microbench.cu``, built on first use, with its entry points
-    bound (pointers, then ints, then the stream; each returns a cudaError)."""
-    from stratum_tpu_torch.utils import cuda_build
-
-    so = cuda_build.load("microbench")
-    if not getattr(so, "_stratum_bound", False):
-        for fn, (ptrs, ints) in _SIGNATURES.items():
-            f = getattr(so, fn)
-            f.argtypes = [ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints + [ctypes.c_void_p]
-            f.restype = ctypes.c_int
-        so.mb_info.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
-        so.mb_info.restype = ctypes.c_int
-        so.mb_kernel_name.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_char_p)]
-        so.mb_kernel_name.restype = ctypes.c_int
-        so.mb_mxu_model_tile.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        so.mb_mxu_model_tile.restype = ctypes.c_int
-        so._stratum_bound = True
-    return so
+_INFO = cuda_build.entry("microbench.cu", "mb_info", "ii p")
+_KERNEL_NAME = cuda_build.entry("microbench.cu", "mb_kernel_name", "ii p")
 
 
 def kernel_info(tool: int, variant: int) -> dict:
@@ -170,21 +139,19 @@ def kernel_info(tool: int, variant: int) -> dict:
     (bytes; T4's at 5 passes or the most that fit), resident CTAs per SM,
     local (spill) bytes per thread, threads per CTA, the [rows, columns] of
     the output one CTA writes (``tile``), and its symbol."""
-    out = (ctypes.c_int * 8)()
-    rc = lib().mb_info(tool, variant, out)
+    info = cuda_build.kernel_info(_INFO, ("registers", "static_smem", "dynamic_smem",
+                                          "ctas_per_sm", "local_bytes", "threads", "tile_rows",
+                                          "tile_cols"), tool, variant)
     name = ctypes.c_char_p()
-    rc = rc or lib().mb_kernel_name(tool, variant, ctypes.byref(name))
+    rc = _KERNEL_NAME(tool, variant, ctypes.byref(name))
     if rc != 0:
-        raise RuntimeError(f"mb_info failed: cudaError {rc}")
-    return dict(zip(("registers", "static_smem", "dynamic_smem", "ctas_per_sm", "local_bytes",
-                     "threads"), out), tile=(out[6], out[7]), symbol=name.value.decode())
+        raise RuntimeError(f"mb_kernel_name failed: cudaError {rc}")
+    return dict(info, tile=(info["tile_rows"], info["tile_cols"]), symbol=name.value.decode())
 
 
 def library_sass() -> str:
     """``cuobjdump -sass`` of the built ``csrc/microbench.cu``."""
-    from stratum_tpu_torch.utils import cuda_build
-
-    lib()
+    cuda_build.load("microbench")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     return subprocess.run([tool, "-sass", str(cuda_build.library_path("microbench"))],
                           capture_output=True, text=True, timeout=300, check=True).stdout
@@ -286,9 +253,3 @@ def sass_pass_ops(sass: str, symbol: str, stagers: int) -> dict:
     return dict({p: stagers * a[p] + 128 * b[p] for p in a},
                 hgmma=sum(op.startswith("HGMMA") for op in issue))
 
-
-def launch(fn: str, ptrs, ints, device: torch.device) -> None:
-    """Call one entry point on the current stream; raise if it refused."""
-    rc = getattr(lib(), fn)(*ptrs, *ints, torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn} launch failed: cudaError {rc}")

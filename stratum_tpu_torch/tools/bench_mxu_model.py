@@ -42,6 +42,7 @@ import torch
 
 from stratum_tpu_torch import tools
 from stratum_tpu_torch.ops import mt_commit as mt
+from stratum_tpu_torch.utils import cuda_build
 from stratum_tpu_torch.utils.flags import Options
 
 ITERS = 512
@@ -62,7 +63,8 @@ CASES = [
     ("C=32: [32,1024]x[32,128] x3", 32, 1024, 128, 3, 1),
 ]
 
-LAUNCHES = {"mxu_model": 0}
+_KERNEL = cuda_build.entry("microbench.cu", "mb_mxu_model", "ppp iiiiii p")
+_TILE = cuda_build.entry("microbench.cu", "mb_mxu_model_tile", "iiii p")
 
 
 @functools.lru_cache(maxsize=None)
@@ -71,7 +73,7 @@ def geometry(c: int, m: int, b: int, passes: int) -> tuple:
     ``tools.kernel_info(4, ...)``) that the built library takes for an
     [m, b] output at C = c and ``passes``."""
     out = (ctypes.c_int * 3)()
-    if tools.lib().mb_mxu_model_tile(c, m, b, passes, out) != 0:
+    if _TILE(c, m, b, passes, out) != 0:
         raise ValueError(f"C={c}, passes={passes}: the kernel takes 1 <= C <= {MAX_C} and "
                          "passes >= 0")
     return (out[0], out[1]), out[2]
@@ -95,12 +97,11 @@ def run(a, b, iters: int, passes: int, reps: int) -> torch.Tensor:
     if not (m % (tm * reps) == 0 and nb % tn == 0):
         raise ValueError(f"M={m}, B={nb}, reps={reps}: the kernel takes M a multiple of "
                          f"{tm} * reps and B a multiple of {tn}")
-    tools.check(a, "a", torch.float32, (c, m))
-    tools.check(b, "b", torch.float32, (c, nb))
+    cuda_build.check(a, "a", torch.float32, (c, m), a.device)
+    cuda_build.check(b, "b", torch.float32, (c, nb), a.device)
     out = torch.empty((m, nb), dtype=torch.float32, device=a.device)
-    tools.launch("mb_mxu_model", [a.data_ptr(), b.data_ptr(), out.data_ptr()],
-                 [c, m, nb, iters, passes, reps], a.device)
-    LAUNCHES["mxu_model"] += 1
+    cuda_build.launch(_KERNEL, a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), c, m, nb,
+                      iters, passes, reps)
     return out
 
 

@@ -36,6 +36,7 @@ import torch
 
 from stratum_tpu_torch import tools
 from stratum_tpu_torch.ops import mt_commit as mt
+from stratum_tpu_torch.utils import cuda_build
 from stratum_tpu_torch.utils.flags import Options
 
 NL = 4  # slab ring depth
@@ -45,7 +46,7 @@ VARIANTS = ("bare", "classify", "epi", "epi_when", "epi_while", "epi_drain",
 WIDE = ("epi_x2", "epi_w256")  # 256 lanes, two commits per visit in the ns math
 SINK = 512  # f32 per-thread sink of the classify variant's unread rows
 
-LAUNCHES = {"commit_pipeline": 0}
+_KERNEL = cuda_build.entry("microbench.cu", "mb_commit_pipeline", "pppppp iiii p")
 
 
 def lanes_of(variant: str) -> int:
@@ -69,13 +70,12 @@ def run_inner(rays, feat, word, n, variant: str, k: int, iters: int) -> torch.Te
                                (feat, "feat", torch.bfloat16, (NL, mt.C, 4 * k)),
                                (word, "word", torch.int32, (8,)),
                                (n, "n", torch.int32, (1,))):
-        tools.check(x, name, dt, shape)
+        cuda_build.check(x, name, dt, shape, rays.device)
     out = torch.empty((2, ctas * B), dtype=torch.float32, device=rays.device)
     sink = torch.empty(ctas * SINK, dtype=torch.float32, device=rays.device)
-    tools.launch("mb_commit_pipeline",
-                 [x.data_ptr() for x in (rays, feat, word, n, out, sink)],
-                 [VARIANTS.index(variant), k, iters, ctas], rays.device)
-    LAUNCHES["commit_pipeline"] += 1
+    cuda_build.launch(_KERNEL, rays.device,
+                      *(x.data_ptr() for x in (rays, feat, word, n, out, sink)),
+                      VARIANTS.index(variant), k, iters, ctas)
     return out
 
 

@@ -36,6 +36,7 @@ import torch
 
 from stratum_tpu_torch import tools
 from stratum_tpu_torch.ops import mt_commit as mt
+from stratum_tpu_torch.utils import cuda_build
 from stratum_tpu_torch.utils.flags import Options
 
 VARIANTS = ("none", "classify", "nodiv", "full", "fused")
@@ -46,7 +47,7 @@ LANES = 128  # lanes per CTA of the kernel
 # CANCELLING can exceed it: the checks hold each lane to :func:`tolerance`
 REL_TOL = 2.0 ** -12
 
-LAUNCHES = {"epilogue": 0}
+_KERNEL = cuda_build.entry("microbench.cu", "mb_epilogue", "ppp iiii p")
 
 
 def run(slab, rays, variant: str, k: int, sw: int, iters: int) -> torch.Tensor:
@@ -59,12 +60,11 @@ def run(slab, rays, variant: str, k: int, sw: int, iters: int) -> torch.Tensor:
         raise ValueError(f"k = {k}: the kernel takes multiples of 8 up to {1 << mt.IDX_BITS}")
     if sw % LANES:
         raise ValueError(f"sw = {sw}: the kernel takes multiples of {LANES}")
-    tools.check(slab, "slab", torch.bfloat16, (mt.C, 4 * k))
-    tools.check(rays, "rays", torch.bfloat16, (mt.C, sw))
+    cuda_build.check(slab, "slab", torch.bfloat16, (mt.C, 4 * k), slab.device)
+    cuda_build.check(rays, "rays", torch.bfloat16, (mt.C, sw), slab.device)
     out = torch.empty((1, sw), dtype=torch.float32, device=slab.device)
-    tools.launch("mb_epilogue", [slab.data_ptr(), rays.data_ptr(), out.data_ptr()],
-                 [VARIANTS.index(variant), k, sw, iters], slab.device)
-    LAUNCHES["epilogue"] += 1
+    cuda_build.launch(_KERNEL, slab.device, slab.data_ptr(), rays.data_ptr(), out.data_ptr(),
+                      VARIANTS.index(variant), k, sw, iters)
     return out
 
 

@@ -25,13 +25,14 @@ import torch
 
 from stratum_tpu_torch import tools
 from stratum_tpu_torch.ops import mt_commit as mt
+from stratum_tpu_torch.utils import cuda_build
 from stratum_tpu_torch.utils.flags import Options
 
 B = 128
 NL = 4
 TRIPS = (256, 1024, 4096)  # the trip counts main() times
 
-LAUNCHES = {"mxu_loop": 0}
+_KERNEL = cuda_build.entry("microbench.cu", "mb_mxu_loop", "ppp iii p")
 
 
 def run(rays, feat, iters: int, dep: bool) -> torch.Tensor:
@@ -43,12 +44,11 @@ def run(rays, feat, iters: int, dep: bool) -> torch.Tensor:
     k = feat.shape[-1] // 4
     if not (8 <= k and k % 8 == 0):
         raise ValueError(f"k = {k}: the kernel takes multiples of 8")
-    tools.check(rays, "rays", torch.bfloat16, (mt.C, B))
-    tools.check(feat, "feat", torch.bfloat16, (NL, mt.C, 4 * k))
+    cuda_build.check(rays, "rays", torch.bfloat16, (mt.C, B), rays.device)
+    cuda_build.check(feat, "feat", torch.bfloat16, (NL, mt.C, 4 * k), rays.device)
     out = torch.empty((1, B), dtype=torch.float32, device=rays.device)
-    tools.launch("mb_mxu_loop", [rays.data_ptr(), feat.data_ptr(), out.data_ptr()],
-                 [k, iters, int(bool(dep))], rays.device)
-    LAUNCHES["mxu_loop"] += 1
+    cuda_build.launch(_KERNEL, rays.device, rays.data_ptr(), feat.data_ptr(), out.data_ptr(), k,
+                      iters, int(bool(dep)))
     return out
 
 

@@ -44,30 +44,21 @@ def load(name: str) -> ctypes.CDLL:
     return cuda_build.build(f"{name}.cpp", _gxx, GXX_FLAGS, _cpu_flags())
 
 
+_SAH_BUILD = cuda_build.entry("sah_builder.cpp", "sah_build", "pi pi i ppn",
+                              lambda: load("sah_builder"))
+
+
 def sah_order(positions: np.ndarray, indices: np.ndarray, leaf_size: int):
     """Binned-SAH triangle ordering and leaf offsets from
     ``csrc/sah_builder.cpp`` -> (order [T] int32, leaf_offsets [L+1] int32)."""
-    fn = load("sah_builder").sah_build
-    i32p = ctypes.POINTER(ctypes.c_int)
-    fn.argtypes = [ctypes.POINTER(ctypes.c_float), ctypes.c_int, i32p, ctypes.c_int,
-                   ctypes.c_int, i32p, i32p, i32p]
-    fn.restype = ctypes.c_int
     pos = np.ascontiguousarray(positions, np.float32)
     idx = np.ascontiguousarray(indices, np.int32)
     t = idx.shape[0]
     order = np.empty(t, np.int32)
     offsets = np.empty(t + 1, np.int32)
     nl = ctypes.c_int(0)
-    rc = fn(
-        pos.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-        ctypes.c_int(pos.shape[0]),
-        idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
-        ctypes.c_int(t),
-        ctypes.c_int(leaf_size),
-        order.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
-        offsets.ctypes.data_as(ctypes.POINTER(ctypes.c_int)),
-        ctypes.byref(nl),
-    )
+    rc = _SAH_BUILD(pos.ctypes.data, pos.shape[0], idx.ctypes.data, t, leaf_size,
+                    order.ctypes.data, offsets.ctypes.data, ctypes.byref(nl))
     if rc != 0:
         raise RuntimeError(f"sah_build failed with code {rc}")
     return order, offsets[: nl.value + 1]

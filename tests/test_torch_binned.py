@@ -37,6 +37,7 @@ from stratum_tpu_torch.ops import binned, block_trace
 from stratum_tpu_torch.ops.intersect import T_MAX
 from stratum_tpu_torch.ops.packet import FatBVH
 from stratum_tpu_torch.scene import bridge
+from stratum_tpu_torch.utils import cuda_build
 
 torch.set_num_threads(2)
 
@@ -259,12 +260,12 @@ def test_bin_min_plain_matches_a_brute_loop(cases):
 def test_wrappers_take_the_plain_version_on_cpu(cases):
     c = cases["atrium"]
     o, d, tm = _t(c["o"]), _t(c["d"]), _t(c["t_max"])
-    before = dict(binned.LAUNCHES)
+    before = cuda_build.launches()
     bins = binned.bin_pairs(c["fat"], o, d, tm, mcap=MCAP)
     assert torch.equal(binned.bin_min(c["fat"], bins, "closest"),
                        binned.bin_min_plain(c["fat"], bins))
     binned.binned_occluded(c["fat"], o, d, tm, mcap=MCAP)
-    assert binned.LAUNCHES == before  # no kernel launch on the CPU
+    assert cuda_build.launches() == before  # no kernel launch on the CPU
     with pytest.raises(ValueError, match="CUDA"):
         binned.launch(c["fat"], bins, "closest")
 

@@ -26,6 +26,7 @@ from stratum_tpu.scene import flatten as jflatten
 from stratum_tpu_torch.ops import binned, block_trace
 from stratum_tpu_torch.ops.intersect import T_MAX
 from stratum_tpu_torch.scene import bridge
+from stratum_tpu_torch.utils import cuda_build
 
 torch.set_num_threads(2)
 
@@ -172,9 +173,9 @@ def test_bins_layout_matches_a_python_loop(wave, g, sb, mcap):
 
 def test_emission_kernel_refuses_cpu_tensors(wave):
     o, inv, tb = _padded(wave, 8)
-    before = dict(binned.LAUNCHES)
+    before = cuda_build.launches()
     count, _ = binned.emit(wave["fat"], o, inv, tb, block_trace.T_MIN, 8, 16, "ray")
-    assert int(count.sum()) > 0 and binned.LAUNCHES == before
+    assert int(count.sum()) > 0 and cuda_build.launches() == before
     with pytest.raises(ValueError, match="CUDA"):
         binned.emit_launch(wave["fat"], o, inv, tb, block_trace.T_MIN, 8, 16, "ray")
 

@@ -41,6 +41,7 @@ from stratum_tpu_torch.ops.bvh import morton3
 from stratum_tpu_torch.ops.intersect import T_MAX
 from stratum_tpu_torch.ops.packet import FatBVH, leaf_counts
 from stratum_tpu_torch.scene import bridge, builtin, flatten
+from stratum_tpu_torch.utils import cuda_build
 
 torch.set_num_threads(2)
 
@@ -142,13 +143,13 @@ def test_occluded_plain_matches_pallas_interpret(case):
 def test_wrappers_take_the_plain_version_on_cpu(case):
     fat = case["ps"].fat_bvh
     o, d, tm = _t(case["o"]), _t(case["d"]), _t(case["t_max"])
-    before = dict(block_trace.LAUNCHES)
+    before = cuda_build.launches()
     h = block_trace.block_closest(fat, o, d, tm)
     hp = block_trace.block_closest_plain(fat, o, d, tm)
     assert torch.equal(h.slot, hp.slot) and torch.equal(h.t, hp.t)
     occ = block_trace.block_occluded(fat, o, d, tm)
     assert torch.equal(occ, block_trace.block_occluded_plain(fat, o, d, tm))
-    assert block_trace.LAUNCHES == before  # no kernel launch on the CPU
+    assert cuda_build.launches() == before  # no kernel launch on the CPU
 
 
 def test_launch_refuses_cpu_tensors(case):

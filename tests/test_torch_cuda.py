@@ -72,6 +72,7 @@ from stratum_tpu_torch.tools import (
     perf_epilogue,
     probe_mxu_loop,
 )
+from stratum_tpu_torch.utils import cuda_build
 from stratum_tpu_torch.utils import profiler as sprof
 
 pytestmark = pytest.mark.cuda
@@ -80,6 +81,13 @@ AGREE = 0.999
 T_RTOL = 1e-3
 MCAP = 1 << 15
 NONZERO = (-3.0, -2.0, -1.0, 1.0, 2.0, 3.0)
+
+
+def _added(before, prefix: str = "") -> dict:
+    """Kernels the launch registry counted since ``before`` (a
+    ``cuda_build.launches()`` read), by key, those whose key starts with
+    ``prefix``."""
+    return {k: v for k, v in (cuda_build.launches() - before).items() if k.startswith(prefix)}
 
 
 @pytest.fixture(scope="module")
@@ -669,11 +677,12 @@ def test_colonnade_render_on_the_card(dev, tmp_path):
     for device in (dev, "cpu"):
         scene, _ = flatten.flatten(g.root, device=device)
         view = camera.make_view(node.to_world(), cam.fovy, 48, 48, device=device)
-        before = dict(block_trace.LAUNCHES)
+        before = cuda_build.launches()
         imgs.append(integrator.render_path_progressive(scene, view, cfg, 2).cpu().numpy())
         if device == dev:
-            assert block_trace.LAUNCHES["closest"] > before["closest"]
-            assert block_trace.LAUNCHES["occluded"] > before["occluded"]
+            after = cuda_build.launches()
+            assert after["block_trace_closest"] > before["block_trace_closest"]
+            assert after["block_trace_occluded"] > before["block_trace_occluded"]
     img, ref = imgs
     assert np.isfinite(img).all()
     assert abs(img.mean() - ref.mean()) <= 0.02 * ref.mean()
@@ -697,9 +706,9 @@ def test_batched_equals_progressive_on_the_card(tiny_render):
     ``render_path_progressive`` (rtol 1e-5, atol 1e-7); its ray count is
     the samples' sum."""
     scene, view, cfg = tiny_render
-    before = block_trace.LAUNCHES["closest"]
+    before = cuda_build.launches()
     img, rays = integrator.render_path_batched(scene, view, cfg, 3, 2)
-    assert block_trace.LAUNCHES["closest"] - before == 3 * 4
+    assert _added(before)["block_trace_closest"] == 3 * 4
     ref = integrator.render_path_progressive(scene, view, cfg, 3, 2)
     torch.testing.assert_close(img, ref, rtol=1e-5, atol=1e-7)
     counts = [int(integrator.render_path_with_counts(scene, view, cfg, s)[1]) for s in (2, 3, 4)]
@@ -742,20 +751,20 @@ def test_bdpt_on_the_block_kernel_matches_plain_tracers(tiny_render, lvc):
     batches) against the same sample on the brute-force tracer."""
     scene, view, cfg = tiny_render
     cfg = dataclasses.replace(cfg, lvc_connections=lvc)
-    before = dict(block_trace.LAUNCHES)
+    before = cuda_build.launches()
     img = bdpt.render_bdpt(scene, view, cfg, 4)
-    assert block_trace.LAUNCHES["closest"] - before["closest"] == 8
-    assert block_trace.LAUNCHES["occluded"] - before["occluded"] == 3
+    added = _added(before)
+    assert added["block_trace_closest"] == 8 and added["block_trace_occluded"] == 3
     _parity(img, bdpt.render_bdpt(scene, view, dataclasses.replace(cfg, tracer="brute"), 4))
 
 
 def test_lt_on_the_block_kernel_matches_plain_tracers(tiny_render):
     """A light-traced sample through K1/K2 against the brute-force tracer."""
     scene, view, cfg = tiny_render
-    before = dict(block_trace.LAUNCHES)
+    before = cuda_build.launches()
     img = lighttrace.render_lt(scene, view, cfg, 2)
-    assert block_trace.LAUNCHES["closest"] - before["closest"] == 5
-    assert block_trace.LAUNCHES["occluded"] - before["occluded"] == 4
+    added = _added(before)
+    assert added["block_trace_closest"] == 5 and added["block_trace_occluded"] == 4
     _parity(img, lighttrace.render_lt(scene, view, dataclasses.replace(cfg, tracer="brute"), 2))
 
 
@@ -793,9 +802,9 @@ def _gbuffers(tiny_render):
     c2w = node.to_world().copy()
     c2w[:, 3] += (0.3, 0.1, 0.5)
     view2 = camera.make_view(c2w, cam.fovy, cfg.width, cfg.height, device=view[0].device)
-    before = block_trace.LAUNCHES["closest"]
+    before = cuda_build.launches()
     gb = aov.render_gbuffer(scene, view2, view, cfg)
-    launches = block_trace.LAUNCHES["closest"] - before
+    launches = _added(before)["block_trace_closest"]
     ref = aov.render_gbuffer(scene, view2, view, dataclasses.replace(cfg, tracer="brute"))
     return gb, ref, launches
 
@@ -861,19 +870,19 @@ def test_atrous_kernel_matches_plain(dev, shape, filter_type, history_tap):
     cfg = denoise.DenoiseConfig(filter_type=filter_type, history_tap=history_tap)
     cpu = [torch.from_numpy(x) for x in (color, var)]
     gb_cpu = aov.GBuffer(*(torch.from_numpy(x) for x in gb))
-    before = denoise.LAUNCHES
+    before = cuda_build.launches()
     sprof.start()
     try:
         out, tap = denoise.atrous_filter(*(x.to(dev) for x in cpu),
                                          aov.GBuffer(*(x.to(dev) for x in gb_cpu)), cfg)
     finally:
         sprof.stop()
-    assert denoise.LAUNCHES - before == cfg.atrous_iterations
+    assert _added(before) == {"atrous_iteration": cfg.atrous_iterations}
     spans = [r for r in sprof.records() if r.name == "atrous"]
     assert [(r.attrs["it"], r.attrs["kernels"]) for r in spans] == [
         (it, 1) for it in range(cfg.atrous_iterations)]
     ref, ref_tap = denoise.atrous_filter(*cpu, gb_cpu, cfg)
-    assert denoise.LAUNCHES - before == cfg.atrous_iterations
+    assert _added(before) == {"atrous_iteration": cfg.atrous_iterations}
     torch.testing.assert_close(out.cpu(), ref, rtol=2e-5, atol=2e-6)
     assert (tap is None) == (ref_tap is None) == (history_tap == 0)
     if tap is not None:
@@ -1056,18 +1065,18 @@ def _differing_lanes(got, want) -> int:
 def test_disney_kernel_equals_plain(dev, op, payload):
     """One ``csrc/disney.cu`` launch against the plain torch body on the
     same card inputs (:func:`_disney_inputs`): every output equal on every
-    lane, NaN positions included; ``disney.LAUNCHES`` counts the launch,
+    lane, NaN positions included; the launch registry counts the launch,
     and the sample's roughness is the input tensor."""
     from stratum_tpu_torch.render import disney
 
     mat, wo, wi, u = _disney_inputs(dev, 1 << 16, 5 + payload, payload)
-    before = dict(disney.LAUNCHES)
+    before = cuda_build.launches()
     if op == "eval":
         got, want = disney.disney_eval(mat, wo, wi), disney._disney_eval_plain(mat, wo, wi)
     else:
         got, want = disney.disney_sample(mat, wo, u), disney._disney_sample_plain(mat, wo, u)
         assert got.roughness is mat.roughness
-    assert disney.LAUNCHES == dict(before, **{op: before[op] + 1})
+    assert _added(before) == {f"disney_{op}": 1}
     diff = {k: _differing_lanes(a, b) for k, a, b in zip(got._fields, got, want)}
     bits = {k: int((a.view(torch.int32) != b.view(torch.int32)).sum())
             for k, a, b in zip(got._fields, got, want)}
@@ -1084,14 +1093,14 @@ def test_disney_spans_and_launches_in_a_sample(tiny_render):
 
     scene, view, cfg = tiny_render
     cfg = dataclasses.replace(cfg, max_bounces=4)
-    before = dict(disney.LAUNCHES)
+    before = cuda_build.launches()
     sprof.start()
     try:
         img, rays = integrator.render_path_with_counts(scene, view, cfg, 9)
     finally:
         sprof.stop()
-    added = {k: disney.LAUNCHES[k] - before[k] for k in before}
-    assert added == {"eval": 5, "sample": 5}, added
+    added = _added(before, "disney")
+    assert added == {"disney_eval": 5, "disney_sample": 5}, added
     recs = sprof.records()
     spans = [r for r in recs if r.name == "bsdf"]
     assert [(r.attrs["op"], r.attrs["kernels"]) for r in spans] == [("eval", 1), ("sample", 1)] * 5
@@ -1100,7 +1109,7 @@ def test_disney_spans_and_launches_in_a_sample(tiny_render):
         mp.setattr(disney, "disney_eval", disney._disney_eval_plain)
         mp.setattr(disney, "disney_sample", disney._disney_sample_plain)
         ref, ref_rays = integrator.render_path_with_counts(scene, view, cfg, 9)
-    assert {k: disney.LAUNCHES[k] - before[k] for k in before} == added
+    assert _added(before, "disney") == added
     assert torch.equal(img, ref) and int(rays) == int(ref_rays)
 
 

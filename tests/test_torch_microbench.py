@@ -46,6 +46,7 @@ from stratum_tpu_torch.tools import (
     perf_epilogue,
     probe_mxu_loop,
 )
+from stratum_tpu_torch.utils import cuda_build
 
 ROOT = Path(__file__).resolve().parent.parent
 SETS = ("int", "normal")
@@ -365,7 +366,7 @@ def test_tools_refuse_a_cpu_default_without_a_card():
             tools.device_of(Options([]))
     assert tools.device_of(Options(["--cpu"])).type == "cpu"
     with pytest.raises(ValueError):
-        tools.check(torch.zeros(4), "x", torch.float32, (4,))
+        cuda_build.check(torch.zeros(4), "x", torch.float32, (4,), torch.device("cpu"))
 
 
 @pytest.mark.parametrize("flops, tests, ops, clock, tensor_us, epilogue_us, by", [

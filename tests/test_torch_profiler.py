@@ -22,6 +22,7 @@ from portbench.tests import _tiny
 from stratum_tpu_torch.ops import block_trace
 from stratum_tpu_torch.render import camera, integrator, session, tonemap
 from stratum_tpu_torch.scene import builtin, flatten
+from stratum_tpu_torch.utils import cuda_build
 from stratum_tpu_torch.utils import profiler as pprofiler
 
 METRICS = ("host_issue_ms.path", "host_issue_ms.lanes", "host_issue_ms.frame",
@@ -348,7 +349,7 @@ def test_disney_on_the_cpu_is_the_plain_body():
     wi = wi / wi.norm(dim=-1, keepdim=True)
     u = torch.rand((n, 3), generator=gen)
     want = (disney._disney_eval_plain(mat, wo, wi), disney._disney_sample_plain(mat, wo, u))
-    before = dict(disney.LAUNCHES)
+    before = cuda_build.launches()
     for on in (False, True):
         if on:
             pprofiler.start()
@@ -361,7 +362,7 @@ def test_disney_on_the_cpu_is_the_plain_body():
             for a, b in zip(g, w):
                 assert torch.equal(torch.isnan(a), torch.isnan(b))
                 assert torch.equal(torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0))
-    assert disney.LAUNCHES == before
+    assert cuda_build.launches() == before
     spans = [r for r in pprofiler.records() if r.name == "bsdf"]
     assert [(r.attrs["op"], r.attrs["lanes"], r.attrs["kernels"]) for r in spans] == [
         ("eval", n, 0), ("sample", n, 0)]
