@@ -32,7 +32,7 @@ Phases, each printing its results:
    with the bench configuration (Disney, 4 bounces, presample 4096,
    coherent tiles 16): 1 warm-up and 4 timed samples; the kernel launch
    counters are zeroed just before and read just after this phase (the
-   Disney kernels' 10 a sample among them);
+   Disney kernels' 10 and ``finalize_hit``'s 5 a sample among them);
 6. the binned path: the same render with ``binned_secondary=8,
    binned_shadow=8``. The registers and resident CTAs of K5 and of the
    emission kernel; then one sample's binned waves (4 sorted closest waves,
@@ -224,7 +224,16 @@ Phases, each printing its results:
    launches); each call run by the kernel and by the plain torch body on
    the card: the differing lanes of every output (0: bit for bit) and
    differing words, each launch's device time beside its bytes bound, the
-   plain body's time, and both kernels' registers and spills (no spill).
+   plain body's time, and both kernels' registers and spills (no spill);
+19. ``finalize_hit`` (``csrc/finalize.cu``): one 1920x1080 sample of each
+   configuration in DISNEY_CONFIGS under a ``torch.profiler`` trace with
+   the inputs of its five closest waves kept; the launches the registry
+   counts against the ``finalize_hit_kernel`` launches traced (5 and 5);
+   each wave run by the kernel and by the plain torch body on the card:
+   the differing words of tri, bary and payload (0: bit for bit), each
+   launch's device time beside its bytes bound (744 B a lane) and beside
+   the bound that reads each distinct row once, the plain body's time, and
+   the kernel's registers and spills (no spill).
 
 Then one JSON line of per-kernel results, the nvidia-smi line, and the
 result line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
@@ -269,10 +278,13 @@ BLOCK_KEYS = {"closest": "block_trace_closest", "occluded": "block_trace_occlude
 SAMPLE_KEYS = {"block closest": "block_trace_closest", "block occluded": "block_trace_occluded",
                "binned emit": "binned_emit", "binned closest": "binned_min/closest",
                "binned occluded": "binned_min/occluded", "disney eval": "disney_eval",
-               "disney sample": "disney_sample"}
+               "disney sample": "disney_sample", "finalize": "finalize_hit"}
 # the Disney launches over _timed_samples' 5 samples of a BENCH path: a
 # 4-bounce sample launches an eval (NEE) and a sample a bounce, 10 in all
 DISNEY_5 = {"disney eval": 25, "disney sample": 25}
+# and the finalize_hit launches: one a closest wave, block or binned, 5 a
+# sample
+FINALIZE_5 = {"finalize": 25}
 BINNED = dict(binned_secondary=8, binned_shadow=8)
 # published peaks of one H100 SXM (NVIDIA data sheet): f32 outside the
 # tensor cores, and HBM3 bandwidth
@@ -600,7 +612,7 @@ def _timed_samples(scene, view, cfg_run, label, scene_name, smi, samples: int = 
 
 def _build():
     """Phase 2: every kernel source built by its own nvcc, all at once."""
-    names = ("block_trace", "binned", "microbench", "atrous", "disney")
+    names = ("block_trace", "binned", "microbench", "atrous", "disney", "finalize")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(names)) as pool:
         list(pool.map(cuda_build.load, names))
@@ -1252,7 +1264,7 @@ GOLDENS = {  # tests/update_goldens.py:41-52 (48x48, rr_depth=100)
 FURNACE_REL = 0.04  # sphere mean against albedo x radiance (tests/test_torch_dense_path.py)
 DIRECT_MEAN_REL = 1e-3  # render_direct, auto (mxu) against brute
 DIRECT_PIXEL_SHARE = 0.999
-GPU_TESTS = 84  # tests in tests/test_torch_cuda.py
+GPU_TESTS = 91  # tests in tests/test_torch_cuda.py
 
 
 def _modes_equal(fat, o, d, bound, occluded, gs):
@@ -1818,7 +1830,8 @@ def _colonnade(dev, smi):
     closest, occluded = _colonnade_waves(scene, view, cfg, rng)
     launches, img, main = _timed_samples(scene, view, cfg, "13 colonnade", "colonnade", smi)
     assert launches == {"block closest": 25, "block occluded": 5, "binned emit": 0,
-                        "binned closest": 0, "binned occluded": 0, **DISNEY_5}, launches
+                        "binned closest": 0, "binned occluded": 0, **DISNEY_5,
+                        **FINALIZE_5}, launches
     busy, ops = profile_sample.device_profile(scene, view, cfg, 1)
     split = _texture_layers(scene, view, cfg, 2)
     share = ("not measured: the profiler recorded no device events" if busy is None
@@ -3125,7 +3138,8 @@ def _scan(dev, smi):
     assert one == traced and one["closest"] % SCAN_WAVES["closest"] == 0, (one, traced)
     assert one["closest"] >= SCAN_WAVES["closest"] and one["occluded"] >= 1, one
     want = {f"block {k}": SCAN_SAMPLES * v for k, v in one.items()}
-    want.update({"binned emit": 0, "binned closest": 0, "binned occluded": 0, **DISNEY_5})
+    want.update({"binned emit": 0, "binned closest": 0, "binned occluded": 0, **DISNEY_5,
+                 **FINALIZE_5})
     assert launches == want, (launches, want)
     busy, ops = profile_sample.device_profile(scene, view, cfg, 1)
     share = ("not measured: the profiler recorded no device events" if busy is None
@@ -3530,17 +3544,16 @@ _DISNEY_NAME = re.compile(r"disney_(eval|sample)_kernel")
 DISNEY_BYTES = {"eval": 4 * (11 + 3 + 3) + 4 * 5, "sample": 4 * (11 + 3 + 3) + 4 * 9}
 
 
-def _disney_sample_calls(dev, name: str):
-    """One sample of a benchmark configuration (``portbench/configs/<name>``,
-    its scene built as ``portbench.harness`` builds it) with every Disney
-    call's inputs kept -> (calls [(op, depth, mat, wo, wi or u)],
-    the registry's Disney launches of the sample, flatten s)."""
+def _config_scene(dev, name: str):
+    """A benchmark configuration (``portbench/configs/<name>``, its scene
+    built as ``portbench.harness`` builds it) on the card -> (scene, view,
+    RenderConfig, flatten s)."""
     import importlib
 
     import torch
 
     from portbench import harness
-    from stratum_tpu_torch.render import camera, disney, integrator
+    from stratum_tpu_torch.render import camera, integrator
     from stratum_tpu_torch.scene import flatten
 
     conf = harness.load_json(ROOT / "portbench" / "configs" / f"{name}.json")
@@ -3554,7 +3567,18 @@ def _disney_sample_calls(dev, name: str):
     w, h = int(conf["width"]), int(conf["height"])
     view = camera.make_view(raw["camera"]["camera_to_world"], raw["camera"]["fovy"], w, h,
                             device=dev)
-    cfg = integrator.RenderConfig(width=w, height=h, **conf["render"])
+    return scene, view, integrator.RenderConfig(width=w, height=h, **conf["render"]), flatten_s
+
+
+def _disney_sample_calls(dev, name: str):
+    """One sample of a benchmark configuration (:func:`_config_scene`) with
+    every Disney call's inputs kept -> (calls [(op, depth, mat, wo, wi or
+    u)], the registry's Disney launches of the sample, flatten s)."""
+    import torch
+
+    from stratum_tpu_torch.render import disney, integrator
+
+    scene, view, cfg, flatten_s = _config_scene(dev, name)
     calls = []
     real = {"eval": disney.disney_eval, "sample": disney.disney_sample}
 
@@ -3657,6 +3681,133 @@ def _disney_phase(dev, smi):
     assert not bad, bad
     assert all(i["spill_stores"] == 0 and i["spill_loads"] == 0 for i in info.values()), info
     return dict(info=info, **out)
+
+
+# ---- 19: finalize_hit (csrc/finalize.cu) ---------------------------------------
+FINALIZE_REPS = 5  # traced launches a captured wave
+# needed bytes a lane: the slot, origin and direction, the payload row read
+# and written, tri and bary. Lanes share rows (every miss reads row 0), which
+# L2 serves, so the tighter bound counts each distinct row read once
+FINALIZE_BYTES = 4 + 24 + 352 + 352 + 4 + 8
+FINALIZE_ROW_BYTES = 352
+
+
+def _finalize_sample_calls(dev, name: str):
+    """One sample of a benchmark configuration (:func:`_config_scene`) under
+    a ``torch.profiler`` trace of the device with the inputs of every
+    ``finalize_hit`` call kept (copies: the path may reuse its buffers) ->
+    (scene, calls [(origin, direction, slot-mode HitRecord)], launches
+    counted by the registry, ``finalize_hit_kernel`` launches traced,
+    flatten s)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from stratum_tpu_torch.ops import block_trace
+    from stratum_tpu_torch.render import integrator
+
+    scene, view, cfg, flatten_s = _config_scene(dev, name)
+    calls, real = [], block_trace.finalize_hit
+
+    def keep(slot_payload, o, d, h):
+        if h.slot is not None:
+            calls.append((o.clone(), d.clone(), h._replace(t=h.t.clone(), slot=h.slot.clone())))
+        return real(slot_payload, o, d, h)
+
+    torch.cuda.synchronize()
+    cuda_build.reset_launches()
+    block_trace.finalize_hit = keep
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            integrator.render_path_with_counts(scene, view, cfg, DISNEY_SEED)
+            torch.cuda.synchronize()
+    finally:
+        block_trace.finalize_hit = real
+    traced = sum(1 for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and "finalize_hit_kernel" in e.name)
+    return scene, calls, cuda_build.launches()["finalize_hit"], traced, flatten_s
+
+
+def _finalize_phase(dev, smi):
+    """Phase 19: ``finalize_hit``'s kernel on the five closest waves of one
+    1920x1080 sample of each benchmark configuration in DISNEY_CONFIGS:
+    the launches counted against those traced; each wave run by the kernel
+    and by the plain torch body on the card, the differing 32-bit words of
+    tri, bary and payload printed (all must be 0: the kernel is the plain
+    body bit for bit); each launch's device time (median of FINALIZE_REPS
+    ``torch.profiler``-traced launches, and FINALIZE_REPS launches back to
+    back between CUDA events) beside its bound, FINALIZE_BYTES a lane at
+    the memory rate, and the tighter bound that reads each distinct row
+    once; the plain body's time on the card (host clock,
+    synchronised); the kernel's registers, shared memory and spills
+    (ptxas's report: no spill)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from stratum_tpu_torch.ops import block_trace
+
+    info = block_trace.finalize_kernel_info()
+    print(f"[19 finalize] kernel_info {info}; ptxas: {cuda_build.ptxas_report('finalize.cu')}",
+          flush=True)
+    out, bad = dict(info=info), []
+    for name in DISNEY_CONFIGS:
+        scene, calls, counted, traced, flatten_s = _finalize_sample_calls(dev, name)
+        payload = scene.slot_payload
+        rows = []
+        for wave, (o, d, h) in enumerate(calls):
+            got = block_trace.finalize_hit(payload, o, d, h)
+            want, plain_ms = _sync_ms(lambda: block_trace.finalize_hit_plain(payload, o, d, h))
+            words = {k: int((getattr(got, k).view(torch.int32) != w.view(torch.int32)).sum())
+                     for k, w in zip(("tri", "bary", "payload"), want)}
+            del got, want
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                torch.ones(1, device=dev).add_(1)
+                torch.cuda.synchronize()
+                for _ in range(FINALIZE_REPS):
+                    block_trace.finalize_hit(payload, o, d, h)
+                torch.cuda.synchronize()
+            times = sorted(e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                           if e.device_type == DeviceType.CUDA
+                           and "finalize_hit_kernel" in e.name)
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(FINALIZE_REPS):
+                block_trace.finalize_hit(payload, o, d, h)
+            stop.record()
+            torch.cuda.synchronize()
+            back_ms = start.elapsed_time(stop) / FINALIZE_REPS
+            lanes = h.slot.shape[0]
+            bound = lanes * FINALIZE_BYTES / PEAK_BYTES_S * 1e3
+            distinct = int(torch.unique(torch.clamp(h.slot, min=0)).numel())
+            bound_distinct = (lanes * (FINALIZE_BYTES - FINALIZE_ROW_BYTES)
+                              + distinct * FINALIZE_ROW_BYTES) / PEAK_BYTES_S * 1e3
+            ms = times[len(times) // 2] if times else None
+            hits = int((h.slot >= 0).sum())
+            rows.append(dict(wave=wave, lanes=lanes, hits=hits, distinct_rows=distinct,
+                             words=words, ms=ms, traced=len(times), back_to_back_ms=back_ms,
+                             bound_ms=bound, bound_distinct_ms=bound_distinct,
+                             plain_ms=plain_ms))
+            if any(words.values()):
+                bad.append((name, wave, words))
+            print(f"[19 finalize] {name} wave {wave}: {lanes:,} lanes ({hits:,} hits, "
+                  f"{distinct:,} distinct rows), differing words {words}; kernel "
+                  + (f"{ms:.4f} ms ({len(times)} traced" if ms else "not traced (a trace may "
+                     "miss a kernel")
+                  + f"; {back_ms:.4f} ms a launch back to back; bound {bound:.4f} ms, bytes, "
+                  f"{(ms or back_ms) / bound:.2f}x; each distinct row read once "
+                  f"{bound_distinct:.4f} ms, {(ms or back_ms) / bound_distinct:.2f}x); "
+                  f"plain body on the card {plain_ms:.2f} ms", flush=True)
+        print(f"[19 finalize] {name}: {len(calls)} waves, {counted} launches counted, "
+              f"{traced} traced in the sample (flatten {flatten_s:.1f} s) | {smi}", flush=True)
+        out[name] = dict(counted=counted, traced=traced, waves=rows, flatten_s=flatten_s)
+        assert counted == traced == len(calls) == 5, (counted, traced, len(calls))
+        del calls, scene
+        torch.cuda.empty_cache()
+    assert not bad, bad
+    assert info["spill_stores"] == 0 and info["spill_loads"] == 0, info
+    return out
 
 
 def _gpu_tests():
@@ -3857,7 +4008,8 @@ def main() -> int:
     # ---- 5: main path -------------------------------------------------------
     launches, img5, main5 = _timed_samples(scene, view, cfg, "5 main path", "atrium", smi)
     assert launches == {"block closest": 25, "block occluded": 5, "binned emit": 0,
-                        "binned closest": 0, "binned occluded": 0, **DISNEY_5}, launches
+                        "binned closest": 0, "binned occluded": 0, **DISNEY_5,
+                        **FINALIZE_5}, launches
 
     # ---- 6: the binned path -------------------------------------------------
     for name, info in (("binned_min_kernel (K5)", binned.kernel_info("bin")),
@@ -3885,7 +4037,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches6, img6, main6 = _timed_samples(scene, view, cfg6, "6 binned path", "atrium", smi)
     assert launches6 == {"block closest": 5, "block occluded": 0, "binned emit": 25,
-                         "binned closest": 20, "binned occluded": 5, **DISNEY_5}, launches6
+                         "binned closest": 20, "binned occluded": 5, **DISNEY_5,
+                         **FINALIZE_5}, launches6
     print(f"[6 binned path] {main6['ms_spp']:.1f} ms/spp vs {main5['ms_spp']:.1f} (phase 5); "
           f"image mean {main6['mean']:.6f} vs {main5['mean']:.6f} "
           f"(rel {abs(main6['mean'] - main5['mean']) / main5['mean']:.2e})", flush=True)
@@ -3955,6 +4108,10 @@ def main() -> int:
     # ---- 18: the Disney BSDF kernels on the benchmark's samples --------------
     torch.cuda.empty_cache()
     dis = _disney_phase(dev, smi)
+
+    # ---- 19: finalize_hit on the benchmark's samples ---------------------------
+    torch.cuda.empty_cache()
+    fin = _finalize_phase(dev, smi)
 
     # ms / plain_ms / wrapper_ms of K1 are means per closest wave over the
     # main path's five waves; K2's are the deferred shadow wave's. K3's are
@@ -4126,6 +4283,19 @@ def main() -> int:
                     for f in ("ms", "back_to_back_ms", "bound_ms", "plain_ms", "lanes")}
                 for k in DISNEY_CONFIGS})
         for op in ("eval", "sample")
+    ] + [
+        dict(common, name="finalize_hit", source="stratum_tpu_torch/csrc/finalize.cu",
+             replaces="stratum_tpu/ops/pallas_trace.py:1877-1902", pallas=False,
+             note="the reference's jnp finalize_hit, not a Pallas kernel",
+             launches=launches["finalize"],
+             max_abs_err=0.0 if not any(any(w["words"].values()) for k in DISNEY_CONFIGS
+                                        for w in fin[k]["waves"]) else None,
+             info=fin["info"],
+             **{k: dict(counted=fin[k]["counted"], traced=fin[k]["traced"],
+                        **{f: [w[f] for w in fin[k]["waves"]]
+                           for f in ("ms", "back_to_back_ms", "bound_ms", "bound_distinct_ms",
+                                     "plain_ms", "lanes")})
+                for k in DISNEY_CONFIGS})
     ] + t_kernels
     print(json.dumps({"kernels": kernels,
                       "paths": {"main": main5, "binned": main6, "cornell": cornell,

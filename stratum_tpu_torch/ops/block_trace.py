@@ -68,7 +68,10 @@ Results are slot-mode: ``slot = leaf * K + row`` (int32, -1 on a miss), and
 :func:`finalize_hit` resolves a slot to triangle, barycentrics and the fused
 shading/material payload with one row gather. Closest hits are exact-f32
 Moller-Trumbore in Plucker form with the reference accept rule; equal t
-keeps the lower slot.
+keeps the lower slot. On CUDA tensors :func:`finalize_hit` is one launch of
+``csrc/finalize.cu`` (counted under ``finalize_hit``), bit for bit with its
+plain body :func:`finalize_hit_plain`, which runs on CPU tensors only; its
+``finalize`` span carries ``lanes`` and ``kernels``.
 """
 
 from __future__ import annotations
@@ -575,10 +578,28 @@ def finalize_hit(slot_payload, origin, direction, h: HitRecord) -> HitRecord:
     """Resolve a slot-mode record with ONE [N, 88] payload row gather:
     triangle id, barycentrics (MT coefficients against the caller-order ray
     features) and the fused shading/material payload
-    (pallas_trace.py:1877-1902)."""
+    (pallas_trace.py:1877-1902). CUDA tensors launch ``csrc/finalize.cu``,
+    CPU tensors run :func:`finalize_hit_plain`; a ``finalize`` span with
+    the wave's ``lanes`` and the ``kernels`` enqueued."""
     if h.slot is None:
         return h
-    span = sprof.begin("finalize")
+    span = sprof.begin("finalize", lanes=h.slot.shape[0])
+    try:
+        if h.slot.device.type == "cuda":
+            (tri, bary, payload), launched = _finalize_launch(slot_payload, origin, direction,
+                                                              h.slot)
+        else:
+            (tri, bary, payload), launched = finalize_hit_plain(slot_payload, origin,
+                                                                direction, h), 0
+        sprof.count(span, "kernels", launched)
+    finally:
+        sprof.end(span)  # its end event follows the kernel
+    return HitRecord(t=h.t, tri=tri, bary=bary, payload=payload, slot=None)
+
+
+def finalize_hit_plain(slot_payload, origin, direction, h: HitRecord):
+    """Plain torch twin of :func:`finalize_hit`'s kernel -> (tri, bary,
+    payload)."""
     hit = h.slot >= 0
     payload = slot_payload[torch.clamp(h.slot, min=0).long()]
     tri = torch.where(hit, payload[:, 62].to(torch.int32), -1)
@@ -593,5 +614,46 @@ def finalize_hit(slot_payload, origin, direction, h: HitRecord) -> HitRecord:
     inv_a = torch.where(torch.abs(a) > 1e-12, 1.0 / a, 0.0)
     bary = torch.stack([u_num * inv_a, v_num * inv_a], dim=-1)
     bary = torch.where(hit[:, None], bary, 0.0)
-    sprof.end(span)
-    return HitRecord(t=h.t, tri=tri, bary=bary, payload=payload, slot=None)
+    return tri, bary, payload
+
+
+# the payload, the slot and its lane stride, origin and direction with their
+# lane and component strides, the lanes, tri, bary, the gathered rows
+_FINALIZE = cuda_build.entry("finalize.cu", "finalize_hit", "pp q pqq pqq q ppp p")
+_FINALIZE_INFO = cuda_build.entry("finalize.cu", "finalize_hit_info", "p")
+
+
+def finalize_kernel_info() -> dict:
+    """Registers, local bytes, resident CTAs per SM, CTA threads and static
+    shared bytes of ``csrc/finalize.cu``'s kernel; then, from ptxas's
+    report, its stack frame and spilled bytes (None without a report)."""
+    return cuda_build.kernel_info(
+        _FINALIZE_INFO, ("registers", "local_bytes", "ctas_per_sm", "threads", "shared_bytes"),
+        kernel="finalize_hit_kernel")
+
+
+def _finalize_launch(slot_payload, origin, direction, slot):
+    """One ``csrc/finalize.cu`` launch over the N lanes of ``slot`` -> ((tri,
+    bary, payload), launches enqueued: 1, or 0 for N = 0). The payload is
+    f32 [rows, 88], contiguous; slot int32 [N], origin and direction f32
+    [N, 3] on the same CUDA device, passed by pointer and strides as they
+    are."""
+    dev, n = slot.device, slot.shape[0]
+    cuda_build.check(slot_payload, "slot_payload", torch.float32,
+                     (slot_payload.shape[0], 88), dev)
+    cuda_build.check(slot, "slot", torch.int32, (n,), dev, contiguous=False)
+    for x, name in ((origin, "origin"), (direction, "direction")):
+        cuda_build.check(x, name, torch.float32, (n, 3), dev, contiguous=False)
+    if n > 0 and slot_payload.shape[0] == 0:
+        raise ValueError("slot_payload has no rows to gather")
+    tri = torch.empty((n,), dtype=torch.int32, device=dev)
+    bary = torch.empty((n, 2), dtype=torch.float32, device=dev)
+    payload = torch.empty((n, 88), dtype=torch.float32, device=dev)
+    launched = 0
+    if n > 0:
+        launched = cuda_build.launch(
+            _FINALIZE, dev, slot_payload.data_ptr(), slot.data_ptr(), slot.stride(0),
+            origin.data_ptr(), origin.stride(0), origin.stride(1),
+            direction.data_ptr(), direction.stride(0), direction.stride(1),
+            n, tri.data_ptr(), bary.data_ptr(), payload.data_ptr())
+    return (tri, bary, payload), launched

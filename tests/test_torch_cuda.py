@@ -1123,3 +1123,148 @@ def test_disney_kernel_info(dev):
         print(f"[disney kernel_info sample={sample}] {info}")
         assert info["ctas_per_sm"] >= 1, info
         assert info["spill_stores"] == 0 and info["spill_loads"] == 0, info
+
+
+# -- finalize_hit (csrc/finalize.cu) ------------------------------------------------
+F12 = np.float32(1e-12)  # the bound |a| is compared with, as torch casts 1e-12
+# a values the kernel must treat as the plain body does: on both sides of the
+# bound, zero, cancelling terms, a subnormal, large and negative
+A_EDGES = np.asarray([F12, np.nextafter(F12, np.float32(1)), np.nextafter(F12, np.float32(0)),
+                      -F12, -np.nextafter(F12, np.float32(1)), 0.0, -0.0, 1e-40, -1e-40,
+                      1e30, -1e30, 1.0], np.float32)
+
+
+def _finalize_inputs(dev, n, seed, views):
+    """Seeded inputs of one closest wave on the card: (slot_payload [301,
+    88], origin, direction, slot-mode HitRecord). A third of the lanes miss
+    (slot -1), some hit slot 0. Rows 1..12 have a's coefficients zero but
+    column 32 (d_x's), which is ``A_EDGES``; the lanes that hit them have
+    direction (1, 0, 0) or, on rows 1..6, (1, 1, 0) with column 35 the
+    negated edge, so a is each edge exactly or cancels to 0. ``views``:
+    origin and direction are views of [n, 8] rows and the slot every other
+    element of an int32 [2n], else all three are contiguous."""
+    rng = np.random.default_rng(seed)
+    rows = rng.normal(size=(301, 88)).astype(np.float32)
+    rows[:, 62] = rng.integers(0, 1 << 24, 301)
+    k = len(A_EDGES)
+    rows[1:k + 1, 32:62:3] = 0.0
+    rows[1:k + 1, 32] = A_EDGES
+    rows[1:7, 35] = -A_EDGES[:6]
+    o = (rng.normal(size=(n, 3)) * 10.0).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    slot = rng.integers(0, 301, n).astype(np.int32)
+    slot[rng.random(n) < 1 / 3] = -1
+    slot[5::17] = 0
+    edge = np.arange(n) % 7 == 3
+    slot[edge] = 1 + rng.integers(0, k, int(edge.sum()))
+    d[edge] = (1.0, 0.0, 0.0)
+    cancel = edge & (slot <= 6) & (np.arange(n) % 2 == 0)
+    d[cancel] = (1.0, 1.0, 0.0)
+    t = rng.uniform(0.1, 50.0, n).astype(np.float32)
+    t[slot < 0] = intersect.T_MAX
+    cuda = lambda a: torch.from_numpy(a).to(dev)
+    if views:
+        od = torch.zeros((n, 8), dtype=torch.float32, device=dev)
+        od[:, 1:4], od[:, 5:8] = cuda(o), cuda(d)
+        o_t, d_t = od[:, 1:4], od[:, 5:8]
+        s2 = torch.full((2 * n,), 7, dtype=torch.int32, device=dev)
+        s2[::2] = cuda(slot)
+        slot_t = s2[::2]
+    else:
+        o_t, d_t, slot_t = cuda(o), cuda(d), cuda(slot)
+    h = block_trace._slot_record(cuda(t), slot_t)
+    return cuda(rows), o_t, d_t, h
+
+
+def _differing_words(got, want) -> dict:
+    """Differing 32-bit words of tri, bary and payload."""
+    return {k: int((getattr(got, k).view(torch.int32) != w.view(torch.int32)).sum())
+            for k, w in zip(("tri", "bary", "payload"), want)}
+
+
+@pytest.mark.parametrize("n,views", [(1, False), (129, True), (65_537, False), (65_537, True)])
+def test_finalize_kernel_equals_plain(dev, n, views):
+    """One ``csrc/finalize.cu`` launch against the plain body on the same
+    card inputs (:func:`_finalize_inputs`: misses, slot 0, a on both sides
+    of 1e-12 and at 0, N no multiple of the 128-lane CTA): 0 differing
+    words in tri, bary and payload; t passed through, payload contiguous;
+    one launch in the registry and a ``finalize`` span with the lanes and
+    ``kernels`` 1."""
+    rows, o, d, h = _finalize_inputs(dev, n, 31 + n + views, views)
+    want = block_trace.finalize_hit_plain(rows, o, d, h)
+    before = cuda_build.launches()
+    sprof.start()
+    try:
+        got = block_trace.finalize_hit(rows, o, d, h)
+    finally:
+        sprof.stop()
+    assert _added(before) == {"finalize_hit": 1}
+    spans = [r for r in sprof.records() if r.name == "finalize"]
+    assert [(r.attrs["lanes"], r.attrs["kernels"]) for r in spans] == [(n, 1)]
+    words = _differing_words(got, want)
+    print(f"[finalize n={n} views={views}] differing words {words}")
+    assert words == {"tri": 0, "bary": 0, "payload": 0}, words
+    assert got.t is h.t and got.slot is None and got.payload.is_contiguous()
+    assert got.tri.dtype == torch.int32 and bool((got.tri[h.slot < 0] == -1).all())
+
+
+def test_finalize_kernel_on_an_empty_wave(dev):
+    """N = 0: empty outputs of the plain body's shapes and types, no
+    launch, a ``finalize`` span with ``kernels`` 0."""
+    rows, o, d, h = _finalize_inputs(dev, 0, 3, False)
+    before = cuda_build.launches()
+    sprof.start()
+    try:
+        got = block_trace.finalize_hit(rows, o, d, h)
+    finally:
+        sprof.stop()
+    assert cuda_build.launches() == before
+    spans = [r for r in sprof.records() if r.name == "finalize"]
+    assert [(r.attrs["lanes"], r.attrs["kernels"]) for r in spans] == [(0, 0)]
+    want = block_trace.finalize_hit_plain(rows, o, d, h)
+    for k, w in zip(("tri", "bary", "payload"), want):
+        g = getattr(got, k)
+        assert g.shape == w.shape and g.dtype == w.dtype and g.device == w.device, k
+
+
+def test_finalize_spans_and_launches_in_a_sample(tiny_render):
+    """One 4-bounce sample of the tiny atrium through K1/K2 launches
+    ``finalize_hit`` once a closest wave (5), each a ``finalize`` span
+    under its ``closest`` wave with the wave's lanes and ``kernels`` 1; its
+    image and ray count equal those of the same sample through the plain
+    body bit for bit."""
+    scene, view, cfg = tiny_render
+    cfg = dataclasses.replace(cfg, max_bounces=4)
+    before = cuda_build.launches()
+    sprof.start()
+    try:
+        img, rays = integrator.render_path_with_counts(scene, view, cfg, 9)
+    finally:
+        sprof.stop()
+    assert _added(before, "finalize") == {"finalize_hit": 5}
+    recs = sprof.records()
+    spans = [r for r in recs if r.name == "finalize"]
+    assert [(r.attrs["lanes"], r.attrs["kernels"]) for r in spans] == [(64 * 32, 1)] * 5
+    assert all(recs[r.parent].name == "closest" for r in spans)
+
+    def plain(slot_payload, o, d, h):
+        if h.slot is None:
+            return h
+        tri, bary, payload = block_trace.finalize_hit_plain(slot_payload, o, d, h)
+        return intersect.HitRecord(t=h.t, tri=tri, bary=bary, payload=payload)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(block_trace, "finalize_hit", plain)
+        ref, ref_rays = integrator.render_path_with_counts(scene, view, cfg, 9)
+    assert _added(before, "finalize") == {"finalize_hit": 5}
+    assert torch.equal(img, ref) and int(rays) == int(ref_rays)
+
+
+def test_finalize_kernel_info(dev):
+    """The kernel builds and reports its registers, its shared memory and
+    at least one resident CTA per SM; ptxas's report spills no byte."""
+    info = block_trace.finalize_kernel_info()
+    print(f"[finalize kernel_info] {info}")
+    assert info["ctas_per_sm"] >= 1 and info["threads"] == 128, info
+    assert info["spill_stores"] == 0 and info["spill_loads"] == 0, info

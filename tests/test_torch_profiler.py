@@ -366,3 +366,44 @@ def test_disney_on_the_cpu_is_the_plain_body():
     spans = [r for r in pprofiler.records() if r.name == "bsdf"]
     assert [(r.attrs["op"], r.attrs["lanes"], r.attrs["kernels"]) for r in spans] == [
         ("eval", n, 0), ("sample", n, 0)]
+
+
+def test_finalize_spans_count_no_kernel_on_the_cpu(tiny, frames):
+    """On CPU tensors ``finalize_hit`` takes its plain body: each closest
+    wave of the frame (the sample's five ``closest`` waves, then the
+    G-buffer's) holds one ``finalize`` span with the wave's lanes and
+    ``kernels == 0`` (one a span on the card)."""
+    _, _, cfg = tiny
+    recs = frames[1]
+    spans = [r for r in recs if r.name == "finalize"]
+    assert [recs[r.parent].name for r in spans] == ["closest"] * 5 + ["gbuffer"]
+    assert [(r.attrs["lanes"], r.attrs["kernels"]) for r in spans] == [
+        (cfg.width * cfg.height, 0)] * 6
+
+
+def test_finalize_on_the_cpu_is_the_plain_body(tiny):
+    """``finalize_hit`` on CPU tensors, recording and not: the plain body's
+    tri, bary and payload bit for bit, t passed through, no launch counted,
+    one ``finalize`` span a call while recording."""
+    scene = tiny[0]
+    gen = torch.Generator().manual_seed(5)
+    n, rows = 300, scene.slot_payload.shape[0]
+    o, d = torch.randn((n, 3), generator=gen), torch.randn((n, 3), generator=gen)
+    slot = torch.randint(-1, rows, (n,), generator=gen, dtype=torch.int32)
+    h = block_trace._slot_record(torch.rand((n,), generator=gen), slot)
+    want = block_trace.finalize_hit_plain(scene.slot_payload, o, d, h)
+    before = cuda_build.launches()
+    for on in (False, True):
+        if on:
+            pprofiler.start()
+        try:
+            got = block_trace.finalize_hit(scene.slot_payload, o, d, h)
+        finally:
+            if on:
+                pprofiler.stop()
+        assert got.t is h.t and got.slot is None
+        for k, w in zip(("tri", "bary", "payload"), want):
+            assert torch.equal(getattr(got, k).view(torch.int32), w.view(torch.int32)), k
+    assert cuda_build.launches() == before
+    spans = [r for r in pprofiler.records() if r.name == "finalize"]
+    assert [(r.attrs["lanes"], r.attrs["kernels"]) for r in spans] == [(n, 0)]
